@@ -4,8 +4,10 @@ GPU: builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, checks one MLP round
 on the card against the same round on the CPU, then drives the main path
 — FedCD (paper Algorithm 1, mode A) and the FedAvg baseline on the
-paper's 10-layer CNN at full width, 30 devices — and reports which
-kernels that run launched.
+paper's 10-layer CNN at full width, 30 devices, fused engine — checks
+that the legacy, batched and fused engines agree on the card, and drives
+the legacy and batched engines at the same full width. Each path reports
+which kernels it launched.
 
     python3 chip_smoke.py
 
@@ -37,6 +39,11 @@ M_ROWS = (2, 16)                    # aggregated models: steady state, m_cap
 RAGGED = [(1, 5, 1), (17, 5, 3), (3, 33, 10), (16, 7, 1027),
           (2, 32, 2303)]            # (M, B, D) off the float4 path
 SMOKE_ROUNDS = 6                    # passes milestone 5: a quantized clone
+N_DEVICES = 30                      # the legacy engine's eq-1 rows
+RAGGED_SINGLE = [(1, 5), (3, 17), (7, 1027), (30, 2303)]   # (N, D)
+RAGGED_DEQ = [(1, 128, 128), (5, 2304, 64), (30, 384, 128),
+              (4, 192, 64)]         # (N, D, block)
+ENGINE_ROUNDS = 8                   # the engine-agreement phase (MLP)
 # the paper config's lr (0.08) sends this CNN to NaN within a round on
 # the synthetic data, in the JAX reference as well; 0.01 stays finite
 CNN_LR = 0.01
@@ -201,6 +208,81 @@ def check_kernels(device, leaf_sizes):
     return rows
 
 
+def check_single_kernels(device, leaf_sizes):
+    """Phase 3, continued: the single-model eq-1 kernel and the fused
+    dequantize-aggregate kernel against their plain versions at the
+    legacy path's shapes (N = 30 device rows over the CNN's 20 leaves)
+    and at ragged and unaligned ones."""
+    import torch
+
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.weighted_agg import ops as wops
+    from repro_torch.kernels.weighted_agg.ref import (dequant_agg_ref,
+                                                      weighted_agg_ref)
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    n = N_DEVICES
+    w = torch.rand(n, generator=gen, device=device)
+    w[::2] = 0.0                                  # non-holders
+    den = torch.clamp(w.sum(), min=1e-12)
+    us = [torch.randn(n, d, generator=gen, device=device)
+          for d in leaf_sizes]
+    err = max(float((wops.weighted_agg(u, w, den)
+                     - weighted_agg_ref(u, w, den)).abs().max())
+              for u in us)
+    if not err <= AGG_TOL:
+        fail(f"weighted_agg N={n}: max_abs_err {err} > {AGG_TOL}")
+    ws = (w / den).contiguous()
+    t = timings(lambda: [wops.weighted_agg(u, w, den) for u in us],
+                lambda: [weighted_agg_ref(u, w, den) for u in us],
+                lambda: [torch.mv(u.t(), ws) for u in us])
+    nbytes = sum((n * d + n + 1 + d) * 4 for d in leaf_sizes)
+    b_ms, b_by = bound(nbytes, sum(2 * n * d for d in leaf_sizes))
+    rows = {("weighted_agg", n): dict(max_abs_err=err, bound_ms=b_ms,
+                                      bound_by=b_by, **t)}
+
+    # codes and scales from the quantize kernel, as the transport makes
+    packed = [qops.quantize(u * 0.1, 8) for u in us]
+    err = max(float((wops.dequant_agg(q, s, w, den)
+                     - dequant_agg_ref(q, s, w, den)).abs().max())
+              for q, s in packed)
+    if not err <= AGG_TOL:
+        fail(f"dequant_agg N={n}: max_abs_err {err} > {AGG_TOL}")
+    t = timings(lambda: [wops.dequant_agg(q, s, w, den) for q, s in packed],
+                lambda: [dequant_agg_ref(q, s, w, den) for q, s in packed])
+    pads = [q.shape[1] for q, _ in packed]
+    nbytes = sum(n * p + n * p // 32 + (n + 1) * 4 + p * 4 for p in pads)
+    # per value: convert, scale, multiply-add
+    b_ms, b_by = bound(nbytes, sum(4 * n * p for p in pads))
+    rows[("dequant_agg", n)] = dict(max_abs_err=err, bound_ms=b_ms,
+                                    bound_by=b_by, **t)
+
+    # ragged and unaligned shapes: the masked edge and the scalar paths
+    for rn, d in RAGGED_SINGLE:
+        wr = torch.rand(rn, generator=gen, device=device)
+        dr = torch.clamp(wr.sum(), min=1e-12)
+        for u in (torch.randn(rn, d, generator=gen, device=device),
+                  unaligned((rn, d), gen, device)):
+            e = float((wops.weighted_agg(u, wr, dr)
+                       - weighted_agg_ref(u, wr, dr)).abs().max())
+            if not e <= AGG_TOL:
+                fail(f"weighted_agg ragged {(rn, d)}: {e}")
+    for rn, d, block in RAGGED_DEQ:
+        wr = torch.rand(rn, generator=gen, device=device)
+        dr = torch.clamp(wr.sum(), min=1e-12)
+        q = torch.randint(-127, 128, (rn, d + 1), generator=gen,
+                          device=device, dtype=torch.int8)
+        s = torch.rand(rn, d // block, generator=gen, device=device) * 0.05
+        for qq in (q[:, :d].contiguous(), q.reshape(-1)[1:rn * d + 1]
+                   .view(rn, d)):
+            e = float((wops.dequant_agg(qq, s, wr, dr, block)
+                       - dequant_agg_ref(qq, s, wr, dr, block)).abs().max())
+            if not e <= AGG_TOL:
+                fail(f"dequant_agg ragged {(rn, d, block)}: {e}")
+    torch.cuda.synchronize()
+    return rows
+
+
 def mlp_card_vs_cpu(device):
     """Phase 4: one MLP round (and the milestone clone after it) of the
     port on the card against the same round on the CPU."""
@@ -284,6 +366,123 @@ def main_path(device):
     return walls
 
 
+def engines_agree(device):
+    """Phase 6: the legacy, batched and fused engines on the card, FedCD
+    over 8 MLP rounds and FedAvg over 4 (the reference's engine-
+    equivalence setup: 8 devices, milestones 2/5), unquantized: discrete
+    state exact, params within AGG_TOL."""
+    import torch
+
+    from repro_torch.configs.fedcd_cifar import HIERARCHICAL
+    from repro_torch.core.fedavg import FedAvgServer
+    from repro_torch.core.fedcd import ENGINES, FedCDServer
+    from repro_torch.data.partition import hierarchical_devices, stack_devices
+    from repro_torch.models.mlp import (init_mlp_classifier, mlp_accuracy,
+                                        mlp_loss)
+
+    data = stack_devices(hierarchical_devices(
+        seed=0, devices_per_archetype=1, n_train=64, n_val=32, n_test=32,
+        noise=2.0)[:8])
+    cfg = dataclasses.replace(HIERARCHICAL, n_devices=8, devices_per_round=4,
+                              milestones=(2, 5), max_models=8,
+                              late_delete_round=6, seed=0)
+    params = init_mlp_classifier(torch.Generator().manual_seed(0),
+                                 hidden=32)
+
+    def rows(srv, m):
+        return {k: v.cpu() for k, v in srv.registry.params[m].items()}
+
+    fedcd, fedavg = {}, {}
+    for engine in ENGINES:
+        fedcd[engine] = FedCDServer(cfg, params, mlp_loss, mlp_accuracy,
+                                    data, batch_size=16, spec=engine,
+                                    device=device)
+        fedcd[engine].run(ENGINE_ROUNDS)
+        fedavg[engine] = FedAvgServer(cfg, params, mlp_loss, mlp_accuracy,
+                                      data, batch_size=16, spec=engine,
+                                      device=device)
+        fedavg[engine].run(4)
+    ref, err = fedcd["legacy"], 0.0
+    for engine in ("batched", "fused"):
+        other = fedcd[engine]
+        if (ref.registry.live_ids() != other.registry.live_ids()
+                or ref.registry.genealogy() != other.registry.genealogy()
+                or not np.array_equal(ref.state.active, other.state.active)
+                or not np.array_equal(ref.state.history, other.state.history,
+                                      equal_nan=True)):
+            fail(f"engines: FedCD {engine} control-plane state differs "
+                 "from legacy")
+        for a, b in zip(ref.metrics, other.metrics):
+            if not (np.array_equal(a.preferred, b.preferred)
+                    and np.array_equal(a.test_acc, b.test_acc)
+                    and a.live_models == b.live_models
+                    and a.active_models == b.active_models):
+                fail(f"engines: FedCD {engine} round {a.round} metrics "
+                     "differ from legacy")
+        for m in ref.registry.live_ids():
+            ra, rb = rows(ref, m), rows(other, m)
+            err = max([err] + [float((ra[k] - rb[k]).abs().max())
+                               for k in ra])
+        a_ref, a_other = fedavg["legacy"], fedavg[engine]
+        for a, b in zip(a_ref.metrics, a_other.metrics):
+            if not np.array_equal(a.test_acc, b.test_acc):
+                fail(f"engines: FedAvg {engine} round {a.round} differs")
+        err = max([err] + [float((a_ref.params[k].cpu()
+                                  - a_other.params[k].cpu()).abs().max())
+                           for k in a_ref.params])
+    if not err <= AGG_TOL:
+        fail(f"engines: params differ by {err} > {AGG_TOL}")
+    return err, ref.registry.live_ids()
+
+
+def engine_path(device, engine):
+    """Phase 7: FedCD and FedAvg on ``engine`` ("legacy" or "batched")
+    with phase 5's configuration: the paper's CNN at full width, 30
+    devices, int8 transport, 6 rounds (round 6 aggregates two models).
+    Returns the per-round walls."""
+    import torch
+
+    from repro_torch.configs.fedcd_cifar import HIERARCHICAL
+    from repro_torch.core.fedavg import FedAvgServer
+    from repro_torch.core.fedcd import FedCDServer
+    from repro_torch.data.partition import hierarchical_devices, stack_devices
+    from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn
+
+    data = stack_devices(hierarchical_devices(seed=0))
+    cfg = dataclasses.replace(HIERARCHICAL, quantize_bits=8, lr=CNN_LR)
+    params = init_cnn(torch.Generator().manual_seed(0))
+    fedcd = FedCDServer(cfg, params, cnn_loss, cnn_accuracy, data,
+                        batch_size=32, spec=engine, device=device)
+    fedavg = FedAvgServer(cfg, params, cnn_loss, cnn_accuracy, data,
+                          batch_size=32, spec=engine, device=device)
+    walls = []
+    for t in range(1, SMOKE_ROUNDS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = fedcd.run_round(t)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        a = fedavg.run_round(t)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        walls.append((t1 - t0, t2 - t1))
+        print(f"[{engine} round {t}] fedcd wall_s={t1 - t0:.4f} "
+              f"test_acc={m.test_acc.mean():.4f} live={m.live_models} "
+              f"active={m.active_models} | fedavg wall_s={t2 - t1:.4f} "
+              f"test_acc={a.test_acc.mean():.4f}", flush=True)
+        if not (np.isfinite(m.test_acc).all() and np.isfinite(a.test_acc).all()):
+            fail(f"{engine} round {t}: non-finite accuracy")
+    if fedcd.metrics[4].live_models < 2:
+        fail(f"{engine}: fewer than 2 live models after round 5")
+    trees = [(f"fedcd model {m}", fedcd.registry.params[m])
+             for m in fedcd.registry.live_ids()] + [("fedavg", fedavg.params)]
+    for name, tree in trees:
+        if not all(bool(torch.isfinite(v).all()) for v in tree.values()):
+            fail(f"{engine} {name}: non-finite params after "
+                 f"{SMOKE_ROUNDS} rounds")
+    return walls
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -324,10 +523,13 @@ def main() -> int:
     # shapes (the CNN's 20 leaves) and at ragged ones
     leaves = [v.numel() for v in init_cnn(torch.Generator()).values()]
     rows = check_kernels(device, leaves)
+    rows.update(check_single_kernels(device, leaves))
     for (name, m), r in rows.items():
         extra = "".join(f" {k}={r[k]}" for k in ("code_mismatches",
                                                  "scale_rel_err") if k in r)
-        print(f"[kernel {name} M={m} B={B_PAIRS} leaves={len(leaves)}] "
+        shape = (f"N={m}" if name in ("weighted_agg", "dequant_agg")
+                 else f"M={m} B={B_PAIRS}")
+        print(f"[kernel {name} {shape} leaves={len(leaves)}] "
               f"max_abs_err={r['max_abs_err']} ms={r['ms']:.5f} "
               f"eager_ms={r['eager_ms']:.5f} plain_ms={r['plain_ms']:.5f} "
               f"plain_eager_ms={r['plain_eager_ms']:.5f} "
@@ -339,29 +541,72 @@ def main() -> int:
     print(f"[mlp card-vs-cpu] bank max_abs_err={err} val matrices equal")
 
     # phase 5: the main path, with every launch counter from zero
-    counters = (wops.multi_weighted_agg, qops.quantize, qops.dequantize)
-    for fn in counters:
-        fn.launches = 0
-    walls = main_path(device)
-    launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"[main path] fedcd mean wall_s rounds 2-{SMOKE_ROUNDS}="
-          f"{np.mean([w[0] for w in walls[1:]]):.4f} fedavg="
-          f"{np.mean([w[1] for w in walls[1:]]):.4f} launches={launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    counters = (wops.multi_weighted_agg, wops.weighted_agg, wops.dequant_agg,
+                qops.quantize, qops.dequantize)
+
+    def drive(path):
+        """Run ``path`` with every launch counter from zero; return its
+        result and the counts it left."""
+        for fn in counters:
+            fn.launches = 0
+        out = path()
+        torch.cuda.synchronize()
+        return out, {fn.__name__: fn.launches for fn in counters}
+
+    def report(tag, walls, launches):
+        print(f"[{tag}] fedcd mean wall_s rounds 2-{SMOKE_ROUNDS}="
+              f"{np.mean([w[0] for w in walls[1:]]):.4f} fedavg="
+              f"{np.mean([w[1] for w in walls[1:]]):.4f} "
+              f"launches={launches}")
+
+    walls, launches = drive(lambda: main_path(device))
+    report("main path", walls, launches)
+    for name in ("multi_weighted_agg", "quantize", "dequantize"):
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
 
+    # phase 6: the three engines agree on the card
+    err, live = engines_agree(device)
+    print(f"[engines] legacy == batched == fused over {ENGINE_ROUNDS} MLP "
+          f"rounds (FedCD) and 4 (FedAvg): discrete state equal, params "
+          f"max_abs_err={err}, live={live}")
+
+    # phase 7: this slice's path, the legacy engine, at full width; then
+    # the batched engine
+    walls, legacy = drive(lambda: engine_path(device, "legacy"))
+    report("legacy path", walls, legacy)
+    if legacy["weighted_agg"] <= 0:
+        fail("kernel weighted_agg was not launched on the legacy path")
+    for name in ("quantize", "dequantize"):
+        if legacy[name] <= 0:
+            fail(f"kernel {name} was not launched on the legacy path")
+    walls, batched = drive(lambda: engine_path(device, "batched"))
+    report("batched path", walls, batched)
+    for name in ("multi_weighted_agg", "quantize", "dequantize"):
+        if batched[name] <= 0:
+            fail(f"kernel {name} was not launched on the batched path")
+    launches["weighted_agg"] = legacy["weighted_agg"]
+
+    # launches: kernels 1-3 on the fused main path, weighted_agg on the
+    # legacy path; dequant_agg is on no path, so its count stays 0
     meta = {
         "multi_weighted_agg": ("csrc/weighted_agg.cu",
-                               "src/repro/kernels/weighted_agg/kernel.py:77"),
+                               "src/repro/kernels/weighted_agg/kernel.py:77",
+                               M_ROWS[0]),
         "quantize": ("csrc/quantize.cu",
-                     "src/repro/kernels/quantize/kernel.py:48"),
+                     "src/repro/kernels/quantize/kernel.py:48", M_ROWS[0]),
         "dequantize": ("csrc/quantize.cu",
-                       "src/repro/kernels/quantize/kernel.py:74"),
+                       "src/repro/kernels/quantize/kernel.py:74", M_ROWS[0]),
+        "weighted_agg": ("csrc/weighted_agg.cu",
+                         "src/repro/kernels/weighted_agg/kernel.py:56",
+                         N_DEVICES),
+        "dequant_agg": ("csrc/weighted_agg.cu",
+                        "src/repro/kernels/weighted_agg/kernel.py:105",
+                        N_DEVICES),
     }
     kernels = []
-    for name, (src, replaces) in meta.items():
-        r = rows[(name, M_ROWS[0])]
+    for name, (src, replaces, key) in meta.items():
+        r = rows[(name, key)]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/{src}", "replaces": replaces,
@@ -369,6 +614,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    kernels[-1]["note"] = ("no path calls it, in either package; launched "
+                           "only by the kernel check above")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

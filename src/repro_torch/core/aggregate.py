@@ -2,21 +2,29 @@
 ``repro/core/aggregate.py``).
 
 ``w_m = Σ_i w_m_i · c_m_i / Σ_i c_m_i`` over the devices contributing to
-model m. Every leaf goes through ``kernels.weighted_agg.ops``: on CUDA
-tensors that is the hand-written kernel (the reference keeps its Pallas
-kernel behind ``use_kernel=True``; here the kernel is the path), on CPU
-tensors its plain version.
+model m. (The paper's printed denominator Σ_m c_m_i is a typo — it equals
+1 after eq 3 and would make w_m a *sum*, not an average; the literal form
+is available behind ``literal_eq1=True``, as in the reference.)
+
+Every leaf goes through ``kernels.weighted_agg.ops``: on CUDA tensors
+that is a hand-written kernel (the reference keeps its Pallas kernels
+behind ``use_kernel=True``; here the kernels are the path), on CPU
+tensors its plain version. ``multi_weighted_average`` (the fused and
+batched engines) launches ``multi_weighted_agg`` once per leaf;
+``weighted_average`` (the legacy engines) launches ``weighted_agg`` once
+per leaf.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.weighted_agg import ops as wa_ops
 from repro_torch.models.common import Params
 
 
-def multi_weighted_average(stacked_updates: Params,
-                           weights: torch.Tensor) -> Params:
+def multi_weighted_average(stacked_updates: Params, weights: torch.Tensor,
+                           literal_eq1: bool = False) -> Params:
     """Aggregate every model that trained from one shared work batch.
 
     stacked_updates: param dict with leading pair axis B; weights (M, B)
@@ -24,7 +32,8 @@ def multi_weighted_average(stacked_updates: Params,
     elsewhere (padding pairs are all-zero columns). Returns a param dict
     with leading model axis M."""
     w = weights.float().contiguous()
-    denoms = torch.clamp(w.sum(dim=1), min=1e-12)
+    denoms = (torch.ones_like(w[:, 0]) if literal_eq1
+              else torch.clamp(w.sum(dim=1), min=1e-12))
     out: Params = {}
     for name, leaf in stacked_updates.items():
         B = leaf.shape[0]
@@ -35,9 +44,31 @@ def multi_weighted_average(stacked_updates: Params,
     return out
 
 
-def weighted_average(stacked_updates: Params, weights: torch.Tensor) -> Params:
+def weighted_average(stacked_updates: Params, weights: torch.Tensor,
+                     literal_eq1: bool = False) -> Params:
     """stacked_updates: param dict with leading device axis N; weights
-    (N,). Devices with weight 0 contribute nothing. The one-model case of
-    :func:`multi_weighted_average`."""
-    multi = multi_weighted_average(stacked_updates, weights.reshape(1, -1))
-    return {name: leaf[0] for name, leaf in multi.items()}
+    (N,). Devices with weight 0 contribute nothing (deleted or
+    non-participating) — unless their update is not finite: like the
+    reference, the kernel multiplies every row. The denominator stays a
+    0-d tensor on the weights' device."""
+    w = weights.float().contiguous()
+    denom = (torch.ones((), dtype=torch.float32, device=w.device)
+             if literal_eq1 else torch.clamp(w.sum(), min=1e-12))
+    out: Params = {}
+    for name, leaf in stacked_updates.items():
+        N = leaf.shape[0]
+        flat = leaf.reshape(N, -1).float().contiguous()
+        agg = wa_ops.weighted_agg(flat, w, denom)
+        out[name] = agg.reshape(tuple(leaf.shape[1:])).to(leaf.dtype)
+    return out
+
+
+def participation_weights(scores_c: np.ndarray, model_id: int,
+                          participating: np.ndarray,
+                          active: np.ndarray) -> np.ndarray:
+    """Per-device weight for aggregating model ``model_id`` this round:
+    c_m_i for participating devices that hold m, else 0."""
+    w = scores_c[:, model_id].copy()
+    w[~participating] = 0.0
+    w[~active[:, model_id]] = 0.0
+    return w

@@ -1,10 +1,13 @@
 """FedAvg baseline (McMahan et al. 2017), the paper's comparison system
-(port of ``repro/core/fedavg.py``, the synchronous fused engine).
+(port of ``repro/core/fedavg.py``, the synchronous meshless engines).
 
 Identical client loop and data plumbing as FedCDServer so the comparison
 isolates the algorithm: one global model, uniform averaging over the
-participating devices' updates. It draws the same sampling stream as
-FedCDServer, so FedCD-vs-FedAvg comparisons see identical cohorts.
+participating devices' updates. Engines mirror FedCDServer: ``"fused"``
+(default) keeps the global model as row 0 of a device bank and runs the
+round as one call; ``"batched"`` / ``"legacy"`` keep it as a param dict
+on the device. It draws the same sampling stream as FedCDServer, so
+FedCD-vs-FedAvg comparisons see identical cohorts.
 """
 from __future__ import annotations
 
@@ -16,11 +19,13 @@ import numpy as np
 import torch
 
 from repro_torch.config import FedCDConfig
-from repro_torch.core.fedcd import reject_unported, to_device
+from repro_torch.core.fedcd import to_device
 from repro_torch.core.plan import RoundPlan
+from repro_torch.core.spec import reject_unported, resolve_spec
 from repro_torch.data.bank import DeviceDataBank
 from repro_torch.device import resolve_device
-from repro_torch.federated.executors import FedAvgFusedExecutor
+from repro_torch.federated.executors import (FedAvgFusedExecutor,
+                                             FedAvgHostExecutor)
 from repro_torch.federated.simulation import draw_round_sample
 
 
@@ -37,12 +42,35 @@ class FedAvgServer:
     def __init__(self, cfg: FedCDConfig, init_params: Dict[str, Any],
                  loss_fn: Callable, acc_fn: Callable,
                  data: Dict[str, Any], batch_size: int = 64,
-                 device: Optional[Union[str, torch.device]] = None,
-                 **engine_options: Any):
-        """``device=None`` means ``"cuda"``; without a GPU this raises —
-        pass ``device="cpu"`` to run on the CPU. The global model is
-        updated in place each round."""
-        reject_unported(engine_options, "FedAvgServer")
+                 spec: Any = None, engine: Optional[str] = None,
+                 mesh: Any = None, pipeline: Optional[bool] = None,
+                 straggler: Any = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        """``spec``: an :class:`~repro_torch.core.spec.EngineSpec` or
+        preset string — ``"fused"``, ``"batched"`` or ``"legacy"``. The
+        FedCD-only capabilities (``scenario``, ``sparse_eval``,
+        ``migrate_threshold``, ``use_agg_kernel``) raise ``ValueError``
+        as in the reference; fields the port does not run yet raise
+        ``NotImplementedError``. ``engine=``/``mesh=``/``pipeline=``/
+        ``straggler=`` are the deprecated spellings.
+
+        ``device=None`` means ``"cuda"``; without a GPU this raises —
+        pass ``device="cpu"`` to run on the CPU. The fused engine updates
+        the global model in place each round."""
+        spec = resolve_spec(
+            spec, dict(engine=engine, mesh=mesh, pipeline=pipeline,
+                       straggler=straggler), "FedAvgServer")
+        for name, on in (("scenario churn", spec.scenario is not None),
+                         ("sparse_eval", spec.sparse_eval is not None),
+                         ("migrate_threshold",
+                          spec.migrate_threshold is not None),
+                         ("use_agg_kernel", spec.use_agg_kernel)):
+            if on:
+                raise ValueError(
+                    f"FedAvgServer does not support {name} (FedCD only)")
+        reject_unported(spec, "FedAvgServer")
+        self.spec = spec
+        self.engine = spec.engine
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rng = np.random.default_rng(cfg.seed)
@@ -50,8 +78,14 @@ class FedAvgServer:
         self.batch_size = batch_size
         self.n_devices = data["train"][0].shape[0]
         params = to_device(init_params, self.device)
-        self.executor = FedAvgFusedExecutor(
-            cfg, DeviceDataBank(data, self.device), params, loss_fn, acc_fn)
+        databank = DeviceDataBank(data, self.device)
+        if self.engine == "fused":
+            self.executor = FedAvgFusedExecutor(cfg, databank, params,
+                                                loss_fn, acc_fn)
+        else:
+            self.executor = FedAvgHostExecutor(
+                cfg, databank, params, loss_fn, acc_fn, batch_size,
+                batched=(self.engine == "batched"))
         self.metrics: List[FedAvgRound] = []
         self._model_bytes = sum(v.numel() * v.element_size()
                                 for v in params.values())

@@ -1,5 +1,5 @@
 """FedCD server orchestration — paper Algorithm 1, mode A (port of
-``repro/core/fedcd.py``, the synchronous fused engine).
+``repro/core/fedcd.py``, the synchronous meshless engines).
 
 One ``FedCDServer.run_round`` = one pass of Algorithm 1: sample K
 devices → each trains all its active models for E epochs → score-weighted
@@ -8,9 +8,17 @@ scores (eq 2-3) → deletions (eq 4 + late rule) → milestone cloning.
 
 The server is the CONTROL PLANE only: every round it asks a
 :class:`~repro_torch.core.plan.RoundPlanner` for a host-side plan and
-hands it to the :class:`~repro_torch.federated.executors.FusedExecutor`,
-whose one round call trains, aggregates, quantizes and evaluates on the
-server's device. Host RNG streams match the reference's: ``rng`` drives
+hands it to the executor of its :class:`~repro_torch.core.spec.
+EngineSpec`, which runs the round on the server's device:
+
+* ``"fused"`` (default): params in one stacked bank, the round as one
+  call (:class:`~repro_torch.federated.executors.FusedExecutor`);
+* ``"batched"``: one call over the gathered pairs, then per-model
+  transport (:class:`~repro_torch.federated.executors.BatchedExecutor`);
+* ``"legacy"``: the per-model loop, every model trained on every device
+  (:class:`~repro_torch.federated.executors.LegacyExecutor`).
+
+Host RNG streams match the reference's on every engine: ``rng`` drives
 round sampling, ``life_rng`` the clone-score noise.
 """
 from __future__ import annotations
@@ -29,27 +37,25 @@ from repro_torch.core.plan import RoundPlanner
 from repro_torch.core.registry import ModelRegistry
 from repro_torch.core.scores import (init_scores, normalized_scores,
                                      push_accuracies)
+from repro_torch.core.spec import reject_unported, resolve_spec
 from repro_torch.data.bank import DeviceDataBank
 from repro_torch.device import resolve_device
-from repro_torch.federated.executors import FusedExecutor
+from repro_torch.federated.executors import (BatchedExecutor, FusedExecutor,
+                                             LegacyExecutor)
 from repro_torch.federated.simulation import draw_round_sample
+
+# the meshless engines the port runs (tests iterate this tuple)
+ENGINES = ("fused", "batched", "legacy")
 
 LIFECYCLE_STREAM = 0xFEDCD   # keys the clone-noise RNG off the sampling one
 
 
-def reject_unported(options: Dict[str, Any], owner: str) -> None:
-    """Raise on any of the reference's engine options (spec, mesh,
-    pipeline, semi-sync, sparse eval, churn, checkpoints): the port has
-    only the synchronous fused engine so far."""
-    if options:
-        raise NotImplementedError(
-            f"{owner}: {sorted(options)} not supported by the PyTorch port "
-            "yet; only the synchronous fused engine is ported")
-
-
 def to_device(params: Dict[str, Any], device: torch.device
               ) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(device) for k, v in params.items()}
+    """Copies of ``params`` on ``device`` (never aliases of the caller's
+    tensors)."""
+    return {k: torch.as_tensor(v).to(device, copy=True)
+            for k, v in params.items()}
 
 
 @dataclass
@@ -69,16 +75,40 @@ class FedCDServer:
     def __init__(self, cfg: FedCDConfig, init_params: Dict[str, Any],
                  loss_fn: Callable, acc_fn: Callable,
                  data: Dict[str, Any], batch_size: int = 64,
-                 device: Optional[Union[str, torch.device]] = None,
-                 **engine_options: Any):
+                 spec: Any = None,
+                 use_agg_kernel: Optional[bool] = None,
+                 engine: Optional[str] = None,
+                 mesh: Any = None, pipeline: Optional[bool] = None,
+                 sparse_eval: Optional[float] = None,
+                 scenario: Any = None,
+                 migrate_threshold: Optional[float] = None,
+                 straggler: Any = None,
+                 device: Optional[Union[str, torch.device]] = None):
         """data: stacked device splits from ``partition.stack_devices``:
         {"train": (xs (N,n,...), ys), "val": ..., "test": ...}.
         init_params: a flat param dict (tensors or arrays).
 
+        ``spec``: an :class:`~repro_torch.core.spec.EngineSpec` or preset
+        string (``"fused"``, ``"batched"``, ``"legacy"``, each optionally
+        ``+kernel``). The other engine kwargs are the reference's
+        deprecated spellings and translate through ``resolve_spec``.
+        Invalid combinations raise ``ValueError`` and fields the port
+        does not run yet ``NotImplementedError``, here at construction.
+
         ``device=None`` means ``"cuda"``; without a GPU this raises —
-        pass ``device="cpu"`` to run on the CPU. The param bank is updated
-        in place each round (the reference donates it)."""
-        reject_unported(engine_options, "FedCDServer")
+        pass ``device="cpu"`` to run on the CPU. The fused engine updates
+        its param bank in place each round (the reference donates it);
+        the legacy and batched engines keep a dict of params per model
+        on the same device."""
+        spec = resolve_spec(
+            spec, dict(engine=engine, mesh=mesh, pipeline=pipeline,
+                       sparse_eval=sparse_eval, scenario=scenario,
+                       migrate_threshold=migrate_threshold,
+                       use_agg_kernel=use_agg_kernel,
+                       straggler=straggler), "FedCDServer")
+        reject_unported(spec, "FedCDServer")
+        self.spec = spec
+        self.engine = spec.engine
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rng = np.random.default_rng(cfg.seed)
@@ -91,13 +121,13 @@ class FedCDServer:
                              f"{cfg.n_devices}")
         self.databank = DeviceDataBank(data, self.device)
         params = to_device(init_params, self.device)
-        self.registry = ModelRegistry.create(params, cfg.max_models,
-                                             stacked=True)
+        # only the fused engine stacks its params into one bank
+        self.registry = ModelRegistry.create(
+            params, cfg.max_models, stacked=(self.engine == "fused"))
         self.state = init_scores(self.n_devices, cfg.max_models,
                                  cfg.score_window)
         self.planner = RoundPlanner(cfg)
-        self.executor = FusedExecutor(cfg, self.registry, self.databank,
-                                      loss_fn, acc_fn)
+        self.executor = self._make_executor(loss_fn, acc_fn)
         self.metrics: List[RoundMetrics] = []
         self._model_bytes = sum(v.numel() * v.element_size()
                                 for v in params.values())
@@ -107,6 +137,15 @@ class FedCDServer:
             if cfg.quantize_bits else self._model_bytes)
         self._prefetch: Optional[Tuple[int, Tuple[np.ndarray,
                                                   np.ndarray]]] = None
+
+    def _make_executor(self, loss_fn: Callable, acc_fn: Callable):
+        if self.engine == "fused":
+            return FusedExecutor(self.cfg, self.registry, self.databank,
+                                 loss_fn, acc_fn)
+        cls = (BatchedExecutor if self.engine == "batched"
+               else LegacyExecutor)
+        return cls(self.cfg, self.registry, self.databank, loss_fn, acc_fn,
+                   self.batch_size)
 
     # -- transport accounting (paper §3.6) --------------------------------
     def _transport_bytes(self, n_transfers: int) -> int:

@@ -1,10 +1,9 @@
 """Device-side round executors: the data-plane half of a federated round
-(port of the synchronous fused executors of
+(port of the synchronous legacy, batched and fused executors of
 ``repro/federated/executors.py``).
 
 A :class:`RoundExecutor` turns one host-built
-:class:`~repro_torch.core.plan.RoundPlan` into device work and owns the
-eval-row caches and the test-row prediction. The contract:
+:class:`~repro_torch.core.plan.RoundPlan` into device work. The contract:
 
     plan_hints()  -> what the executor can reuse bit-identically
     launch(plan)  -> enqueue the round's device work
@@ -20,12 +19,20 @@ import numpy as np
 import torch
 
 from repro_torch.config import FedCDConfig
+from repro_torch.core import quantize as qz
+from repro_torch.core.aggregate import (multi_weighted_average,
+                                        weighted_average)
 from repro_torch.core.plan import EvalHints, RoundPlan
 from repro_torch.core.registry import ModelRegistry
 from repro_torch.data.bank import DeviceDataBank
-from repro_torch.federated.simulation import (make_fused_eval,
+from repro_torch.federated.simulation import (bucket_size, make_eval,
+                                              make_fused_eval,
                                               make_fused_round,
+                                              make_group_eval,
+                                              make_group_train,
+                                              make_local_train,
                                               pad_live_rows, pad_work_batch)
+from repro_torch.models.common import Params
 
 
 @dataclass
@@ -47,6 +54,10 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _stack(trees: List[Params]) -> Params:
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
 class RoundExecutor:
     """Shared scaffolding; engines override the dispatch internals."""
 
@@ -56,6 +67,11 @@ class RoundExecutor:
         self.registry = registry
         self.databank = databank
         self.n_devices = databank.n_devices
+        self._result: Optional[RoundResult] = None
+
+    @property
+    def _dev(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        return self.databank.splits
 
     def plan_hints(self) -> Optional[EvalHints]:
         return None                      # no bit-identical reuse
@@ -64,7 +80,8 @@ class RoundExecutor:
         raise NotImplementedError
 
     def readback(self) -> RoundResult:
-        raise NotImplementedError
+        result, self._result = self._result, None
+        return result
 
     def on_clones(self, cloned: List[Tuple[int, int]]) -> None:
         pass
@@ -72,6 +89,139 @@ class RoundExecutor:
     def collect(self, preferred: np.ndarray
                 ) -> Tuple[np.ndarray, np.ndarray]:
         raise NotImplementedError
+
+    # -- shared helpers ---------------------------------------------------
+    def _maybe_compress(self, params: Params) -> Params:
+        return qz.roundtrip(params, self.cfg.quantize_bits)
+
+    def _holder_weights(self, plan: RoundPlan, m: int) -> np.ndarray:
+        """Per-device aggregation weight for model ``m``: c_m_i on its
+        work-pair devices, 0 elsewhere — the plan-based form of
+        ``aggregate.participation_weights`` (the pair list IS
+        ``participating & active``, so masking reduces to a gather)."""
+        w = np.zeros(self.n_devices, np.float32)
+        d = np.asarray(plan.pair_device,
+                       np.int64)[np.asarray(plan.pair_model) == m]
+        w[d] = plan.scores[d, m]
+        return w
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32),
+                               device=self._dev["train"][0].device)
+
+
+class LegacyExecutor(RoundExecutor):
+    """The original per-model loop: every model with work trains on ALL
+    N devices (non-holders trained, then zero-weighted away by eq 1's
+    single-model kernel), one call per model for training and for each
+    eval. O(models x devices) work; kept as the equivalence oracle.
+    Params live in the registry's dict mode, on the server's device."""
+
+    def __init__(self, cfg, registry, databank, loss_fn, acc_fn,
+                 batch_size: int):
+        super().__init__(cfg, registry, databank)
+        self.local_train = make_local_train(loss_fn, cfg.lr, batch_size)
+        self.evaluate = make_eval(acc_fn)
+
+    def launch(self, plan: RoundPlan) -> None:
+        xs, ys = self._dev["train"]
+        for m in plan.agg_models:
+            trained = self.local_train(self.registry.params[m], xs, ys,
+                                       plan.perms)
+            w = self._tensor(self._holder_weights(plan, m))
+            self.registry.params[m] = self._maybe_compress(
+                weighted_average(trained, w))
+
+        accs = np.zeros((self.n_devices, self.cfg.max_models))
+        vx, vy = self._dev["val"]
+        for m in plan.live:
+            accs[:, m] = _host(self.evaluate(self.registry.params[m],
+                                             vx, vy))
+        self._result = RoundResult(accs)
+
+    def collect(self, preferred: np.ndarray
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        tx, ty = self._dev["test"]
+        vx, vy = self._dev["val"]
+        test_acc = np.zeros(self.n_devices)
+        val_acc = np.zeros(self.n_devices)
+        for m in np.unique(preferred):
+            sel = preferred == m
+            if m not in self.registry.params:
+                continue
+            test_acc[sel] = _host(self.evaluate(
+                self.registry.params[m], tx, ty))[sel]
+            val_acc[sel] = _host(self.evaluate(
+                self.registry.params[m], vx, vy))[sel]
+        return test_acc, val_acc
+
+
+class BatchedExecutor(RoundExecutor):
+    """The batched engine: one call trains the gathered pairs and one
+    multi-model aggregation averages them, then each model's row is
+    transport-compressed on its own; dense (live, N) eval matrices are
+    re-dispatched in ``collect``. Kept as the fused engine's baseline.
+    Params live in the registry's dict mode, on the server's device."""
+
+    def __init__(self, cfg, registry, databank, loss_fn, acc_fn,
+                 batch_size: int):
+        super().__init__(cfg, registry, databank)
+        self.group_train = make_group_train(loss_fn, cfg.lr, batch_size)
+        self.group_eval = make_group_eval(acc_fn)
+
+    def _stack_params(self, model_ids: List[int], pad_to: int) -> Params:
+        trees = [self.registry.params[m] for m in model_ids]
+        return _stack(trees + [trees[0]] * (pad_to - len(trees)))
+
+    def _eval_matrix(self, x: torch.Tensor, y: torch.Tensor
+                     ) -> Tuple[np.ndarray, List[int]]:
+        live = self.registry.live_ids()
+        if not live:
+            return np.zeros((0, self.n_devices)), live
+        stacked = self._stack_params(live, bucket_size(len(live),
+                                                       minimum=1))
+        return _host(self.group_eval(stacked, x, y)), live
+
+    def launch(self, plan: RoundPlan) -> None:
+        xs, ys = self._dev["train"]
+        agg_models = plan.agg_models
+        if agg_models:
+            b = len(plan.pair_model)
+            m_pad = bucket_size(len(agg_models), minimum=1)
+            slot = {m: j for j, m in enumerate(agg_models)}
+            m_idx, d_idx, pperms = pad_work_batch(
+                [slot[m] for m in plan.pair_model], plan.pair_device,
+                [plan.perms[d] for d in plan.pair_device])
+            stacked = self._stack_params(agg_models, m_pad)
+            trained = self.group_train(stacked, m_idx, xs, ys, d_idx,
+                                       pperms)
+            w = np.zeros((m_pad, len(m_idx)), np.float32)
+            w[m_idx[:b], np.arange(b)] = plan.scores[plan.pair_device,
+                                                     plan.pair_model]
+            agg = multi_weighted_average(trained, self._tensor(w))
+            for j, m in enumerate(agg_models):
+                self.registry.params[m] = self._maybe_compress(
+                    {k: v[j] for k, v in agg.items()})
+
+        accs = np.zeros((self.n_devices, self.cfg.max_models))
+        mat, live = self._eval_matrix(*self._dev["val"])
+        for j, m in enumerate(live):
+            accs[:, m] = mat[j]
+        self._result = RoundResult(accs)
+
+    def collect(self, preferred: np.ndarray
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        test_acc = np.zeros(self.n_devices)
+        val_acc = np.zeros(self.n_devices)
+        test_mat, live = self._eval_matrix(*self._dev["test"])
+        val_mat, _ = self._eval_matrix(*self._dev["val"])
+        slot = {m: j for j, m in enumerate(live)}
+        for i in range(self.n_devices):
+            j = slot.get(int(preferred[i]))
+            if j is not None:
+                test_acc[i] = test_mat[j, i]
+                val_acc[i] = val_mat[j, i]
+        return test_acc, val_acc
 
 
 class FusedExecutor(RoundExecutor):
@@ -93,10 +243,6 @@ class FusedExecutor(RoundExecutor):
         self._needs_refresh = False
         self._pending: Optional[Tuple[RoundPlan, Dict[str, Callable]]] = \
             None
-
-    @property
-    def _dev(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
-        return self.databank.splits
 
     # -- planning hints + lifecycle hooks ---------------------------------
     def plan_hints(self) -> EvalHints:
@@ -259,6 +405,68 @@ class FusedExecutor(RoundExecutor):
 class FedAvgResult:
     val_acc: np.ndarray                  # (N,)
     test_acc: np.ndarray                 # (N,)
+
+
+class FedAvgHostExecutor:
+    """The legacy / batched FedAvg paths: the global model is a param
+    dict on the server's device, replaced each round. Legacy trains it on
+    every device and averages the participants with the single-model
+    kernel; batched trains only the participants and averages them with
+    the multi-model kernel's one-row case."""
+
+    def __init__(self, cfg: FedCDConfig, databank: DeviceDataBank,
+                 init_params: Params, loss_fn, acc_fn, batch_size: int,
+                 batched: bool):
+        self.cfg = cfg
+        self.databank = databank
+        self.n_devices = databank.n_devices
+        self.params = init_params
+        self.batched = batched
+        if batched:
+            self.group_train = make_group_train(loss_fn, cfg.lr,
+                                                batch_size)
+        else:
+            self.local_train = make_local_train(loss_fn, cfg.lr,
+                                                batch_size)
+        self.evaluate = make_eval(acc_fn)
+        self._result: Optional[FedAvgResult] = None
+
+    def get_params(self) -> Params:
+        return self.params
+
+    def set_params(self, value: Params) -> None:
+        device = self.databank.splits["train"][0].device
+        self.params = {k: torch.as_tensor(v).to(device)
+                       for k, v in value.items()}
+
+    def launch(self, plan: RoundPlan) -> None:
+        xs, ys = self.databank.splits["train"]
+        if self.batched:
+            d_ids = plan.pair_device
+            b = len(d_ids)
+            m_idx, d_idx, pp = pad_work_batch(
+                [0] * b, list(d_ids), [plan.perms[d] for d in d_ids])
+            stacked = {k: v[None] for k, v in self.params.items()}
+            trained = self.group_train(stacked, m_idx, xs, ys, d_idx, pp)
+            w = torch.zeros((1, len(m_idx)), dtype=torch.float32,
+                            device=xs.device)
+            w[0, :b] = 1.0
+            agg = multi_weighted_average(trained, w)
+            self.params = {k: v[0] for k, v in agg.items()}
+        else:
+            trained = self.local_train(self.params, xs, ys, plan.perms)
+            w = torch.as_tensor(plan.participating.astype(np.float32),
+                                device=xs.device)
+            self.params = weighted_average(trained, w)
+        vx, vy = self.databank.splits["val"]
+        tx, ty = self.databank.splits["test"]
+        self._result = FedAvgResult(
+            val_acc=_host(self.evaluate(self.params, vx, vy)),
+            test_acc=_host(self.evaluate(self.params, tx, ty)))
+
+    def readback(self) -> FedAvgResult:
+        result, self._result = self._result, None
+        return result
 
 
 class FedAvgFusedExecutor:

@@ -1,12 +1,23 @@
-"""Mode-A federated simulation: the fused round (port of the fused-engine
-part of ``repro/federated/simulation.py``).
+"""Mode-A federated simulation: local SGD on the devices' data (port of
+``repro/federated/simulation.py``: the legacy, batched and fused
+engines' building blocks).
 
-Every sampled ``(model, device)`` pair trains a copy of its model on the
+Every ``(model, device)`` pair trains a copy of its model on the
 device's data for E epochs of minibatch SGD, all pairs at once
 (``torch.func.vmap`` of ``torch.func.grad``, where the reference uses
-``jax.vmap(jax.grad)``); the models that trained are aggregated by eq 1,
-transport-quantized, and written back into the stacked bank; then the
-val/test accuracy matrices are computed.
+``jax.vmap(jax.grad)``). Three generations of round data plane, as in
+the reference:
+
+* ``make_local_train`` / ``make_eval`` — the legacy per-model loop's
+  building blocks (one model trains on every device);
+* ``make_group_train`` / ``make_group_eval`` — the batched engine: one
+  call over gathered (model, device) pairs, dense (M, N) eval matrices;
+* ``make_fused_round`` / ``make_fused_eval`` — the fused engine: train,
+  eq-1 aggregation, the transport roundtrip and the scatter into the
+  stacked bank in one call, then the val/test eval matrices.
+
+Index, permutation and weight arguments are host numpy arrays; params
+and data are tensors on the server's device.
 """
 from __future__ import annotations
 
@@ -111,6 +122,78 @@ def _eval_gathered(eval_model: Callable, stacked: Params, idx: np.ndarray,
     return torch.stack([
         eval_model({k: v[int(m)] for k, v in stacked.items()}, xs, ys)
         for m in idx])
+
+
+def make_local_train(loss_fn: Callable, lr: float, batch_size: int
+                     ) -> Callable:
+    """fn(params, xs (N, n, ...), ys (N, n), perms (N, T, b)) -> trained
+    param dict with leading device axis N: ONE model trained on EVERY
+    device's data (the reference vmaps with ``in_axes=(None, 0, 0, 0)``),
+    through the pair trainer with pair k = (model 0, device k).
+    ``batch_size`` is implied by ``perms``; it is kept for the
+    reference's signature."""
+    train = _pair_train(loss_fn, lr)
+
+    def local_train(params: Params, xs: torch.Tensor, ys: torch.Tensor,
+                    perms: np.ndarray) -> Params:
+        device = xs.device
+        n = perms.shape[0]
+        stacked = {k: v[None] for k, v in params.items()}
+        with torch.no_grad():
+            return train(stacked,
+                         torch.zeros(n, dtype=torch.int64, device=device),
+                         xs, ys, torch.arange(n, device=device),
+                         _index(perms, device))
+
+    return local_train
+
+
+def make_eval(acc_fn: Callable) -> Callable:
+    """fn(params, xs (N, n, ...), ys (N, n)) -> (N,) accuracy of one
+    model on every device's split."""
+    eval_model = vmap(acc_fn, in_dims=(None, 0, 0))
+
+    def evaluate(params: Params, xs: torch.Tensor,
+                 ys: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return eval_model(params, xs, ys)
+
+    return evaluate
+
+
+def make_group_train(loss_fn: Callable, lr: float, batch_size: int
+                     ) -> Callable:
+    """Batched multi-model local training over a gathered work batch:
+    fn(stacked (M, ...), m_idx (B,), xs, ys, d_idx (B,), perms (B, T, b))
+    -> trained param dict with leading pair axis B. Pair k trains model
+    ``m_idx[k]`` of ``stacked`` on device ``d_idx[k]``'s data; only
+    ``(participating & holder)`` pairs are gathered, so the work is
+    O(pairs), not the legacy O(models x devices)."""
+    train = _pair_train(loss_fn, lr)
+
+    def group_train(stacked: Params, m_idx: np.ndarray, xs: torch.Tensor,
+                    ys: torch.Tensor, d_idx: np.ndarray,
+                    perms: np.ndarray) -> Params:
+        device = xs.device
+        with torch.no_grad():
+            return train(stacked, _index(m_idx, device), xs, ys,
+                         _index(d_idx, device), _index(perms, device))
+
+    return group_train
+
+
+def make_group_eval(acc_fn: Callable) -> Callable:
+    """fn(stacked (M, ...), xs, ys) -> (M, N) accuracy of every model on
+    every device's split (the batched engine's eval matrix)."""
+    eval_model = vmap(acc_fn, in_dims=(None, 0, 0))
+
+    def group_eval(stacked: Params, xs: torch.Tensor,
+                   ys: torch.Tensor) -> torch.Tensor:
+        rows = np.arange(next(iter(stacked.values())).shape[0])
+        with torch.no_grad():
+            return _eval_gathered(eval_model, stacked, rows, xs, ys)
+
+    return group_eval
 
 
 def make_fused_round(loss_fn: Callable, acc_fn: Callable, lr: float,

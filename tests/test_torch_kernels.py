@@ -186,3 +186,159 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         tqops.dequantize(torch.zeros(2, 128, dtype=torch.int8),
                          torch.ones(2, 2), 100)
+
+
+# -- single-model eq 1 and the fused dequantize-aggregate ---------------------
+# (port of weighted_agg_2d and dequant_agg_2d; atol=1e-5, float32 sums in
+# another order)
+
+SINGLE_CASES = [(3, (17,)), (8, (64, 32)), (2, (1, 5, 7)), (30, (2303,)),
+                (1, (5,))]
+
+
+def _single_inputs(n, shape, seed, zero_some=True):
+    rng = np.random.default_rng(seed)
+    u = rng.normal(0, 1, (n,) + shape).astype(np.float32)
+    w = (rng.uniform(0, 1, n) + 0.1).astype(np.float32)
+    if zero_some and n > 1:
+        w[rng.uniform(0, 1, n) < 0.3] = 0.0     # non-holders
+        w[0] = max(w[0], 0.1)
+    return u, w, np.float32(max(w.sum(), 1e-12))
+
+
+@pytest.mark.parametrize("n,shape", SINGLE_CASES)
+def test_weighted_agg_matches_reference(n, shape):
+    u, w, d = _single_inputs(n, shape, seed=n)
+    flat = u.reshape(n, -1)
+    out = twops.weighted_agg(torch.from_numpy(flat), torch.from_numpy(w),
+                             torch.tensor(d))
+    ref = jwref.weighted_agg_ref(flat, w, d)
+    pallas = jwops.weighted_agg(jnp.asarray(u), w, d)
+    assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    np.testing.assert_allclose(out.numpy().reshape(shape),
+                               np.asarray(pallas), atol=1e-5)
+
+
+@pytest.mark.parametrize("block", [128, 64])
+@pytest.mark.parametrize("n,d", [(1, 128), (6, 1024), (30, 640), (5, 2304)])
+def test_dequant_agg_matches_reference(block, n, d):
+    rng = np.random.default_rng(n * d + block)
+    q = rng.integers(-127, 128, (n, d)).astype(np.int8)
+    s = rng.uniform(1e-3, 0.05, (n, d // block)).astype(np.float32)
+    w = rng.uniform(0, 1, n).astype(np.float32)
+    w[rng.uniform(0, 1, n) < 0.3] = 0.0
+    den = np.float32(max(w.sum(), 1e-12))
+    out = twops.dequant_agg(torch.from_numpy(q), torch.from_numpy(s),
+                            torch.from_numpy(w), torch.tensor(den), block)
+    ref = jwref.dequant_agg_ref(q, s, w, den, block=block)
+    pallas = jwops.dequant_agg(jnp.asarray(q), jnp.asarray(s), w, den,
+                               block=block)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), atol=1e-5)
+
+
+def test_dequant_agg_of_quantized_updates_matches_two_step():
+    """Codes and scales from the port's quantize, as the chip check feeds
+    the kernel: the fused form equals dequantize-then-aggregate."""
+    rng = np.random.default_rng(3)
+    u = torch.from_numpy((rng.normal(0, 2, (6, 1024))).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0, 1, 6).astype(np.float32))
+    q, s = tqops.quantize(u, 8)
+    fused = twops.dequant_agg(q, s, w, w.sum())
+    two = twops.weighted_agg(tqops.dequantize(q, s, 1024), w, w.sum())
+    jfused = jwops.dequant_agg(jnp.asarray(q.numpy()),
+                               jnp.asarray(s.numpy()), w.numpy(),
+                               np.float32(w.sum()))
+    np.testing.assert_allclose(fused.numpy(), two.numpy(), atol=1e-5)
+    np.testing.assert_allclose(fused.numpy(), np.asarray(jfused), atol=1e-5)
+
+
+@pytest.mark.parametrize("literal", [False, True])
+def test_weighted_average_pytree_matches_reference(literal):
+    rng = np.random.default_rng(5)
+    tree = {"a": rng.normal(0, 1, (5, 7, 9)).astype(np.float32),
+            "b": rng.normal(0, 1, (5, 13)).astype(np.float32)}
+    w = np.array([0.5, 0.0, 0.2, 0.3, 0.0], np.float32)
+    tt = {k: torch.from_numpy(v) for k, v in tree.items()}
+    out = tagg.weighted_average(tt, torch.from_numpy(w), literal_eq1=literal)
+    ref = jagg.weighted_average(tree, w, literal_eq1=literal)
+    ker = jagg.weighted_average(tree, w, literal_eq1=literal,
+                                use_kernel=True)
+    for k in tree:
+        assert out[k].shape == tt[k].shape[1:]
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
+                                   atol=1e-5)
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ker[k]),
+                                   atol=1e-5)
+
+
+def test_literal_eq1_is_unnormalized_sum_like_reference():
+    """``tests/test_aggregate.py::test_literal_eq1_is_unnormalized_sum``
+    through both packages, single- and multi-model."""
+    rng = np.random.default_rng(6)
+    tree = {"a": rng.normal(0, 1, (2, 7, 9)).astype(np.float32)}
+    tt = {"a": torch.from_numpy(tree["a"])}
+    w = np.array([0.5, 0.5], np.float32)
+    lit = tagg.weighted_average(tt, torch.from_numpy(w), literal_eq1=True)
+    expect = 0.5 * tree["a"][0] + 0.5 * tree["a"][1]
+    np.testing.assert_allclose(lit["a"].numpy(), expect, rtol=1e-5)
+    wm = np.array([[0.5, 0.5], [0.2, 0.0]], np.float32)
+    multi = tagg.multi_weighted_average(tt, torch.from_numpy(wm),
+                                        literal_eq1=True)
+    jmulti = jagg.multi_weighted_average(tree, wm, literal_eq1=True)
+    np.testing.assert_allclose(multi["a"].numpy(), np.asarray(jmulti["a"]),
+                               atol=1e-5)
+    np.testing.assert_allclose(multi["a"][1].numpy(), 0.2 * tree["a"][0],
+                               rtol=1e-5)
+
+
+def test_participation_weights_matches_reference():
+    c = np.array([[0.6, 0.4], [0.3, 0.7], [0.5, 0.5]])
+    participating = np.array([True, False, True])
+    active = np.array([[True, True], [True, True], [False, True]])
+    for m in (0, 1):
+        w = tagg.participation_weights(c, m, participating, active)
+        np.testing.assert_array_equal(
+            w, jagg.participation_weights(c, m, participating, active))
+    np.testing.assert_allclose(
+        tagg.participation_weights(c, 1, participating, active),
+        [0.4, 0.0, 0.5])
+
+
+def test_nonfinite_zero_weight_row_poisons_like_reference():
+    """Rows of weight 0 are multiplied, not skipped, in both packages:
+    a non-holder whose training diverged makes the aggregate NaN."""
+    u = np.ones((3, 10), np.float32)
+    u[1, 4] = np.nan
+    w = np.array([0.5, 0.0, 0.5], np.float32)
+    out = twops.weighted_agg(torch.from_numpy(u), torch.from_numpy(w),
+                             torch.tensor(np.float32(1.0)))
+    ref = np.asarray(jwref.weighted_agg_ref(u, w, np.float32(1.0)))
+    np.testing.assert_array_equal(np.isnan(out.numpy()), np.isnan(ref))
+    assert np.isnan(ref[4]) and np.isfinite(np.delete(ref, 4)).all()
+
+
+def test_single_model_wrappers_reject_bad_input():
+    u, w, d = torch.zeros(4, 8), torch.ones(4), torch.tensor(4.0)
+    with pytest.raises(ValueError):
+        twops.weighted_agg(u, torch.ones(3), d)           # N mismatch
+    with pytest.raises(ValueError):
+        twops.weighted_agg(u, w, torch.ones(1))           # denom not 0-d
+    with pytest.raises(ValueError):
+        twops.weighted_agg(u[0], w, d)                    # not 2-D
+    q = torch.zeros(4, 256, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        twops.dequant_agg(q, torch.ones(4, 2), w, d, block=96)   # D % block
+    with pytest.raises(ValueError):
+        twops.dequant_agg(q, torch.ones(4, 3), w, d)      # scales shape
+    with pytest.raises(ValueError):
+        twops.dequant_agg(q, torch.ones(3, 2), w, d)      # scales rows
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        twops.weighted_agg(torch.zeros(2, 4, **meta), torch.ones(2, **meta),
+                           torch.tensor(1.0, **meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        twops.dequant_agg(torch.zeros(2, 128, dtype=torch.int8, **meta),
+                          torch.ones(2, 1, **meta), torch.ones(2, **meta),
+                          torch.tensor(1.0, **meta))

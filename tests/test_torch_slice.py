@@ -182,4 +182,4 @@ def test_unported_options_and_missing_gpu_raise():
                device="cpu", pipeline=True)
     with pytest.raises(NotImplementedError):
         TFedAvg(_tcfg(cfg), p, tmlp.mlp_loss, tmlp.mlp_accuracy, data,
-                device="cpu", spec="fused")
+                device="cpu", spec="fused+pipeline")

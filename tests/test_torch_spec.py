@@ -1,0 +1,216 @@
+"""The port's EngineSpec against the reference's: the same preset
+grammar, the same canonical strings, the same ``ValueError``s, and
+``NotImplementedError`` — at construction, naming its ROADMAP item — for
+every field whose slice has not landed (the straggler model of
+``+semisync``, a launch mesh, and the servers' unported engines).
+
+Cases are those of ``tests/test_spec.py`` (presets, bad presets, invalid
+combinations), each run through both packages.
+"""
+import warnings
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core.spec import EngineSpec as JSpec  # noqa: E402
+from repro_torch.core.fedavg import FedAvgServer as TFedAvg  # noqa: E402
+from repro_torch.core.fedcd import FedCDServer as TFedCD  # noqa: E402
+from repro_torch.core.spec import EngineSpec, resolve_spec  # noqa: E402
+from repro_torch.models import mlp as tmlp  # noqa: E402
+from test_torch_slice import _small_setup, _tcfg  # noqa: E402
+
+PRESETS = [
+    "fused", "batched", "legacy",
+    "sharded@4", "sharded@2x2",
+    "fused+pipeline", "fused+semisync",
+    "sharded@2x2+pipeline", "fused+sparse:0.25",
+    "sharded@2+migrate:1.5", "fused+kernel",
+    "sharded@4+pipeline+semisync+sparse:0.5+migrate:2+kernel",
+]
+BAD_PRESETS = [
+    "sharded", "fused@2", "sharded@two", "sharded@2x2x2", "fused+bogus",
+    "fused+sparse", "fused+pipeline:1", "batched+pipeline", "warp",
+    # a preset the reference rejects stays a ValueError with +semisync
+    "legacy+semisync", "batched+semisync+pipeline",
+]
+STAND_IN = object()          # for the reference's StragglerModel / scenario
+BAD_COMBOS = [
+    dict(engine="nope"),
+    dict(model_shards=0),
+    dict(data_shards=-1),
+    dict(engine="batched", model_shards=2),
+    dict(engine="legacy", pipeline=True),
+    dict(engine="batched", sparse_eval=0.5),
+    dict(engine="legacy", scenario=STAND_IN),
+    dict(engine="batched", straggler=STAND_IN),
+    dict(migrate_threshold=1.5),
+    dict(model_shards=1, data_shards=2, use_agg_kernel=True),
+    dict(save_every=-1),
+    dict(save_every=2),
+    dict(engine="llm", use_agg_kernel=True),
+]
+
+
+def _mlp():
+    return tmlp.init_mlp_classifier(torch.Generator().manual_seed(0),
+                                    hidden=8)
+
+
+@pytest.mark.parametrize("text", PRESETS)
+def test_preset_canonical_matches_reference(text):
+    ref = JSpec.parse(text)
+    if "semisync" in text:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            EngineSpec.parse(text)
+        return
+    spec = EngineSpec.parse(text)
+    assert spec.canonical == ref.canonical
+    assert EngineSpec.parse(spec.canonical) == spec
+    for name in ("engine", "model_shards", "data_shards", "pipeline",
+                 "sparse_eval", "migrate_threshold", "use_agg_kernel"):
+        assert getattr(spec, name) == getattr(ref, name), name
+
+
+@pytest.mark.parametrize("text", BAD_PRESETS)
+def test_bad_preset_rejected_like_reference(text):
+    with pytest.raises(ValueError):
+        JSpec.parse(text)
+    with pytest.raises(ValueError):
+        EngineSpec.parse(text)
+
+
+@pytest.mark.parametrize("bad", BAD_COMBOS)
+def test_invalid_combination_rejected_like_reference(bad):
+    if bad.get("straggler") is None and bad.get("scenario") is None:
+        with pytest.raises(ValueError):
+            JSpec(**bad).validate()
+    with pytest.raises(ValueError):
+        EngineSpec(**bad).validate()
+
+
+def test_mesh_raises_not_implemented():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        EngineSpec.parse("sharded@4").resolve_mesh()
+    assert EngineSpec.parse("legacy").resolve_mesh() is None
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        EngineSpec(mesh=object()).validate()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        EngineSpec.from_legacy(engine="sharded", mesh=object())
+    with pytest.raises(ValueError):
+        EngineSpec.from_legacy(engine="sharded")      # mesh required
+
+
+def test_coerce_and_resolve_spec_follow_reference():
+    assert EngineSpec.coerce("fused") == EngineSpec()
+    spec = EngineSpec(engine="legacy")
+    assert EngineSpec.coerce(spec) is spec
+    with pytest.raises(TypeError):
+        EngineSpec.coerce({"engine": "fused"})
+    with pytest.raises(TypeError):
+        resolve_spec("fused", dict(engine="fused"), "Srv")
+    with pytest.warns(DeprecationWarning):
+        assert (resolve_spec(None, dict(engine="batched"), "Srv")
+                == EngineSpec(engine="batched"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert resolve_spec(None, dict(engine=None), "Srv") == EngineSpec()
+
+
+@pytest.mark.parametrize("spec", ["fused", "batched", "legacy",
+                                  "legacy+kernel", "batched+kernel"])
+def test_servers_accept_ported_engines(spec):
+    cfg, data = _small_setup()
+    p = _mlp()
+    srv = TFedCD(_tcfg(cfg), p, tmlp.mlp_loss, tmlp.mlp_accuracy, data,
+                 batch_size=16, spec=spec, device="cpu")
+    assert srv.spec == EngineSpec.parse(spec)
+    assert srv.engine == spec.split("+")[0]
+    if "kernel" not in spec:
+        avg = TFedAvg(_tcfg(cfg), p, tmlp.mlp_loss, tmlp.mlp_accuracy,
+                      data, batch_size=16, spec=spec, device="cpu")
+        assert avg.engine == spec
+
+
+def test_kernel_flag_changes_nothing():
+    """``+kernel`` is accepted for grammar parity: the port's kernels
+    are always the path on CUDA tensors, so the run is the same."""
+    cfg, data = _small_setup()
+    out = []
+    for spec in ("legacy", "legacy+kernel"):
+        srv = TFedCD(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy,
+                     data, batch_size=16, spec=spec, device="cpu")
+        srv.run(2)
+        out.append(srv)
+    for k, v in out[0].registry.params[0].items():
+        assert torch.equal(v, out[1].registry.params[0][k])
+    np.testing.assert_array_equal(out[0].metrics[-1].test_acc,
+                                  out[1].metrics[-1].test_acc)
+
+
+def test_deprecated_kwargs_build_the_equivalent_spec():
+    cfg, data = _small_setup()
+    with pytest.warns(DeprecationWarning):
+        srv = TFedCD(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy,
+                     data, batch_size=16, engine="batched", device="cpu")
+    assert srv.spec == EngineSpec(engine="batched")
+    with pytest.warns(DeprecationWarning):
+        srv = TFedCD(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy,
+                     data, batch_size=16, engine="legacy",
+                     use_agg_kernel=True, device="cpu")
+    assert srv.spec == EngineSpec(engine="legacy", use_agg_kernel=True)
+    with pytest.warns(DeprecationWarning):
+        fa = TFedAvg(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy,
+                     data, batch_size=16, engine="legacy", device="cpu")
+    assert fa.spec == EngineSpec(engine="legacy")
+    for cls in (TFedCD, TFedAvg):
+        with pytest.raises(TypeError):
+            cls(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy, data,
+                spec="fused", engine="fused", device="cpu")
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(spec="sharded@2"), "item 12"),
+    (dict(spec="sharded@2x2+pipeline"), "item 12"),
+    (dict(spec="sharded@2+migrate:1.5"), "item 12"),
+    (dict(spec="fused+pipeline"), "item 7"),
+    (dict(spec="fused+sparse:0.25"), "item 7"),
+    (dict(spec=EngineSpec(straggler=STAND_IN)), "item 8"),
+    (dict(spec=EngineSpec(scenario=STAND_IN)), "item 9"),
+    (dict(spec=EngineSpec(checkpoint_dir="ckpt", save_every=2)),
+     "item 10"),
+    (dict(spec=EngineSpec(resume_from="ckpt")), "item 10"),
+    (dict(spec=EngineSpec(faults=STAND_IN)), "item 10"),
+    (dict(spec="llm"), "item 13"),
+    (dict(mesh=object()), "item 12"),
+    (dict(pipeline=True), "item 7"),
+    (dict(sparse_eval=0.5), "item 7"),
+])
+def test_fedcd_rejects_unported_fields_at_construction(kw, item):
+    cfg, data = _small_setup()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        with pytest.raises(NotImplementedError, match=item):
+            TFedCD(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy,
+                   data, batch_size=16, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("spec,exc", [
+    ("sharded@2", NotImplementedError),
+    ("fused+pipeline", NotImplementedError),
+    (EngineSpec(straggler=STAND_IN), NotImplementedError),
+    (EngineSpec(checkpoint_dir="ckpt"), NotImplementedError),
+    ("llm", NotImplementedError),
+    # FedCD-only capabilities: ValueError, as in the reference
+    ("fused+sparse:0.5", ValueError),
+    ("fused+kernel", ValueError),
+    ("legacy+kernel", ValueError),
+    (EngineSpec(scenario=STAND_IN), ValueError),
+    ("sharded@2+migrate:2", ValueError),
+])
+def test_fedavg_rejects_at_construction(spec, exc):
+    cfg, data = _small_setup()
+    with pytest.raises(exc):
+        TFedAvg(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy, data,
+                batch_size=16, spec=spec, device="cpu")
