@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,6 +41,7 @@ RAGGED = [(1, 5, 1), (17, 5, 3), (3, 33, 10), (16, 7, 1027),
           (2, 32, 2303)]            # (M, B, D) off the float4 path
 SMOKE_ROUNDS = 6                    # passes milestone 5: a quantized clone
 N_DEVICES = 30                      # the legacy engine's eq-1 rows
+SMALL_LEAF = 10_000                 # the CNN's 13 leaves below it
 RAGGED_SINGLE = [(1, 5), (3, 17), (7, 1027), (30, 2303)]   # (N, D)
 RAGGED_DEQ = [(1, 128, 128), (5, 2304, 64), (30, 384, 128),
               (4, 192, 64)]         # (N, D, block)
@@ -107,6 +109,25 @@ def unaligned(shape, gen, device):
     return buf[1:].view(shape)
 
 
+def leaf_diagnostics(us, group, library, m):
+    """Where an eq-1 call's time goes: the largest leaf alone (device ms
+    and its stream rate against HBM_BYTES_PER_S) and the leaves under
+    SMALL_LEAF values together, each as one grouped kernel call and as
+    the library calls, on graph replay."""
+    big = max(us, key=lambda u: u.shape[1])
+    small = [u for u in us if u.shape[1] < SMALL_LEAF]
+    rows, d = big.shape
+    big_ms = graph_ms(lambda: group([big]))
+    big_bytes = (rows * d + m * rows + m + m * d) * 4
+    return dict(
+        big_d=d, big_ms=big_ms,
+        big_gb_s=big_bytes / big_ms * 1e-6,
+        big_hbm_share=big_bytes / (big_ms * 1e-3) / HBM_BYTES_PER_S,
+        big_library_ms=graph_ms(lambda: library(big)),
+        small_leaves=len(small), small_ms=graph_ms(lambda: group(small)),
+        small_library_ms=graph_ms(lambda: [library(u) for u in small]))
+
+
 def check_kernels(device, leaf_sizes):
     """Phase 3: every kernel against its plain version on the card."""
     import torch
@@ -125,13 +146,18 @@ def check_kernels(device, leaf_sizes):
         w = torch.rand(m, B_PAIRS, generator=gen, device=device)
         w[:, -5:] = 0.0                           # padding pairs
         den = torch.clamp(w.sum(1), min=1e-12)
-        err = max(float((wops.multi_weighted_agg(u, w, den)
-                         - multi_weighted_agg_ref(u, w, den)).abs().max())
-                  for u in us)
+        # the path's call: every leaf in one grouped call; and each leaf
+        # through the per-leaf wrapper (a group of one)
+        outs = wops.multi_weighted_agg_group(us, w, den)
+        err = max(float((o - multi_weighted_agg_ref(u, w, den)).abs().max())
+                  for u, o in zip(us, outs))
+        err = max([err] + [float((wops.multi_weighted_agg(u, w, den)
+                                  - multi_weighted_agg_ref(u, w, den))
+                                 .abs().max()) for u in us])
         if not err <= AGG_TOL:
             fail(f"multi_weighted_agg M={m}: max_abs_err {err} > {AGG_TOL}")
         ws = (w / den[:, None]).contiguous()
-        t = timings(lambda: [wops.multi_weighted_agg(u, w, den) for u in us],
+        t = timings(lambda: wops.multi_weighted_agg_group(us, w, den),
                     lambda: [multi_weighted_agg_ref(u, w, den) for u in us],
                     lambda: [torch.mm(ws, u) for u in us])
         nbytes = sum((B_PAIRS * d + m * B_PAIRS + m * d) * 4
@@ -139,7 +165,10 @@ def check_kernels(device, leaf_sizes):
         flops = sum(2 * m * B_PAIRS * d for d in leaf_sizes)
         b_ms, b_by = bound(nbytes, flops)
         rows[("multi_weighted_agg", m)] = dict(
-            max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **t)
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            diag=leaf_diagnostics(
+                us, lambda group: wops.multi_weighted_agg_group(group, w, den),
+                lambda u: torch.mm(ws, u), m), **t)
 
         # transport roundtrip of the M aggregated rows, one launch per leaf
         xs = [torch.randn(m, d, generator=gen, device=device) * 0.1
@@ -183,7 +212,8 @@ def check_kernels(device, leaf_sizes):
         rows[("dequantize", m)] = dict(
             max_abs_err=d_err, bound_ms=db, bound_by=dby, **t_d)
 
-    # ragged and unaligned shapes: the scalar paths and M > 16 chunks
+    # ragged and unaligned shapes: the scalar paths and the extra passes
+    # over U of M > 8
     for m, b, d in RAGGED:
         u = unaligned((b, d), gen, device)
         w = torch.rand(m, b, generator=gen, device=device)
@@ -227,19 +257,25 @@ def check_single_kernels(device, leaf_sizes):
     den = torch.clamp(w.sum(), min=1e-12)
     us = [torch.randn(n, d, generator=gen, device=device)
           for d in leaf_sizes]
-    err = max(float((wops.weighted_agg(u, w, den)
-                     - weighted_agg_ref(u, w, den)).abs().max())
-              for u in us)
+    outs = wops.weighted_agg_group(us, w, den)      # the path's call
+    err = max(float((o - weighted_agg_ref(u, w, den)).abs().max())
+              for u, o in zip(us, outs))
+    err = max([err] + [float((wops.weighted_agg(u, w, den)
+                              - weighted_agg_ref(u, w, den)).abs().max())
+                       for u in us])
     if not err <= AGG_TOL:
         fail(f"weighted_agg N={n}: max_abs_err {err} > {AGG_TOL}")
     ws = (w / den).contiguous()
-    t = timings(lambda: [wops.weighted_agg(u, w, den) for u in us],
+    t = timings(lambda: wops.weighted_agg_group(us, w, den),
                 lambda: [weighted_agg_ref(u, w, den) for u in us],
                 lambda: [torch.mv(u.t(), ws) for u in us])
     nbytes = sum((n * d + n + 1 + d) * 4 for d in leaf_sizes)
     b_ms, b_by = bound(nbytes, sum(2 * n * d for d in leaf_sizes))
-    rows = {("weighted_agg", n): dict(max_abs_err=err, bound_ms=b_ms,
-                                      bound_by=b_by, **t)}
+    rows = {("weighted_agg", n): dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        diag=leaf_diagnostics(
+            us, lambda group: wops.weighted_agg_group(group, w, den),
+            lambda u: torch.mv(u.t(), ws), 1), **t)}
 
     # codes and scales from the quantize kernel, as the transport makes
     packed = [qops.quantize(u * 0.1, 8) for u in us]
@@ -515,9 +551,13 @@ def main() -> int:
     print(f"[build] {len(built)} libraries in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, (_, log) in built.items():
+        entry = None            # every kernel and template instantiation
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}")
+            found = re.search(r"Compiling entry function '([^']+)'", line)
+            if found:
+                entry = found.group(1)
+            elif "registers" in line or "spill" in line:
+                print(f"[ptxas {name}] {entry}: {line.strip()}")
 
     # phase 3: kernels against their plain versions at the main path's
     # shapes (the CNN's 20 leaves) and at ragged ones
@@ -535,6 +575,9 @@ def main() -> int:
               f"plain_eager_ms={r['plain_eager_ms']:.5f} "
               f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
               f"library_ms={r['library_ms']}{extra}")
+        if "diag" in r:
+            print(f"[diag {name} {shape}] " + " ".join(
+                f"{k}={v}" for k, v in r["diag"].items()))
 
     # phase 4: one MLP round on the card against the CPU
     err = mlp_card_vs_cpu(device)

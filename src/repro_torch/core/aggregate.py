@@ -9,10 +9,10 @@ is available behind ``literal_eq1=True``, as in the reference.)
 Every leaf goes through ``kernels.weighted_agg.ops``: on CUDA tensors
 that is a hand-written kernel (the reference keeps its Pallas kernels
 behind ``use_kernel=True``; here the kernels are the path), on CPU
-tensors its plain version. ``multi_weighted_average`` (the fused and
-batched engines) launches ``multi_weighted_agg`` once per leaf;
-``weighted_average`` (the legacy engines) launches ``weighted_agg`` once
-per leaf.
+tensors its plain version. Each call is one grouped call over every leaf
+of the param dict, so one launch on the card: ``multi_weighted_average``
+(the fused and batched engines) through ``multi_weighted_agg_group``,
+``weighted_average`` (the legacy engines) through ``weighted_agg_group``.
 """
 from __future__ import annotations
 
@@ -34,14 +34,13 @@ def multi_weighted_average(stacked_updates: Params, weights: torch.Tensor,
     w = weights.float().contiguous()
     denoms = (torch.ones_like(w[:, 0]) if literal_eq1
               else torch.clamp(w.sum(dim=1), min=1e-12))
-    out: Params = {}
-    for name, leaf in stacked_updates.items():
-        B = leaf.shape[0]
-        flat = leaf.reshape(B, -1).float().contiguous()
-        agg = wa_ops.multi_weighted_agg(flat, w, denoms)
-        out[name] = agg.reshape((w.shape[0],) + tuple(leaf.shape[1:])
-                                ).to(leaf.dtype)
-    return out
+    leaves = list(stacked_updates.values())
+    aggs = wa_ops.multi_weighted_agg_group(
+        [leaf.reshape(leaf.shape[0], -1).float().contiguous()
+         for leaf in leaves], w, denoms)
+    return {name: agg.reshape((w.shape[0],) + tuple(leaf.shape[1:])
+                              ).to(leaf.dtype)
+            for name, leaf, agg in zip(stacked_updates, leaves, aggs)}
 
 
 def weighted_average(stacked_updates: Params, weights: torch.Tensor,
@@ -54,13 +53,12 @@ def weighted_average(stacked_updates: Params, weights: torch.Tensor,
     w = weights.float().contiguous()
     denom = (torch.ones((), dtype=torch.float32, device=w.device)
              if literal_eq1 else torch.clamp(w.sum(), min=1e-12))
-    out: Params = {}
-    for name, leaf in stacked_updates.items():
-        N = leaf.shape[0]
-        flat = leaf.reshape(N, -1).float().contiguous()
-        agg = wa_ops.weighted_agg(flat, w, denom)
-        out[name] = agg.reshape(tuple(leaf.shape[1:])).to(leaf.dtype)
-    return out
+    leaves = list(stacked_updates.values())
+    aggs = wa_ops.weighted_agg_group(
+        [leaf.reshape(leaf.shape[0], -1).float().contiguous()
+         for leaf in leaves], w, denom)
+    return {name: agg.reshape(tuple(leaf.shape[1:])).to(leaf.dtype)
+            for name, leaf, agg in zip(stacked_updates, leaves, aggs)}
 
 
 def participation_weights(scores_c: np.ndarray, model_id: int,

@@ -53,8 +53,8 @@ def library_path(name: str) -> Path:
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[Path, str]]:
     """Compile every named source whose library is missing, all ``nvcc``
     processes started together. Returns ``{name: (library, compiler
-    output)}``; the output is empty for a library that was already built.
-    Raises with the compiler's output if any build fails."""
+    output)}``; a library built earlier returns the output kept beside
+    it. Raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     compiler = None
     procs = {}
@@ -64,7 +64,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[Path, str]]:
             raise ValueError(f"unknown kernel source {name!r}")
         path = library_path(name)
         if path.exists():
-            out[name] = (path, "")
+            log = path.with_suffix(".log")
+            out[name] = (path, log.read_text() if log.exists() else "")
             continue
         compiler = compiler or nvcc()
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
@@ -79,6 +80,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[Path, str]]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
             continue
+        path.with_suffix(".log").write_text(log)
         os.replace(tmp, path)      # atomic: concurrent builders agree
         out[name] = (path, log)
     if failed:

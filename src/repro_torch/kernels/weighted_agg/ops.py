@@ -4,14 +4,18 @@ multi_weighted_agg_2d``, ``::weighted_agg_2d`` and ``::dequant_agg_2d``).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it computes the plain version (``ref.py``). There is no fallback
-between the two. ``multi_weighted_agg.launches``,
-``weighted_agg.launches`` and ``dequant_agg.launches`` count kernel
-launches.
+between the two. The two eq-1 forms share one kernel and take a group
+of leaves (``multi_weighted_agg_group``, ``weighted_agg_group``): one
+launch covers every leaf of a param dict. The per-leaf
+``multi_weighted_agg`` and ``weighted_agg`` are groups of one.
+``multi_weighted_agg.launches``, ``weighted_agg.launches`` and
+``dequant_agg.launches`` count kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -21,7 +25,9 @@ from repro_torch.kernels.weighted_agg.ref import (dequant_agg_ref,
                                                   weighted_agg_ref)
 
 # the kernels stage their weights (and denominators) in dynamic shared
-# memory below the default per-block limit; beyond it a launch is refused
+# memory; this much is taken, more is refused here. (The eq-1 kernel adds
+# 4-32 KB of partial sums; its launcher lifts the block's limit past the
+# default 48 KB where the sum needs it.)
 SMEM_LIMIT = 48 * 1024
 
 
@@ -29,15 +35,15 @@ SMEM_LIMIT = 48 * 1024
 def _kernels():
     lib = build.library("weighted_agg")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    multi = lib.fedcd_multi_weighted_agg
-    multi.argtypes = [vp] * 4 + [i, i, ll, i, vp]
-    single = lib.fedcd_weighted_agg
-    single.argtypes = [vp] * 4 + [i, ll, i, vp]
+    eq1 = lib.fedcd_eq1_agg
+    eq1.argtypes = [vp, vp, vp, i, vp, vp, i, i, vp]
     deq = lib.fedcd_dequant_agg
     deq.argtypes = [vp] * 5 + [i, ll, i, i, vp]
-    for fn in (multi, single, deq):
+    for fn in (eq1, deq):
         fn.restype = ctypes.c_int
-    return lib, multi, single, deq
+    lib.fedcd_eq1_max_leaves.argtypes = []
+    lib.fedcd_eq1_max_leaves.restype = ctypes.c_int
+    return lib, eq1, deq, lib.fedcd_eq1_max_leaves()
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
@@ -62,48 +68,119 @@ def _check_smem(n_weights: int) -> None:
                          f"{SMEM_LIMIT} B of shared memory")
 
 
-def _check(updates: torch.Tensor, weights: torch.Tensor,
-           denoms: torch.Tensor) -> None:
-    if updates.dim() != 2 or weights.dim() != 2 or denoms.dim() != 1:
-        raise ValueError("expected updates (B, D), weights (M, B), "
-                         f"denoms (M,); got {tuple(updates.shape)}, "
+def _check_leaves(updates: Sequence[torch.Tensor], B: int) -> None:
+    for i, u in enumerate(updates):
+        if u.dim() != 2 or u.shape[0] != B:
+            raise ValueError(f"leaf {i}: expected updates ({B}, D), got "
+                             f"{tuple(u.shape)}")
+        _require(u, f"leaf {i}", torch.float32)
+
+
+def _eq1_launch(updates: Sequence[torch.Tensor], weights: torch.Tensor,
+                denoms: torch.Tensor, M: int, squeeze: bool
+                ) -> Tuple[List[torch.Tensor], int]:
+    """Eq 1 over every leaf on the card, one launch per ``max_leaves``
+    non-empty leaves. The results are views of one buffer, laid out leaf
+    by leaf, each leaf starting 16-byte aligned (the quantize kernel's
+    float4 path reads them): (M, D_i), or (D_i,) when ``squeeze``.
+    Returns them and the number of launches."""
+    B = weights.shape[-1]
+    sizes = [u.shape[1] for u in updates]
+    offs, total = [], 0
+    for d in sizes:
+        offs.append(total)
+        total += -(-M * d // 4) * 4
+    buf = torch.empty(total, dtype=torch.float32, device=weights.device)
+    outs = [buf.as_strided((d,) if squeeze else (M, d),
+                           (1,) if squeeze else (d, 1), o)
+            for d, o in zip(sizes, offs)]
+    live = [i for i, d in enumerate(sizes) if d and M]
+    if not live:
+        return outs, 0
+    lib, fn, _, cap = _kernels()
+    base = buf.data_ptr()
+    launches = 0
+    with torch.cuda.device(weights.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for s in range(0, len(live), cap):
+            idx = live[s:s + cap]
+            n = len(idx)
+            code = fn((ctypes.c_void_p * n)(*[updates[i].data_ptr()
+                                              for i in idx]),
+                      (ctypes.c_void_p * n)(*[base + 4 * offs[i]
+                                              for i in idx]),
+                      (ctypes.c_longlong * n)(*[sizes[i] for i in idx]),
+                      n, weights.data_ptr(), denoms.data_ptr(), B, M,
+                      stream)
+            build.check_launch(lib, code, "eq-1 aggregation")
+            launches += 1
+    return outs, launches
+
+
+def multi_weighted_agg_group(updates: Sequence[torch.Tensor],
+                             weights: torch.Tensor, denoms: torch.Tensor
+                             ) -> List[torch.Tensor]:
+    """updates: leaves (B, D_i), weights (M, B), denoms (M,) -> one
+    (M, D_i) float32 result per leaf, ``weights @ updates[i] /
+    denoms[:, None]``: the per-model eq-1 averages of one shared work
+    batch over every leaf of a param dict. Every tensor must be
+    contiguous float32 and on one device. On the card the leaves go
+    through one launch (per ``max_leaves`` leaves), each adding 1 to
+    ``multi_weighted_agg.launches``."""
+    if weights.dim() != 2 or denoms.dim() != 1:
+        raise ValueError("expected weights (M, B), denoms (M,); got "
                          f"{tuple(weights.shape)}, {tuple(denoms.shape)}")
-    B = updates.shape[0]
-    M = weights.shape[0]
-    if weights.shape[1] != B or denoms.shape[0] != M:
-        raise ValueError(f"shape mismatch: updates {tuple(updates.shape)}, "
-                         f"weights {tuple(weights.shape)}, "
+    M, B = weights.shape
+    if denoms.shape[0] != M:
+        raise ValueError(f"shape mismatch: weights {tuple(weights.shape)}, "
                          f"denoms {tuple(denoms.shape)}")
+    _check_leaves(updates, B)
+    for name, t in (("weights", weights), ("denoms", denoms)):
+        _require(t, name, torch.float32)
+    if _same_device(weights, denoms, *updates).type == "cpu":
+        return [multi_weighted_agg_ref(u, weights, denoms) for u in updates]
+    _check_smem(M * (B + 1))
+    outs, launches = _eq1_launch(updates, weights, denoms, M, squeeze=False)
+    multi_weighted_agg.launches += launches
+    return outs
 
 
 def multi_weighted_agg(updates: torch.Tensor, weights: torch.Tensor,
                        denoms: torch.Tensor) -> torch.Tensor:
     """updates (B, D), weights (M, B), denoms (M,) -> (M, D) float32:
-    ``weights @ updates / denoms[:, None]``, the per-model eq-1
-    averages of one shared work batch. CUDA tensors must be contiguous
-    float32."""
-    _check(updates, weights, denoms)
-    if _same_device(updates, weights, denoms).type == "cpu":
-        return multi_weighted_agg_ref(updates, weights, denoms)
-    for name, t in (("updates", updates), ("weights", weights),
-                    ("denoms", denoms)):
+    :func:`multi_weighted_agg_group` over one leaf."""
+    return multi_weighted_agg_group([updates], weights, denoms)[0]
+
+
+def weighted_agg_group(updates: Sequence[torch.Tensor],
+                       weights: torch.Tensor, denom: torch.Tensor
+                       ) -> List[torch.Tensor]:
+    """updates: leaves (N, D_i), weights (N,), denom 0-d -> one (D_i,)
+    float32 result per leaf, ``Σ_n w_n · updates[i][n] / denom``: the
+    single-model eq-1 average over every leaf of a param dict. Every
+    tensor must be contiguous float32 and on one device; ``denom`` stays
+    on the device (reading it on the host would synchronize). On the
+    card the leaves go through one launch (per ``max_leaves`` leaves),
+    each adding 1 to ``weighted_agg.launches``."""
+    if weights.dim() != 1 or denom.dim() != 0:
+        raise ValueError("expected weights (N,), a 0-d denom; got "
+                         f"{tuple(weights.shape)}, {tuple(denom.shape)}")
+    _check_leaves(updates, weights.shape[0])
+    for name, t in (("weights", weights), ("denom", denom)):
         _require(t, name, torch.float32)
-    B, D = updates.shape
-    M = weights.shape[0]
-    _check_smem(M * (B + 1))
-    out = torch.empty((M, D), dtype=torch.float32, device=updates.device)
-    if M == 0 or D == 0:
-        return out
-    vec = (D % 4 == 0 and updates.data_ptr() % 16 == 0
-           and out.data_ptr() % 16 == 0)
-    lib, fn, _, _ = _kernels()
-    with torch.cuda.device(updates.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(updates.data_ptr(), weights.data_ptr(), denoms.data_ptr(),
-                  out.data_ptr(), B, M, D, int(vec), stream)
-    build.check_launch(lib, code, "multi_weighted_agg")
-    multi_weighted_agg.launches += 1
-    return out
+    if _same_device(weights, denom, *updates).type == "cpu":
+        return [weighted_agg_ref(u, weights, denom) for u in updates]
+    _check_smem(weights.shape[0] + 1)           # M = 1, B = N
+    outs, launches = _eq1_launch(updates, weights, denom, 1, squeeze=True)
+    weighted_agg.launches += launches
+    return outs
+
+
+def weighted_agg(updates: torch.Tensor, weights: torch.Tensor,
+                 denom: torch.Tensor) -> torch.Tensor:
+    """updates (N, D), weights (N,), denom 0-d -> (D,) float32:
+    :func:`weighted_agg_group` over one leaf."""
+    return weighted_agg_group([updates], weights, denom)[0]
 
 
 def _check_single(updates: torch.Tensor, weights: torch.Tensor,
@@ -115,35 +192,6 @@ def _check_single(updates: torch.Tensor, weights: torch.Tensor,
     if weights.shape[0] != updates.shape[0]:
         raise ValueError(f"shape mismatch: updates {tuple(updates.shape)}, "
                          f"weights {tuple(weights.shape)}")
-
-
-def weighted_agg(updates: torch.Tensor, weights: torch.Tensor,
-                 denom: torch.Tensor) -> torch.Tensor:
-    """updates (N, D), weights (N,), denom 0-d -> (D,) float32:
-    ``Σ_n w_n · updates[n] / denom``, the single-model eq-1 average.
-    CUDA tensors must be contiguous float32; ``denom`` stays on the
-    device (reading it on the host would synchronize once per leaf)."""
-    _check_single(updates, weights, denom)
-    if _same_device(updates, weights, denom).type == "cpu":
-        return weighted_agg_ref(updates, weights, denom)
-    for name, t in (("updates", updates), ("weights", weights),
-                    ("denom", denom)):
-        _require(t, name, torch.float32)
-    N, D = updates.shape
-    _check_smem(N)
-    out = torch.empty((D,), dtype=torch.float32, device=updates.device)
-    if D == 0:
-        return out
-    vec = (D % 4 == 0 and updates.data_ptr() % 16 == 0
-           and out.data_ptr() % 16 == 0)
-    lib, _, fn, _ = _kernels()
-    with torch.cuda.device(updates.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(updates.data_ptr(), weights.data_ptr(), denom.data_ptr(),
-                  out.data_ptr(), N, D, int(vec), stream)
-    build.check_launch(lib, code, "weighted_agg")
-    weighted_agg.launches += 1
-    return out
 
 
 def dequant_agg(q: torch.Tensor, scales: torch.Tensor,
@@ -172,7 +220,7 @@ def dequant_agg(q: torch.Tensor, scales: torch.Tensor,
         return out
     vec = (D % 4 == 0 and block % 4 == 0 and q.data_ptr() % 4 == 0
            and out.data_ptr() % 16 == 0)
-    lib, _, _, fn = _kernels()
+    lib, _, fn, _ = _kernels()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(q.data_ptr(), scales.data_ptr(), weights.data_ptr(),

@@ -155,3 +155,134 @@ def test_quantize_kernels_match_plain_unaligned_on_card(cuda, r, n, bits):
     out = tqops.dequantize(q, s, n)
     ref = tqref.dequantize_ref(qr, sr, (r, n), torch.float32)
     assert torch.equal(out, ref)
+
+
+# -- eq 1 as one grouped launch over a param dict's leaves --------------------
+
+M_TEMPLATES = [1, 2, 3, 8, 16, 17, 33]   # every register tile; 2-5 passes
+
+
+def _cnn_leaf_sizes():
+    from repro_torch.models.cnn import init_cnn
+    return [v.numel() for v in init_cnn(torch.Generator()).values()]
+
+
+def _leaves(b, sizes, seed, device, unaligned=()):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    us = [torch.randn(b, d, generator=gen, device=device) for d in sizes]
+    return [_unaligned(u) if i in unaligned else u for i, u in enumerate(us)]
+
+
+def _group_weights(m, b, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.rand(m, b, generator=gen, device=device)
+    w[:, -min(5, max(1, b // 6)):] = 0.0       # padding pairs
+    return w, torch.clamp(w.sum(1), min=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", M_TEMPLATES)
+def test_group_kernel_matches_plain_at_cnn_leaves_on_card(cuda, m):
+    sizes = _cnn_leaf_sizes()
+    us = _leaves(32, sizes, m, cuda)
+    w, den = _group_weights(m, 32, m, cuda)
+    before = twops.multi_weighted_agg.launches
+    outs = twops.multi_weighted_agg_group(us, w, den)
+    torch.cuda.synchronize()
+    assert twops.multi_weighted_agg.launches == before + 1
+    for u, out in zip(us, outs):
+        assert out.shape == (m, u.shape[1]) and out.is_contiguous()
+        ref = twref.multi_weighted_agg_ref(u, w, den)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_weighted_agg_group_matches_plain_at_cnn_leaves_on_card(cuda):
+    sizes = _cnn_leaf_sizes()
+    us = _leaves(30, sizes, 30, cuda)
+    w, den = _group_weights(1, 30, 30, cuda)
+    w, den = w[0].contiguous(), den[0]
+    before = twops.weighted_agg.launches
+    outs = twops.weighted_agg_group(us, w, den)
+    torch.cuda.synchronize()
+    assert twops.weighted_agg.launches == before + 1
+    for u, out in zip(us, outs):
+        ref = twref.weighted_agg_ref(u, w, den)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("single", [False, True])
+def test_group_beyond_the_leaf_cap_on_card(cuda, single):
+    """More leaves than one launch's table holds: one launch per cap's
+    worth of non-empty leaves, each leaf right; empty leaves launch
+    nothing."""
+    sizes = [(7 * i) % 300 for i in range(75)]      # leaf 0 is empty
+    m = 1 if single else 3
+    us = _leaves(6, sizes, 1, cuda, unaligned={5, 40})
+    w, den = _group_weights(m, 6, 1, cuda)
+    if single:
+        w, den = w[0].contiguous(), den[0]
+    counter = twops.weighted_agg if single else twops.multi_weighted_agg
+    fn = twops.weighted_agg_group if single else twops.multi_weighted_agg_group
+    ref_fn = twref.weighted_agg_ref if single else twref.multi_weighted_agg_ref
+    _, _, _, cap = twops._kernels()
+    before = counter.launches
+    outs = fn(us, w, den)
+    torch.cuda.synchronize()
+    live = sum(1 for d in sizes if d)
+    assert counter.launches == before + -(-live // cap) and live > 2 * cap
+    for u, out in zip(us, outs):
+        np.testing.assert_allclose(out.cpu().numpy(),
+                                   ref_fn(u, w, den).cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 16])
+def test_group_with_unaligned_and_ragged_leaves_on_card(cuda, m):
+    sizes = [1, 10, 2_303, 4_096, 129, 5, 1_027]
+    us = _leaves(5, sizes, 2, cuda, unaligned={0, 2, 3, 6})
+    w, den = _group_weights(m, 5, 2, cuda)
+    outs = twops.multi_weighted_agg_group(us, w, den)
+    for u, out in zip(us, outs):
+        ref = twref.multi_weighted_agg_ref(u, w, den)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_group_with_weights_past_the_default_shared_memory_on_card(cuda):
+    """M = 16 and B = 600: weights (38 KB) and partial sums (32 KB) need
+    the launcher to lift the block's shared memory past 48 KB."""
+    us = _leaves(600, [1_000, 37], 3, cuda)
+    w, den = _group_weights(16, 600, 3, cuda)
+    outs = twops.multi_weighted_agg_group(us, w, den)
+    for u, out in zip(us, outs):
+        ref = twref.multi_weighted_agg_ref(u, w, den)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("single", [False, True])
+def test_group_propagates_nan_of_zero_weight_row_per_leaf_on_card(cuda,
+                                                                   single):
+    sizes = [10, 300, 4_096]
+    us = [torch.ones(4, d, device=cuda) for d in sizes]
+    for i, u in enumerate(us):
+        u[2, 3 + i] = float("nan")                 # row 2 has weight 0
+    w = torch.tensor([[0.5, 0.25, 0.0, 0.25], [0.0, 1.0, 0.0, 0.0]],
+                     device=cuda)
+    if single:
+        outs = twops.weighted_agg_group(us, w[0].contiguous(),
+                                        torch.ones((), device=cuda))
+        outs = [o[None] for o in outs]
+    else:
+        outs = twops.multi_weighted_agg_group(us, w,
+                                              torch.ones(2, device=cuda))
+    for i, out in enumerate(outs):
+        out = out.cpu()
+        nan = torch.isnan(out)
+        assert nan[:, 3 + i].all() and nan.sum() == out.shape[0]

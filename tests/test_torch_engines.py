@@ -153,39 +153,50 @@ def test_fedavg_engine_matches_reference(engine):
 
 
 def test_aggregation_routes_through_the_engines_kernels(monkeypatch):
-    """Legacy FedCD and FedAvg call the single-model kernel wrapper once
-    per leaf per aggregated model; batched and fused call only the
-    multi-model one. (On CUDA tensors each call is one launch.)"""
-    calls = {"weighted_agg": 0, "multi_weighted_agg": 0}
-    for name in calls:
+    """Legacy FedCD and FedAvg make one grouped call of the single-model
+    kernel wrapper per aggregated model, over every leaf; batched and
+    fused make one grouped call of the multi-model one. No engine calls
+    the per-leaf wrappers. (On CUDA tensors each grouped call is one
+    launch.)"""
+    names = ("weighted_agg_group", "multi_weighted_agg_group",
+             "weighted_agg", "multi_weighted_agg")
+    calls = dict.fromkeys(names, 0)
+    leaves = dict.fromkeys(names, 0)
+    for name in names:
         real = getattr(twops, name)
 
         def counted(*a, _real=real, _name=name):
             calls[_name] += 1
+            leaves[_name] += len(a[0]) if _name.endswith("_group") else 1
             return _real(*a)
         monkeypatch.setattr(twops, name, counted)
+
+    def reset():
+        for k in names:
+            calls[k] = leaves[k] = 0
+
+    def expect(group):
+        return ({k: int(k == group) for k in names},
+                {k: n_leaves * (k == group) for k in names})
+
     cfg, data = _small_setup()
     _, tp = _init()
     n_leaves = len(tp)
     seen = {}
     for engine in ENGINES:
-        for k in calls:
-            calls[k] = 0
+        reset()
         srv = TFedCD(_tcfg(cfg), tp, tmlp.mlp_loss, tmlp.mlp_accuracy,
                      data, batch_size=16, spec=engine, device="cpu")
         m = srv.run_round(1)
         assert m.live_models == 1
-        seen[engine] = dict(calls)
-    assert seen["legacy"] == {"weighted_agg": n_leaves,
-                              "multi_weighted_agg": 0}
+        seen[engine] = (dict(calls), dict(leaves))
+    assert seen["legacy"] == expect("weighted_agg_group")
     for engine in ("batched", "fused"):
-        assert seen[engine] == {"weighted_agg": 0,
-                                "multi_weighted_agg": n_leaves}
-    for k in calls:
-        calls[k] = 0
+        assert seen[engine] == expect("multi_weighted_agg_group")
+    reset()
     TFedAvg(_tcfg(cfg), tp, tmlp.mlp_loss, tmlp.mlp_accuracy, data,
             batch_size=16, spec="legacy", device="cpu").run_round(1)
-    assert calls == {"weighted_agg": n_leaves, "multi_weighted_agg": 0}
+    assert (calls, leaves) == expect("weighted_agg_group")
 
 
 def test_dict_registry_clones_on_device_through_roundtrip():

@@ -30,6 +30,7 @@ from repro_torch.core import quantize as tqz  # noqa: E402
 from repro_torch.kernels.quantize import ops as tqops  # noqa: E402
 from repro_torch.kernels.quantize import ref as tqref  # noqa: E402
 from repro_torch.kernels.weighted_agg import ops as twops  # noqa: E402
+from repro_torch.kernels.weighted_agg import ref as twref  # noqa: E402
 
 SHAPES = [(8,), (128,), (3, 130), (256, 512), (300, 777), (2, 3, 65)]
 AGG_CASES = [(1, 4, (33,)), (3, 8, (64, 32)), (5, 17, (2, 5, 7))]
@@ -342,3 +343,124 @@ def test_single_model_wrappers_reject_bad_input():
         twops.dequant_agg(torch.zeros(2, 128, dtype=torch.int8, **meta),
                           torch.ones(2, 1, **meta), torch.ones(2, **meta),
                           torch.tensor(1.0, **meta))
+
+
+# -- eq 1 over every leaf of a param dict in one grouped call -----------------
+# (on CPU tensors the group wrappers are the plain versions leaf by leaf, so
+# they equal the per-leaf wrappers bit for bit)
+
+GROUP_SIZES = [0, 1, 10, 2_303, 128, 5]
+
+
+def _group_leaves(b, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(0, 1, (b, d)).astype(np.float32))
+            for d in GROUP_SIZES]
+
+
+@pytest.mark.parametrize("m,b", [(1, 4), (2, 32), (3, 7), (17, 5)])
+def test_multi_weighted_agg_group_equals_per_leaf_plain(m, b):
+    us = _group_leaves(b, seed=m)
+    _, w, d = _agg_inputs(m, b, (1,), seed=b)
+    w, d = torch.from_numpy(w), torch.from_numpy(d)
+    outs = twops.multi_weighted_agg_group(us, w, d)
+    assert len(outs) == len(us)
+    for u, out in zip(us, outs):
+        assert out.dtype == torch.float32 and out.shape == (m, u.shape[1])
+        assert torch.equal(out, twops.multi_weighted_agg(u, w, d))
+        assert torch.equal(out, twref.multi_weighted_agg_ref(u, w, d))
+
+
+@pytest.mark.parametrize("n", [1, 3, 30])
+def test_weighted_agg_group_equals_per_leaf_plain(n):
+    us = _group_leaves(n, seed=n)
+    _, w, d = _single_inputs(n, (1,), seed=n)
+    w, d = torch.from_numpy(w), torch.tensor(d)
+    outs = twops.weighted_agg_group(us, w, d)
+    assert len(outs) == len(us)
+    for u, out in zip(us, outs):
+        assert out.dtype == torch.float32 and out.shape == (u.shape[1],)
+        assert torch.equal(out, twops.weighted_agg(u, w, d))
+        assert torch.equal(out, twref.weighted_agg_ref(u, w, d))
+
+
+def test_group_wrappers_take_an_empty_group():
+    assert twops.multi_weighted_agg_group([], torch.ones(2, 3),
+                                          torch.ones(2)) == []
+    assert twops.weighted_agg_group([], torch.ones(3), torch.tensor(1.0)) == []
+
+
+def _bad_groups():
+    u, meta = torch.zeros(4, 8), torch.zeros(4, 8, device="meta")
+    return {
+        "mismatched B": [u, torch.zeros(3, 8)],
+        "mixed devices": [u, meta],
+        "non-contiguous leaf": [u, torch.zeros(8, 4).t()],
+        "not float32": [u, torch.zeros(4, 8, dtype=torch.float64)],
+        "not 2-D": [u, torch.zeros(4, 2, 4)],
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_groups()))
+def test_group_wrappers_reject_bad_leaves(case):
+    leaves = _bad_groups()[case]
+    with pytest.raises(ValueError):
+        twops.multi_weighted_agg_group(leaves, torch.ones(2, 4),
+                                       torch.ones(2))
+    with pytest.raises(ValueError):
+        twops.weighted_agg_group(leaves, torch.ones(4), torch.tensor(4.0))
+
+
+def test_group_wrappers_reject_bad_weights():
+    us = [torch.zeros(4, 8)]
+    with pytest.raises(ValueError):
+        twops.multi_weighted_agg_group(us, torch.ones(2, 4), torch.ones(3))
+    with pytest.raises(ValueError):
+        twops.multi_weighted_agg_group(us, torch.ones(4), torch.ones(1))
+    with pytest.raises(ValueError):
+        twops.multi_weighted_agg_group(us, torch.ones(2, 4, dtype=torch.float64),
+                                       torch.ones(2))
+    with pytest.raises(ValueError):
+        twops.weighted_agg_group(us, torch.ones(4), torch.ones(1))
+
+
+def _many_leaf_tree(lead, seed):
+    """A pytree with more leaves than one launch's table holds, of mixed
+    ranks and lengths (empty, 1, 10, 2303 values among them)."""
+    rng = np.random.default_rng(seed)
+    shapes = [(0,), (1,), (10,), (2_303,), (3, 5, 7), (4, 32)] + [
+        (int(k),) for k in rng.integers(1, 200, 34)]
+    return {f"leaf{i:02d}": rng.normal(0, 1, (lead,) + s).astype(np.float32)
+            for i, s in enumerate(shapes)}
+
+
+@pytest.mark.parametrize("literal", [False, True])
+def test_multi_weighted_average_many_leaves_matches_reference(literal):
+    tree = _many_leaf_tree(6, seed=7)
+    w = np.zeros((3, 6), np.float32)
+    w[0, :3] = [0.5, 0.2, 0.3]
+    w[1, 3:5] = [0.7, 0.3]
+    w[2, 5] = 1.0
+    tt = {k: torch.from_numpy(v) for k, v in tree.items()}
+    out = tagg.multi_weighted_average(tt, torch.from_numpy(w),
+                                      literal_eq1=literal)
+    ref = jagg.multi_weighted_average(tree, w, literal_eq1=literal)
+    assert list(out) == list(tree)
+    for k in tree:
+        assert out[k].shape == (3,) + tree[k].shape[1:]
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("literal", [False, True])
+def test_weighted_average_many_leaves_matches_reference(literal):
+    tree = _many_leaf_tree(5, seed=8)
+    w = np.array([0.5, 0.0, 0.2, 0.3, 0.0], np.float32)
+    tt = {k: torch.from_numpy(v) for k, v in tree.items()}
+    out = tagg.weighted_average(tt, torch.from_numpy(w), literal_eq1=literal)
+    ref = jagg.weighted_average(tree, w, literal_eq1=literal)
+    assert list(out) == list(tree)
+    for k in tree:
+        assert out[k].shape == tree[k].shape[1:]
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
+                                   atol=1e-5)
