@@ -46,6 +46,8 @@ RAGGED_SINGLE = [(1, 5), (3, 17), (7, 1027), (30, 2303)]   # (N, D)
 RAGGED_DEQ = [(1, 128, 128), (5, 2304, 64), (30, 384, 128),
               (4, 192, 64)]         # (N, D, block)
 ENGINE_ROUNDS = 8                   # the engine-agreement phase (MLP)
+MIXED_LEAVES = [10, 2303, 4096, 129, 5, 1027, 589_824, 1, 128]
+BACK_TO_BACK = 20                   # calls captured in one graph
 # the paper config's lr (0.08) sends this CNN to NaN within a round on
 # the synthetic data, in the JAX reference as well; 0.01 stays finite
 CNN_LR = 0.01
@@ -128,6 +130,71 @@ def leaf_diagnostics(us, group, library, m):
         small_library_ms=graph_ms(lambda: [library(u) for u in small]))
 
 
+def check_transport(xs, qs, ss, bits, tag):
+    """Hold a quantize call's codes ``qs`` and scales ``ss`` of the
+    leaves ``xs`` to the reference's bar against the plain version (codes
+    at most one step off on fewer than 1e-3 of the values, scales to rtol
+    1e-6), and a dequantize_group call over the plain version's codes to
+    exactness. Returns (max code diff, code mismatches, max scale rel err,
+    max dequantize abs err)."""
+    import torch
+
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.quantize.ref import (dequantize_ref,
+                                                  quantize_ref)
+    refs = [quantize_ref(x, bits) for x in xs]
+    q_err = s_err = d_err = 0.0
+    mism = 0
+    for x, q, s, (qr, sr) in zip(xs, qs, ss, refs):
+        if q.shape != qr.shape or s.shape != sr.shape:
+            fail(f"quantize {tag} n={x.shape[1]}: shapes {tuple(q.shape)}, "
+                 f"{tuple(s.shape)}")
+        dq = (q.int() - qr.int()).abs()
+        q_err = max(q_err, float(dq.max()) if dq.numel() else 0.0)
+        mism += int((dq != 0).sum())
+        if dq.numel() and (float(dq.max()) > 1
+                           or float((dq != 0).float().mean()) >= 1e-3):
+            fail(f"quantize {tag} n={x.shape[1]}: codes off the bar")
+        if s.numel():
+            s_err = max(s_err, float(((s - sr).abs() / sr).max()))
+        if not s_err <= 1e-6:
+            fail(f"quantize {tag}: scale rel err {s_err} > 1e-6")
+    outs = qops.dequantize_group([qr for qr, _ in refs],
+                                 [sr for _, sr in refs],
+                                 [x.shape[1] for x in xs])
+    for x, out, (qr, sr) in zip(xs, outs, refs):
+        ref = dequantize_ref(qr, sr, tuple(x.shape), torch.float32)
+        if out.shape != ref.shape or not torch.equal(out, ref):
+            fail(f"dequantize {tag} n={x.shape[1]}: mismatch")
+        if out.numel():
+            d_err = max(d_err, float((out - ref).abs().max()))
+    return q_err, mism, s_err, d_err
+
+
+def transport_diagnostics(sizes, nbytes, group, call, one_block):
+    """Where a transport call's time goes, on graph replay: the largest
+    leaf alone (device ms and its stream rate against HBM_BYTES_PER_S),
+    the leaves under SMALL_LEAF values together in one launch, the whole
+    call when BACK_TO_BACK of it are replayed from one graph (per call:
+    no gap between replays), and ``one_block`` (the kernel's launch over
+    one 128-value block, the floor under any of its launches) alone and
+    back to back."""
+    big = max(range(len(sizes)), key=lambda i: sizes[i])
+    small = [i for i, d in enumerate(sizes) if d < SMALL_LEAF]
+    big_ms = graph_ms(lambda: group([big]))
+    return dict(
+        big_n=sizes[big], big_ms=big_ms,
+        big_gb_s=nbytes[big] / big_ms * 1e-6,
+        big_hbm_share=nbytes[big] / (big_ms * 1e-3) / HBM_BYTES_PER_S,
+        small_leaves=len(small), small_ms=graph_ms(lambda: group(small)),
+        back_to_back_ms=graph_ms(lambda: [call() for _ in range(
+            BACK_TO_BACK)]) / BACK_TO_BACK,
+        one_block_ms=graph_ms(one_block),
+        one_block_back_to_back_ms=graph_ms(lambda: [one_block() for _ in
+                                                    range(BACK_TO_BACK)])
+        / BACK_TO_BACK)
+
+
 def check_kernels(device, leaf_sizes):
     """Phase 3: every kernel against its plain version on the card."""
     import torch
@@ -170,47 +237,52 @@ def check_kernels(device, leaf_sizes):
                 us, lambda group: wops.multi_weighted_agg_group(group, w, den),
                 lambda u: torch.mm(ws, u), m), **t)
 
-        # transport roundtrip of the M aggregated rows, one launch per leaf
+        # transport roundtrip of the M aggregated rows: the path's call is
+        # one quantize_group and one dequantize_group over every leaf; each
+        # leaf also through the per-leaf wrappers (groups of one)
         xs = [torch.randn(m, d, generator=gen, device=device) * 0.1
               for d in leaf_sizes]
-        q_err = s_err = d_err = 0.0
-        mism = 0
+        qs, ss = qops.quantize_group(xs, 8)
+        q_err, mism, s_err, d_err = check_transport(xs, qs, ss, 8,
+                                                    f"M={m}")
         for x in xs:
-            q, s = qops.quantize(x, 8)
-            qr, sr = quantize_ref(x, 8)
-            dq = (q.int() - qr.int()).abs()
-            q_err = max(q_err, float(dq.max()))
-            mism += int((dq != 0).sum())
-            s_err = max(s_err, float(((s - sr).abs() / sr).max()))
-            if float(dq.max()) > 1 or float((dq != 0).float().mean()) >= 1e-3:
-                fail(f"quantize M={m} n={x.shape[1]}: codes off the bar")
-            if not s_err <= 1e-6:
-                fail(f"quantize M={m}: scale rel err {s_err} > 1e-6")
-            out = qops.dequantize(qr, sr, x.shape[1])
-            ref = dequantize_ref(qr, sr, tuple(x.shape), torch.float32)
-            d_err = max(d_err, float((out - ref).abs().max()))
-            if d_err != 0.0:
-                fail(f"dequantize M={m} n={x.shape[1]}: max_abs_err {d_err}")
-        packed = [qops.quantize(x, 8) for x in xs]
-        t_q = timings(lambda: [qops.quantize(x, 8) for x in xs],
+            check_transport([x], *[[t] for t in qops.quantize(x, 8)], 8,
+                            f"M={m} per-leaf")
+        ns = [x.shape[1] for x in xs]
+        t_q = timings(lambda: qops.quantize_group(xs, 8),
                       lambda: [quantize_ref(x, 8) for x in xs])
-        t_d = timings(lambda: [qops.dequantize(q, s, x.shape[1])
-                               for (q, s), x in zip(packed, xs)],
+        t_d = timings(lambda: qops.dequantize_group(qs, ss, ns),
                       lambda: [dequantize_ref(q, s, tuple(x.shape),
                                               torch.float32)
-                               for (q, s), x in zip(packed, xs)])
+                               for q, s, x in zip(qs, ss, xs)],
+                      lambda: [torch.mul(q.view(m, -1, 128), s.unsqueeze(-1))
+                               for q, s in zip(qs, ss)])
+        x1 = torch.randn(1, 128, generator=gen, device=device)
+        q1, s1 = qops.quantize_group([x1], 8)
         pads = [-(-d // 128) * 128 for d in leaf_sizes]
-        q_bytes = sum(m * (4 * d + p + p // 32)
-                      for d, p in zip(leaf_sizes, pads))
+        q_bytes = [m * (4 * d + p + p // 32)
+                   for d, p in zip(leaf_sizes, pads)]
         n_vals = sum(m * d for d in leaf_sizes)
         # per value: abs, max, divide, round, two clamps / one multiply
-        qb, qby = bound(q_bytes, 6 * n_vals)
-        db, dby = bound(q_bytes, n_vals)
+        qb, qby = bound(sum(q_bytes), 6 * n_vals)
+        db, dby = bound(sum(q_bytes), n_vals)
         rows[("quantize", m)] = dict(
             max_abs_err=q_err, bound_ms=qb, bound_by=qby,
-            code_mismatches=mism, scale_rel_err=s_err, **t_q)
+            code_mismatches=mism, scale_rel_err=s_err,
+            diag=transport_diagnostics(
+                leaf_sizes, q_bytes,
+                lambda idx: qops.quantize_group([xs[i] for i in idx], 8),
+                lambda: qops.quantize_group(xs, 8),
+                lambda: qops.quantize_group([x1], 8)), **t_q)
         rows[("dequantize", m)] = dict(
-            max_abs_err=d_err, bound_ms=db, bound_by=dby, **t_d)
+            max_abs_err=d_err, bound_ms=db, bound_by=dby,
+            diag=transport_diagnostics(
+                leaf_sizes, q_bytes,
+                lambda idx: qops.dequantize_group(
+                    [qs[i] for i in idx], [ss[i] for i in idx],
+                    [ns[i] for i in idx]),
+                lambda: qops.dequantize_group(qs, ss, ns),
+                lambda: qops.dequantize_group(q1, s1, [128])), **t_d)
 
     # ragged and unaligned shapes: the scalar paths and the extra passes
     # over U of M > 8
@@ -224,16 +296,15 @@ def check_kernels(device, leaf_sizes):
             fail(f"multi_weighted_agg ragged {(m, b, d)}: {err}")
         x = unaligned((m, d), gen, device)
         for bits in (4, 8):
-            q, s = qops.quantize(x, bits)
-            qr, sr = quantize_ref(x, bits)
-            dq = (q.int() - qr.int()).abs()
-            if (float(dq.max()) > 1 or float((dq != 0).float().mean()) >= 1e-3
-                    or float(((s - sr).abs() / sr).max()) > 1e-6):
-                fail(f"quantize ragged {(m, d)} bits={bits}: off the bar")
-            if not torch.equal(qops.dequantize(qr, sr, d),
-                               dequantize_ref(qr, sr, (m, d),
-                                              torch.float32)):
-                fail(f"dequantize ragged {(m, d)} bits={bits}: mismatch")
+            check_transport([x], *[[t] for t in qops.quantize(x, bits)],
+                            bits, f"ragged {(m, d)}")
+    # aligned, unaligned and ragged leaves in one grouped call
+    xs = [unaligned((3, d), gen, device) if i % 2 else
+          torch.randn(3, d, generator=gen, device=device)
+          for i, d in enumerate(MIXED_LEAVES)]
+    for bits in (4, 8):
+        check_transport(xs, *qops.quantize_group(xs, bits), bits,
+                        f"mixed group bits={bits}")
     torch.cuda.synchronize()
     return rows
 
@@ -519,6 +590,28 @@ def engine_path(device, engine):
     return walls
 
 
+def count_roundtrips():
+    """Wrap ``core.quantize.roundtrip_rows`` (which ``roundtrip`` calls
+    too) so that it counts its calls and the launches of each transport
+    kernel they must make: one per ``max_leaves`` non-empty leaves of a
+    call. Returns the wrapper, whose ``calls`` and ``launches`` the caller
+    resets."""
+    from repro_torch.core import quantize as qz
+    from repro_torch.kernels.quantize import ops as qops
+    inner = qz.roundtrip_rows
+    cap = qops.max_leaves()
+
+    def counted(stacked, bits=8):
+        if bits > 0:
+            live = sum(1 for v in stacked.values() if v.numel())
+            counted.calls += 1
+            counted.launches += -(-live // cap)
+        return inner(stacked, bits)
+    counted.calls = counted.launches = 0
+    qz.roundtrip_rows = counted
+    return counted
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -586,12 +679,14 @@ def main() -> int:
     # phase 5: the main path, with every launch counter from zero
     counters = (wops.multi_weighted_agg, wops.weighted_agg, wops.dequant_agg,
                 qops.quantize, qops.dequantize)
+    roundtrips = count_roundtrips()
 
     def drive(path):
         """Run ``path`` with every launch counter from zero; return its
         result and the counts it left."""
         for fn in counters:
             fn.launches = 0
+        roundtrips.calls = roundtrips.launches = 0
         out = path()
         torch.cuda.synchronize()
         return out, {fn.__name__: fn.launches for fn in counters}
@@ -602,11 +697,23 @@ def main() -> int:
               f"{np.mean([w[1] for w in walls[1:]]):.4f} "
               f"launches={launches}")
 
+    def check_transport_launches(tag, counts):
+        # one launch of each per roundtrip call and 32 leaves of it
+        print(f"[{tag} transport] roundtrip calls={roundtrips.calls} "
+              f"expected launches={roundtrips.launches} each")
+        if not (counts["quantize"] == counts["dequantize"]
+                == roundtrips.launches > 0):
+            fail(f"{tag}: quantize launched {counts['quantize']} times, "
+                 f"dequantize {counts['dequantize']}, in "
+                 f"{roundtrips.calls} roundtrip calls that make "
+                 f"{roundtrips.launches} launches of each")
+
     walls, launches = drive(lambda: main_path(device))
     report("main path", walls, launches)
     for name in ("multi_weighted_agg", "quantize", "dequantize"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    check_transport_launches("main path", launches)
 
     # phase 6: the three engines agree on the card
     err, live = engines_agree(device)
@@ -623,11 +730,13 @@ def main() -> int:
     for name in ("quantize", "dequantize"):
         if legacy[name] <= 0:
             fail(f"kernel {name} was not launched on the legacy path")
+    check_transport_launches("legacy path", legacy)
     walls, batched = drive(lambda: engine_path(device, "batched"))
     report("batched path", walls, batched)
     for name in ("multi_weighted_agg", "quantize", "dequantize"):
         if batched[name] <= 0:
             fail(f"kernel {name} was not launched on the batched path")
+    check_transport_launches("batched path", batched)
     launches["weighted_agg"] = legacy["weighted_agg"]
 
     # launches: kernels 1-3 on the fused main path, weighted_agg on the

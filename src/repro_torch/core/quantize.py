@@ -7,10 +7,12 @@ q = round(x / s), s = max|x| / qmax. Leaves are FLATTENED before blocking
 narrow matrices would blow the payload up), so the blocks follow each
 leaf's memory order — which is why the port keeps the reference's param
 layouts. Every leaf goes through ``kernels.quantize.ops``: the CUDA
-kernels on CUDA tensors, their plain versions on CPU tensors.
+kernels on CUDA tensors, their plain versions on CPU tensors; a param
+dict's leaves go through one grouped call of each.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -35,30 +37,30 @@ def dequantize_leaf(q: torch.Tensor, scales: torch.Tensor, shape,
     return q_ops.dequantize(q, scales, n).reshape(shape).to(dtype)
 
 
-def _roundtrip_rows(leaf: torch.Tensor, bits: int) -> torch.Tensor:
-    """Quantize-then-dequantize each row of ``leaf`` (R, ...) as its own
-    flattened payload, all rows in one launch per kernel."""
-    flat = leaf.reshape(leaf.shape[0], -1)
-    q, s = q_ops.quantize(flat, bits)
-    return q_ops.dequantize(q, s, flat.shape[1]).reshape(leaf.shape
-                                                         ).to(leaf.dtype)
-
-
 def roundtrip(tree: Params, bits: int = 8) -> Params:
     """Quantize-then-dequantize one model — what a device/server actually
     stores. ``bits <= 0`` returns ``tree`` itself."""
     if bits <= 0:
         return tree
-    return {k: _roundtrip_rows(v.reshape(1, -1), bits).reshape(v.shape)
-            for k, v in tree.items()}
+    rows = roundtrip_rows({k: v.reshape(1, -1) for k, v in tree.items()},
+                          bits)
+    return {k: rows[k].reshape(v.shape) for k, v in tree.items()}
 
 
 def roundtrip_rows(stacked: Params, bits: int = 8) -> Params:
     """:func:`roundtrip` of every model of a stacked (A, ...) param dict —
-    the reference's ``vmap(roundtrip)`` over the aggregated rows."""
+    the reference's ``vmap(roundtrip)`` over the aggregated rows. Each
+    row of a leaf is its own flattened payload; every leaf goes through
+    one ``quantize_group`` and one ``dequantize_group`` call (on the card,
+    one launch of each kernel for up to 32 leaves)."""
     if bits <= 0:
         return stacked
-    return {k: _roundtrip_rows(v, bits) for k, v in stacked.items()}
+    flat = [v.reshape(v.shape[0], math.prod(v.shape[1:])).float()
+            .contiguous() for v in stacked.values()]
+    qs, ss = q_ops.quantize_group(flat, bits)
+    outs = q_ops.dequantize_group(qs, ss, [f.shape[1] for f in flat])
+    return {k: o.reshape(v.shape).to(v.dtype)
+            for (k, v), o in zip(stacked.items(), outs)}
 
 
 def compressed_bytes(tree: Params, bits: int = 8) -> int:

@@ -19,7 +19,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, group
 from repro_torch.kernels.weighted_agg.ref import (dequant_agg_ref,
                                                   multi_weighted_agg_ref,
                                                   weighted_agg_ref)
@@ -84,36 +84,19 @@ def _eq1_launch(updates: Sequence[torch.Tensor], weights: torch.Tensor,
     by leaf, each leaf starting 16-byte aligned (the quantize kernel's
     float4 path reads them): (M, D_i), or (D_i,) when ``squeeze``.
     Returns them and the number of launches."""
-    B = weights.shape[-1]
     sizes = [u.shape[1] for u in updates]
-    offs, total = [], 0
-    for d in sizes:
-        offs.append(total)
-        total += -(-M * d // 4) * 4
-    buf = torch.empty(total, dtype=torch.float32, device=weights.device)
-    outs = [buf.as_strided((d,) if squeeze else (M, d),
-                           (1,) if squeeze else (d, 1), o)
-            for d, o in zip(sizes, offs)]
-    live = [i for i, d in enumerate(sizes) if d and M]
-    if not live:
-        return outs, 0
+    outs, out_ptrs = group.views([(d,) if squeeze else (M, d)
+                                  for d in sizes], torch.float32,
+                                 weights.device)
     lib, fn, _, cap = _kernels()
-    base = buf.data_ptr()
-    launches = 0
-    with torch.cuda.device(weights.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for s in range(0, len(live), cap):
-            idx = live[s:s + cap]
-            n = len(idx)
-            code = fn((ctypes.c_void_p * n)(*[updates[i].data_ptr()
-                                              for i in idx]),
-                      (ctypes.c_void_p * n)(*[base + 4 * offs[i]
-                                              for i in idx]),
-                      (ctypes.c_longlong * n)(*[sizes[i] for i in idx]),
-                      n, weights.data_ptr(), denoms.data_ptr(), B, M,
-                      stream)
-            build.check_launch(lib, code, "eq-1 aggregation")
-            launches += 1
+    vp = ctypes.c_void_p
+    launches = group.launch(
+        fn, [(vp, [u.data_ptr() for u in updates]), (vp, out_ptrs),
+             (ctypes.c_longlong, sizes)],
+        group.launch_groups([M * d for d in sizes], cap),
+        [weights.data_ptr(), denoms.data_ptr(), weights.shape[-1], M],
+        weights.device,
+        lambda code: build.check_launch(lib, code, "eq-1 aggregation"))
     return outs, launches
 
 

@@ -286,3 +286,113 @@ def test_group_propagates_nan_of_zero_weight_row_per_leaf_on_card(cuda,
         out = out.cpu()
         nan = torch.isnan(out)
         assert nan[:, 3 + i].all() and nan.sum() == out.shape[0]
+
+
+# -- transport quantization as one grouped launch over a param dict's leaves --
+
+def _quant_leaves(rows, sizes, seed, device, unaligned=()):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xs = [torch.randn(rows, d, generator=gen, device=device) * 0.1
+          for d in sizes]
+    return [_unaligned(x) if i in unaligned else x for i, x in enumerate(xs)]
+
+
+def _check_quantize_group(xs, bits):
+    """One quantize_group and one dequantize_group call over ``xs``: one
+    launch of each per table's worth of non-empty leaves; codes, scales
+    and values bit-equal to the plain versions and to the per-leaf
+    wrappers; every returned view contiguous and 16-byte aligned."""
+    _, _, cap = tqops._kernels()
+    live = sum(1 for x in xs if x.numel())
+    before = tqops.quantize.launches, tqops.dequantize.launches
+    qs, ss = tqops.quantize_group(xs, bits)
+    outs = tqops.dequantize_group(qs, ss, [x.shape[1] for x in xs])
+    torch.cuda.synchronize()
+    launches = -(-live // cap)
+    assert (tqops.quantize.launches, tqops.dequantize.launches) == (
+        before[0] + launches, before[1] + launches)
+    for x, q, s, out in zip(xs, qs, ss, outs):
+        for t in (q, s, out):
+            assert t.is_contiguous() and t.data_ptr() % 16 == 0
+        nb = -(-x.shape[1] // 128)
+        assert q.shape == (x.shape[0], nb * 128) and out.shape == x.shape
+        if not x.numel():                  # the plain version takes none
+            continue
+        qr, sr = tqref.quantize_ref(x, bits)
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+        assert torch.equal(out, tqref.dequantize_ref(qr, sr, tuple(x.shape),
+                                                     torch.float32))
+        q1, s1 = tqops.quantize(x, bits)
+        assert torch.equal(q, q1) and torch.equal(s, s1)
+        assert torch.equal(out, tqops.dequantize(q1, s1, x.shape[1]))
+    return launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 16])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantize_group_matches_plain_at_cnn_leaves_on_card(cuda, m, bits):
+    xs = _quant_leaves(m, _cnn_leaf_sizes(), m + bits, cuda)
+    assert _check_quantize_group(xs, bits) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantize_group_with_unaligned_and_ragged_leaves_on_card(cuda, bits):
+    """Aligned, unaligned and ragged leaves in one call: each takes its
+    own float4 or scalar path."""
+    sizes = [10, 2_303, 4_096, 129, 5, 1_027, 589_824, 1, 128]
+    xs = _quant_leaves(3, sizes, bits, cuda, unaligned={0, 2, 3, 6})
+    assert _check_quantize_group(xs, bits) == 1
+
+
+@pytest.mark.cuda
+def test_quantize_group_beyond_the_leaf_cap_on_card(cuda):
+    sizes = [(7 * i) % 300 for i in range(75)]      # leaf 0 is empty
+    xs = _quant_leaves(2, sizes, 1, cuda, unaligned={5, 40})
+    _, _, cap = tqops._kernels()
+    assert _check_quantize_group(xs, 8) > 2 and len(xs) > 2 * cap
+
+
+@pytest.mark.cuda
+def test_quantize_group_with_empty_leaves_on_card(cuda):
+    xs = [torch.zeros(0, 5, device=cuda), torch.zeros(3, 0, device=cuda),
+          torch.randn(2, 300, device=cuda)]
+    assert _check_quantize_group(xs, 8) == 1
+    qs, ss = tqops.quantize_group(xs[:2], 8)
+    assert [tuple(q.shape) for q in qs] == [(0, 128), (3, 0)]
+    assert [tuple(s.shape) for s in ss] == [(0, 1), (3, 0)]
+    assert _check_quantize_group(xs[:2], 8) == 0
+
+
+@pytest.mark.cuda
+def test_quantize_group_past_32_bit_offsets_on_card(cuda):
+    """A leaf whose element offsets pass 2^31 (2 rows of 2^30 + 300
+    values, 8.6 GB of float32) makes the launch take the kernels' 64-bit
+    index instantiation; a small leaf rides in the same launch. The blocks
+    at both ends of each row, the second row's end past offset 2^31, equal
+    the plain version's bit for bit."""
+    n = 2**30 + 300
+    nb = -(-n // 128)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    xs = [torch.randn(2, n, generator=gen, device=cuda),
+          torch.randn(3, 1_000, generator=gen, device=cuda)]
+    before = tqops.quantize.launches, tqops.dequantize.launches
+    qs, ss = tqops.quantize_group(xs, 8)
+    outs = tqops.dequantize_group(qs, ss, [n, 1_000])
+    torch.cuda.synchronize()
+    assert (tqops.quantize.launches, tqops.dequantize.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert 2 * nb * 128 > 2**31 - 1
+    for b0, b1 in ((0, 8), (nb - 10, nb)):     # 128-blocks of each row
+        x = xs[0][:, b0 * 128:min(b1 * 128, n)].contiguous()
+        qr, sr = tqref.quantize_ref(x, 8)
+        assert torch.equal(qs[0][:, b0 * 128:b1 * 128], qr)
+        assert torch.equal(ss[0][:, b0:b1], sr)
+        assert torch.equal(outs[0][:, b0 * 128:min(b1 * 128, n)],
+                           tqref.dequantize_ref(qr, sr, tuple(x.shape),
+                                                torch.float32))
+    qr, sr = tqref.quantize_ref(xs[1], 8)
+    assert torch.equal(qs[1], qr) and torch.equal(ss[1], sr)
+    assert torch.equal(outs[1], tqref.dequantize_ref(qr, sr, (3, 1_000),
+                                                     torch.float32))

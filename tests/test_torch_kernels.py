@@ -27,6 +27,7 @@ from repro.kernels.weighted_agg import ops as jwops  # noqa: E402
 from repro.kernels.weighted_agg import ref as jwref  # noqa: E402
 from repro_torch.core import aggregate as tagg  # noqa: E402
 from repro_torch.core import quantize as tqz  # noqa: E402
+from repro_torch.kernels import group as tgroup  # noqa: E402
 from repro_torch.kernels.quantize import ops as tqops  # noqa: E402
 from repro_torch.kernels.quantize import ref as tqref  # noqa: E402
 from repro_torch.kernels.weighted_agg import ops as twops  # noqa: E402
@@ -163,9 +164,9 @@ def test_roundtrip_and_compressed_bytes_match_reference():
 
 
 def test_roundtrip_rows_equals_per_row_roundtrip():
-    """The round's batched transport (one launch per leaf over the A
-    aggregated rows) blocks each row as its own payload — the
-    reference's vmap of roundtrip."""
+    """The round's batched transport (one grouped call over the A
+    aggregated rows of every leaf) blocks each row as its own payload —
+    the reference's vmap of roundtrip."""
     rng = np.random.default_rng(4)
     stacked = {"w": rng.normal(0, 1, (3, 5, 70)).astype(np.float32)}
     jrows = jax.vmap(lambda t: jqz.roundtrip(t, 8))(stacked)
@@ -464,3 +465,179 @@ def test_weighted_average_many_leaves_matches_reference(literal):
         assert out[k].shape == tree[k].shape[1:]
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
                                    atol=1e-5)
+
+
+# -- transport quantization over every leaf of a param dict in one call -------
+# (on CPU tensors the group wrappers are the plain versions leaf by leaf)
+
+QUANT_GROUP_SIZES = [10, 32, 864, 2_303, 9_216]
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantize_group_matches_reference(rows, bits):
+    """One group over mixed leaves against the reference's jnp version
+    and its Pallas kernels (interpret mode), leaf by leaf."""
+    rng = np.random.default_rng(rows * 10 + bits)
+    xs = [(rng.normal(0, 1, (rows, d)) * 3).astype(np.float32)
+          for d in QUANT_GROUP_SIZES]
+    qs, ss = tqops.quantize_group([torch.from_numpy(x) for x in xs], bits)
+    assert len(qs) == len(ss) == len(xs)
+    for x, q, s in zip(xs, qs, ss):
+        qr, sr = jqref.quantize_ref(jnp.asarray(x), bits=bits)
+        assert q.dtype == torch.int8 and s.dtype == torch.float32
+        assert tuple(q.shape) == qr.shape and tuple(s.shape) == sr.shape
+        _assert_quant_bar(q.numpy(), s.numpy(), qr, sr)
+        qk, sk = jqops.quantize(jnp.asarray(x), bits=bits)
+        _assert_quant_bar(q.numpy(), s.numpy(), qk, sk)
+    # dequantize the reference's codes on both sides
+    refs = [jqref.quantize_ref(jnp.asarray(x), bits=bits) for x in xs]
+    outs = tqops.dequantize_group(
+        [torch.from_numpy(np.array(q)) for q, _ in refs],
+        [torch.from_numpy(np.array(s)) for _, s in refs],
+        [x.shape[1] for x in xs])
+    for x, out, (qr, sr) in zip(xs, outs, refs):
+        assert out.dtype == torch.float32 and tuple(out.shape) == x.shape
+        np.testing.assert_array_equal(
+            out.numpy(), np.asarray(jqref.dequantize_ref(
+                qr, sr, x.shape, jnp.float32)))
+        np.testing.assert_array_equal(
+            out.numpy(), np.asarray(jqops.dequantize(qr, sr, x.shape,
+                                                     jnp.float32)))
+
+
+def _narrow_cnn_tree(lead, seed):
+    """The CNN's 20 leaves (names and layouts of ``models/cnn.py``) at an
+    eighth of its widths, stacked over ``lead`` models."""
+    rng = np.random.default_rng(seed)
+    channels, dense = (4, 4, 8, 8, 16, 16, 32, 32), 32
+    shapes, c_in = {}, 3
+    for i, c_out in enumerate(channels):
+        shapes[f"conv.{i}"] = (3, 3, c_in, c_out)
+        c_in = c_out
+    for i, c_out in enumerate(channels):
+        shapes[f"conv_b.{i}"] = (c_out,)
+    shapes.update({"fc1": (2 * 2 * c_in, dense), "fc1_b": (dense,),
+                   "fc2": (dense, 10), "fc2_b": (10,)})
+    return {k: (rng.normal(0, 1, (lead,) + s) * 0.1).astype(np.float32)
+            for k, s in shapes.items()}
+
+
+def test_roundtrip_rows_on_a_cnn_param_dict_matches_reference_vmap():
+    stacked = _narrow_cnn_tree(3, seed=5)
+    jrows = jax.vmap(lambda t: jqz.roundtrip(t, 8))(stacked)
+    rows = tqz.roundtrip_rows({k: torch.from_numpy(v)
+                               for k, v in stacked.items()}, 8)
+    assert list(rows) == list(stacked) and len(rows) == 20
+    for k in stacked:
+        assert rows[k].shape == stacked[k].shape
+        np.testing.assert_array_equal(rows[k].numpy(), np.asarray(jrows[k]))
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_roundtrip_makes_one_group_call_per_kernel(monkeypatch, stacked):
+    """Every leaf of a param dict goes through one quantize_group and one
+    dequantize_group call, and no per-leaf wrapper."""
+    calls = []
+    for name in ("quantize_group", "dequantize_group", "quantize",
+                 "dequantize"):
+        fn = getattr(tqops, name)
+        monkeypatch.setattr(
+            tqops, name,
+            lambda *a, _fn=fn, _name=name, **k: (calls.append(_name),
+                                                 _fn(*a, **k))[1])
+    tree = {k: torch.from_numpy(v) for k, v in _narrow_cnn_tree(
+        2 if stacked else 1, seed=6).items()}
+    if stacked:
+        tqz.roundtrip_rows(tree, 8)
+    else:
+        tqz.roundtrip({k: v[0] for k, v in tree.items()}, 8)
+    assert calls == ["quantize_group", "dequantize_group"]
+
+
+@pytest.mark.parametrize("itemsize", [1, 4])
+def test_group_segments_start_16_byte_aligned(itemsize):
+    sizes = [0, 1, 10, 2_303, 128, 5]
+    offsets, total = tgroup.segments(sizes, itemsize)
+    align = 16 // itemsize
+    assert all(o % align == 0 for o in offsets)
+    ends = [o + n for o, n in zip(offsets, sizes)]
+    assert all(e <= o for e, o in zip(ends, offsets[1:] + [total]))
+    assert total - ends[-1] < align and offsets[0] == 0
+    if itemsize == 4:
+        assert offsets == [0, 0, 4, 16, 2_320, 2_448] and total == 2_456
+
+
+@pytest.mark.parametrize("cap", [1, 3, 32])
+def test_group_launches_split_at_the_cap(cap):
+    sizes = [0, 5, 7, 0, 1, 300, 2, 0, 9] * 5
+    groups = tgroup.launch_groups(sizes, cap)
+    live = [i for i, n in enumerate(sizes) if n]
+    assert [i for g in groups for i in g] == live
+    assert len(groups) == -(-len(live) // cap)
+    assert all(1 <= len(g) <= cap for g in groups)
+    assert tgroup.launch_groups([0, 0], cap) == []
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+def test_group_views_are_aligned_views_of_one_buffer(dtype):
+    shapes = [(0, 128), (3, 0), (2, 5), (1, 10), (4, 128), (7,)]
+    views, ptrs = tgroup.views(shapes, dtype, torch.device("cpu"))
+    base = views[0].untyped_storage().data_ptr()
+    for v, p, shape in zip(views, ptrs, shapes):
+        assert tuple(v.shape) == shape and v.dtype == dtype
+        assert v.is_contiguous() and v.untyped_storage().data_ptr() == base
+        assert (p - base) % 16 == 0
+        if v.numel():                       # an empty view reports 0
+            assert v.data_ptr() == p
+
+
+def test_quantize_group_takes_empty_groups_and_leaves():
+    assert tqops.quantize_group([], 8) == ([], [])
+    assert tqops.dequantize_group([], [], []) == []
+    xs = [torch.zeros(0, 5), torch.zeros(3, 0), torch.ones(2, 130)]
+    qs, ss = tqops.quantize_group(xs, 8)
+    assert [tuple(q.shape) for q in qs] == [(0, 128), (3, 0), (2, 256)]
+    assert [tuple(s.shape) for s in ss] == [(0, 1), (3, 0), (2, 2)]
+    outs = tqops.dequantize_group(qs, ss, [5, 0, 130])
+    assert [tuple(o.shape) for o in outs] == [(0, 5), (3, 0), (2, 130)]
+    assert torch.equal(outs[2], xs[2])
+
+
+def _bad_quantize_groups():
+    x = torch.zeros(2, 8)
+    return {
+        "mixed devices": [x, torch.zeros(2, 8, device="meta")],
+        "not float32": [x, torch.zeros(2, 8, dtype=torch.float64)],
+        "non-contiguous leaf": [x, torch.zeros(8, 2).t()],
+        "not 2-D": [x, torch.zeros(8)],
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_quantize_groups()))
+def test_quantize_group_rejects_bad_leaves(case):
+    with pytest.raises(ValueError):
+        tqops.quantize_group(_bad_quantize_groups()[case], 8)
+
+
+def _bad_dequantize_groups():
+    q, s = torch.zeros(2, 256, dtype=torch.int8), torch.ones(2, 2)
+    return {
+        "mismatched ns": ([q, q], [s, s], [256]),
+        "mismatched scales": ([q, q], [s], [256, 256]),
+        "n past the padded row": ([q], [s], [257]),
+        "n a block short of the padded row": ([q], [s], [100]),
+        "n = 0 on padded rows": ([q], [s], [0]),
+        "scales of another shape": ([q], [torch.ones(2, 3)], [200]),
+        "codes not int8": ([q.float()], [s], [200]),
+        "scales not float32": ([q], [s.double()], [200]),
+        "non-contiguous codes": ([torch.zeros(256, 2, dtype=torch.int8).t()],
+                                 [s], [200]),
+        "mixed devices": ([q, q.to("meta")], [s, s.to("meta")], [200, 200]),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_dequantize_groups()))
+def test_dequantize_group_rejects_bad_input(case):
+    with pytest.raises(ValueError):
+        tqops.dequantize_group(*_bad_dequantize_groups()[case])
