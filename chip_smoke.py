@@ -45,6 +45,7 @@ SMALL_LEAF = 10_000                 # the CNN's 13 leaves below it
 RAGGED_SINGLE = [(1, 5), (3, 17), (7, 1027), (30, 2303)]   # (N, D)
 RAGGED_DEQ = [(1, 128, 128), (5, 2304, 64), (30, 384, 128),
               (4, 192, 64)]         # (N, D, block)
+MIXED_DEQ_BLOCKS = [1, 3, 18, 5, 4608, 7, 32, 2]   # leaf lengths in blocks
 ENGINE_ROUNDS = 8                   # the engine-agreement phase (MLP)
 MIXED_LEAVES = [10, 2303, 4096, 129, 5, 1027, 589_824, 1, 128]
 BACK_TO_BACK = 20                   # calls captured in one graph
@@ -111,23 +112,26 @@ def unaligned(shape, gen, device):
     return buf[1:].view(shape)
 
 
-def leaf_diagnostics(us, group, library, m):
+def leaf_diagnostics(sizes, nbytes, group, library=None):
     """Where an eq-1 call's time goes: the largest leaf alone (device ms
     and its stream rate against HBM_BYTES_PER_S) and the leaves under
-    SMALL_LEAF values together, each as one grouped kernel call and as
-    the library calls, on graph replay."""
-    big = max(us, key=lambda u: u.shape[1])
-    small = [u for u in us if u.shape[1] < SMALL_LEAF]
-    rows, d = big.shape
+    SMALL_LEAF values together, each as one grouped kernel call and, given
+    ``library``, as the library calls, on graph replay. ``group(idx)``
+    calls the kernel over the leaves ``idx``, ``library(i)`` the library
+    over leaf i; ``nbytes[i]`` is what leaf i moves."""
+    big = max(range(len(sizes)), key=lambda i: sizes[i])
+    small = [i for i, d in enumerate(sizes) if d < SMALL_LEAF]
     big_ms = graph_ms(lambda: group([big]))
-    big_bytes = (rows * d + m * rows + m + m * d) * 4
-    return dict(
-        big_d=d, big_ms=big_ms,
-        big_gb_s=big_bytes / big_ms * 1e-6,
-        big_hbm_share=big_bytes / (big_ms * 1e-3) / HBM_BYTES_PER_S,
-        big_library_ms=graph_ms(lambda: library(big)),
-        small_leaves=len(small), small_ms=graph_ms(lambda: group(small)),
-        small_library_ms=graph_ms(lambda: [library(u) for u in small]))
+    out = dict(big_d=sizes[big], big_ms=big_ms,
+               big_gb_s=nbytes[big] / big_ms * 1e-6,
+               big_hbm_share=nbytes[big] / (big_ms * 1e-3) / HBM_BYTES_PER_S)
+    if library is not None:
+        out["big_library_ms"] = graph_ms(lambda: library(big))
+    out.update(small_leaves=len(small),
+               small_ms=graph_ms(lambda: group(small)))
+    if library is not None:
+        out["small_library_ms"] = graph_ms(lambda: [library(i) for i in small])
+    return out
 
 
 def check_transport(xs, qs, ss, bits, tag):
@@ -234,8 +238,11 @@ def check_kernels(device, leaf_sizes):
         rows[("multi_weighted_agg", m)] = dict(
             max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
             diag=leaf_diagnostics(
-                us, lambda group: wops.multi_weighted_agg_group(group, w, den),
-                lambda u: torch.mm(ws, u), m), **t)
+                leaf_sizes, [(B_PAIRS * d + m * B_PAIRS + m + m * d) * 4
+                             for d in leaf_sizes],
+                lambda idx: wops.multi_weighted_agg_group(
+                    [us[i] for i in idx], w, den),
+                lambda i: torch.mm(ws, us[i])), **t)
 
         # transport roundtrip of the M aggregated rows: the path's call is
         # one quantize_group and one dequantize_group over every leaf; each
@@ -310,10 +317,11 @@ def check_kernels(device, leaf_sizes):
 
 
 def check_single_kernels(device, leaf_sizes):
-    """Phase 3, continued: the single-model eq-1 kernel and the fused
-    dequantize-aggregate kernel against their plain versions at the
-    legacy path's shapes (N = 30 device rows over the CNN's 20 leaves)
-    and at ragged and unaligned ones."""
+    """Phase 3, continued: the single-model eq-1 kernel over float32 and
+    over int8 payloads (weighted_agg, dequant_agg) against their plain
+    versions, each as one grouped call at the legacy path's shapes (N =
+    30 device rows over the CNN's 20 leaves), and at ragged and unaligned
+    shapes."""
     import torch
 
     from repro_torch.kernels.quantize import ops as qops
@@ -345,24 +353,44 @@ def check_single_kernels(device, leaf_sizes):
     rows = {("weighted_agg", n): dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
         diag=leaf_diagnostics(
-            us, lambda group: wops.weighted_agg_group(group, w, den),
-            lambda u: torch.mv(u.t(), ws), 1), **t)}
+            leaf_sizes, [(n * d + n + 1 + d) * 4 for d in leaf_sizes],
+            lambda idx: wops.weighted_agg_group([us[i] for i in idx], w, den),
+            lambda i: torch.mv(us[i].t(), ws)), **t)}
 
-    # codes and scales from the quantize kernel, as the transport makes
-    packed = [qops.quantize(u * 0.1, 8) for u in us]
-    err = max(float((wops.dequant_agg(q, s, w, den)
-                     - dequant_agg_ref(q, s, w, den)).abs().max())
-              for q, s in packed)
+    # the path's call over int8 payloads: codes and scales from the
+    # quantize kernel, as the transport makes them, every leaf in one
+    # grouped call (one launch); and each leaf through the per-leaf
+    # wrapper (a group of one)
+    qs, ss = qops.quantize_group([u * 0.1 for u in us], 8)
+    before = wops.dequant_agg.launches
+    outs = wops.dequant_agg_group(qs, ss, w, den)
+    torch.cuda.synchronize()
+    if wops.dequant_agg.launches != before + 1:
+        fail(f"dequant_agg_group over {len(qs)} leaves made "
+             f"{wops.dequant_agg.launches - before} launches, not 1")
+    err = max(float((o - dequant_agg_ref(q, s, w, den)).abs().max())
+              for q, s, o in zip(qs, ss, outs))
+    err = max([err] + [float((wops.dequant_agg(q, s, w, den)
+                              - dequant_agg_ref(q, s, w, den)).abs().max())
+                       for q, s in zip(qs, ss)])
     if not err <= AGG_TOL:
         fail(f"dequant_agg N={n}: max_abs_err {err} > {AGG_TOL}")
-    t = timings(lambda: [wops.dequant_agg(q, s, w, den) for q, s in packed],
-                lambda: [dequant_agg_ref(q, s, w, den) for q, s in packed])
-    pads = [q.shape[1] for q, _ in packed]
-    nbytes = sum(n * p + n * p // 32 + (n + 1) * 4 + p * 4 for p in pads)
+    t = timings(lambda: wops.dequant_agg_group(qs, ss, w, den),
+                lambda: [dequant_agg_ref(q, s, w, den)
+                         for q, s in zip(qs, ss)])
+    pads = [q.shape[1] for q in qs]
+    leaf_bytes = [n * p + n * p // 32 + (n + 1) * 4 + p * 4 for p in pads]
     # per value: convert, scale, multiply-add
-    b_ms, b_by = bound(nbytes, sum(4 * n * p for p in pads))
+    b_ms, b_by = bound(sum(leaf_bytes), sum(4 * n * p for p in pads))
+    diag = leaf_diagnostics(
+        pads, leaf_bytes,
+        lambda idx: wops.dequant_agg_group([qs[i] for i in idx],
+                                           [ss[i] for i in idx], w, den))
+    diag["back_to_back_ms"] = graph_ms(lambda: [
+        wops.dequant_agg_group(qs, ss, w, den)
+        for _ in range(BACK_TO_BACK)]) / BACK_TO_BACK
     rows[("dequant_agg", n)] = dict(max_abs_err=err, bound_ms=b_ms,
-                                    bound_by=b_by, **t)
+                                    bound_by=b_by, diag=diag, **t)
 
     # ragged and unaligned shapes: the masked edge and the scalar paths
     for rn, d in RAGGED_SINGLE:
@@ -386,6 +414,24 @@ def check_single_kernels(device, leaf_sizes):
                        - dequant_agg_ref(qq, s, wr, dr, block)).abs().max())
             if not e <= AGG_TOL:
                 fail(f"dequant_agg ragged {(rn, d, block)}: {e}")
+    # aligned, unaligned and ragged leaves (a last tile part full) in one
+    # grouped call
+    for block in (64, 128):
+        wr = torch.rand(5, generator=gen, device=device)
+        wr[1] = 0.0
+        dr = torch.clamp(wr.sum(), min=1e-12)
+        qs, ss = [], []
+        for i, nb in enumerate(MIXED_DEQ_BLOCKS):
+            q = torch.randint(-127, 128, (5 * nb * block + 1,),
+                              generator=gen, device=device, dtype=torch.int8)
+            qs.append(q[i % 2:5 * nb * block + i % 2].view(5, nb * block))
+            ss.append(torch.rand(5, nb, generator=gen, device=device) * 0.05)
+        for q, s, o in zip(qs, ss, wops.dequant_agg_group(qs, ss, wr, dr,
+                                                          block)):
+            e = float((o - dequant_agg_ref(q, s, wr, dr, block)).abs().max())
+            if not e <= AGG_TOL:
+                fail(f"dequant_agg mixed group block={block} "
+                     f"D={q.shape[1]}: {e}")
     torch.cuda.synchronize()
     return rows
 

@@ -4,12 +4,13 @@ multi_weighted_agg_2d``, ``::weighted_agg_2d`` and ``::dequant_agg_2d``).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it computes the plain version (``ref.py``). There is no fallback
-between the two. The two eq-1 forms share one kernel and take a group
-of leaves (``multi_weighted_agg_group``, ``weighted_agg_group``): one
-launch covers every leaf of a param dict. The per-leaf
-``multi_weighted_agg`` and ``weighted_agg`` are groups of one.
-``multi_weighted_agg.launches``, ``weighted_agg.launches`` and
-``dequant_agg.launches`` count kernel launches.
+between the two. The three eq-1 forms share one kernel body and take a
+group of leaves (``multi_weighted_agg_group``, ``weighted_agg_group``,
+``dequant_agg_group``): one launch covers every leaf of a param dict.
+The per-leaf ``multi_weighted_agg``, ``weighted_agg`` and
+``dequant_agg`` are groups of one. ``multi_weighted_agg.launches``,
+``weighted_agg.launches`` and ``dequant_agg.launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
@@ -24,21 +25,21 @@ from repro_torch.kernels.weighted_agg.ref import (dequant_agg_ref,
                                                   multi_weighted_agg_ref,
                                                   weighted_agg_ref)
 
-# the kernels stage their weights (and denominators) in dynamic shared
-# memory; this much is taken, more is refused here. (The eq-1 kernel adds
-# 4-32 KB of partial sums; its launcher lifts the block's limit past the
-# default 48 KB where the sum needs it.)
+# the kernel stages its weights (and denominators) in dynamic shared
+# memory; this much is taken, more is refused here. (It adds 4-32 KB of
+# partial sums; its launcher lifts the block's limit past the default
+# 48 KB where the sum needs it.)
 SMEM_LIMIT = 48 * 1024
 
 
 @functools.lru_cache(maxsize=1)
 def _kernels():
     lib = build.library("weighted_agg")
-    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    vp, i = ctypes.c_void_p, ctypes.c_int
     eq1 = lib.fedcd_eq1_agg
     eq1.argtypes = [vp, vp, vp, i, vp, vp, i, i, vp]
-    deq = lib.fedcd_dequant_agg
-    deq.argtypes = [vp] * 5 + [i, ll, i, i, vp]
+    deq = lib.fedcd_dequant_agg_group
+    deq.argtypes = [vp] * 4 + [i, vp, vp, i, i, vp]
     for fn in (eq1, deq):
         fn.restype = ctypes.c_int
     lib.fedcd_eq1_max_leaves.argtypes = []
@@ -166,52 +167,67 @@ def weighted_agg(updates: torch.Tensor, weights: torch.Tensor,
     return weighted_agg_group([updates], weights, denom)[0]
 
 
-def _check_single(updates: torch.Tensor, weights: torch.Tensor,
-                  denom: torch.Tensor) -> None:
-    if updates.dim() != 2 or weights.dim() != 1 or denom.dim() != 0:
-        raise ValueError("expected updates (N, D), weights (N,), a 0-d "
-                         f"denom; got {tuple(updates.shape)}, "
+def dequant_agg_group(qs: Sequence[torch.Tensor],
+                      scales: Sequence[torch.Tensor], weights: torch.Tensor,
+                      denom: torch.Tensor, block: int = 128
+                      ) -> List[torch.Tensor]:
+    """qs: leaves of int8 codes (N, D_i) with D_i % block == 0, scales:
+    their float32 block scales (N, D_i // block), weights (N,), denom 0-d
+    -> one (D_i,) float32 result per leaf, ``Σ_n w_n · (qs[i][n] ·
+    s_i[n, d // block]) / denom``: the eq-1 average of the dequantized
+    rows. Codes int8, the rest float32, every tensor contiguous and on one
+    device. On the card the leaves go through one launch (per
+    ``max_leaves`` non-empty leaves), each adding 1 to
+    ``dequant_agg.launches``; the results are views of one buffer."""
+    if weights.dim() != 1 or denom.dim() != 0:
+        raise ValueError("expected weights (N,), a 0-d denom; got "
                          f"{tuple(weights.shape)}, {tuple(denom.shape)}")
-    if weights.shape[0] != updates.shape[0]:
-        raise ValueError(f"shape mismatch: updates {tuple(updates.shape)}, "
-                         f"weights {tuple(weights.shape)}")
+    if len(qs) != len(scales):
+        raise ValueError(f"{len(qs)} codes and {len(scales)} scales")
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    N = weights.shape[0]
+    for i, (q, s) in enumerate(zip(qs, scales)):
+        if q.dim() != 2 or q.shape[0] != N:
+            raise ValueError(f"leaf {i}: expected codes ({N}, D), got "
+                             f"{tuple(q.shape)}")
+        D = q.shape[1]
+        if D % block:
+            raise ValueError(f"leaf {i}: D={D} is not a multiple of "
+                             f"block={block}")
+        if tuple(s.shape) != (N, D // block):
+            raise ValueError(f"leaf {i}: scales {tuple(s.shape)} must be "
+                             f"{(N, D // block)} for codes {tuple(q.shape)}")
+        _require(q, f"leaf {i} codes", torch.int8)
+        _require(s, f"leaf {i} scales", torch.float32)
+    for name, t in (("weights", weights), ("denom", denom)):
+        _require(t, name, torch.float32)
+    if _same_device(weights, denom, *qs, *scales).type == "cpu":
+        return [dequant_agg_ref(q, s, weights, denom, block)
+                for q, s in zip(qs, scales)]
+    _check_smem(N + 1)                           # M = 1, B = N
+    sizes = [q.shape[1] for q in qs]
+    outs, out_ptrs = group.views([(d,) for d in sizes], torch.float32,
+                                 weights.device)
+    lib, _, fn, cap = _kernels()
+    vp = ctypes.c_void_p
+    dequant_agg.launches += group.launch(
+        fn, [(vp, [q.data_ptr() for q in qs]),
+             (vp, [s.data_ptr() for s in scales]), (vp, out_ptrs),
+             (ctypes.c_longlong, sizes)],
+        group.launch_groups(sizes, cap),
+        [weights.data_ptr(), denom.data_ptr(), N, block], weights.device,
+        lambda code: build.check_launch(lib, code, "dequant_agg"))
+    return outs
 
 
 def dequant_agg(q: torch.Tensor, scales: torch.Tensor,
                 weights: torch.Tensor, denom: torch.Tensor,
                 block: int = 128) -> torch.Tensor:
     """q int8 (N, D) with D % block == 0, scales (N, D // block),
-    weights (N,), denom 0-d -> (D,) float32: the eq-1 average of the
-    dequantized rows, ``Σ_n w_n · (q[n] · s[n, d // block]) / denom``.
-    CUDA tensors must be contiguous (q int8, the rest float32)."""
-    _check_single(q, weights, denom)
-    N, D = q.shape
-    if block < 1 or D % block:
-        raise ValueError(f"D={D} is not a multiple of block={block}")
-    if tuple(scales.shape) != (N, D // block):
-        raise ValueError(f"scales {tuple(scales.shape)} must be "
-                         f"{(N, D // block)} for q {tuple(q.shape)}")
-    if _same_device(q, scales, weights, denom).type == "cpu":
-        return dequant_agg_ref(q, scales, weights, denom, block)
-    _require(q, "q", torch.int8)
-    for name, t in (("scales", scales), ("weights", weights),
-                    ("denom", denom)):
-        _require(t, name, torch.float32)
-    _check_smem(N)
-    out = torch.empty((D,), dtype=torch.float32, device=q.device)
-    if D == 0:
-        return out
-    vec = (D % 4 == 0 and block % 4 == 0 and q.data_ptr() % 4 == 0
-           and out.data_ptr() % 16 == 0)
-    lib, _, fn, _ = _kernels()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(q.data_ptr(), scales.data_ptr(), weights.data_ptr(),
-                  denom.data_ptr(), out.data_ptr(), N, D, block, int(vec),
-                  stream)
-    build.check_launch(lib, code, "dequant_agg")
-    dequant_agg.launches += 1
-    return out
+    weights (N,), denom 0-d -> (D,) float32: :func:`dequant_agg_group`
+    over one leaf."""
+    return dequant_agg_group([q], [scales], weights, denom, block)[0]
 
 
 multi_weighted_agg.launches = 0

@@ -288,6 +288,112 @@ def test_group_propagates_nan_of_zero_weight_row_per_leaf_on_card(cuda,
         assert nan[:, 3 + i].all() and nan.sum() == out.shape[0]
 
 
+# -- eq 1 over int8 payloads (dequant_agg) as one grouped launch ------------
+
+def _deq_leaves(n, sizes, block, seed, device, unaligned=()):
+    """Codes (n, D) and scales (n, D // block) per leaf of D values; a leaf
+    in ``unaligned`` has codes one byte past an allocation's start."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qs, ss = [], []
+    for i, d in enumerate(sizes):
+        q = torch.randint(-127, 128, (n, d), generator=gen, device=device,
+                          dtype=torch.int8)
+        qs.append(_unaligned(q) if i in unaligned else q)
+        ss.append(torch.rand(n, d // block, generator=gen, device=device)
+                  * 0.05)
+    return qs, ss
+
+
+def _deq_weights(n, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.rand(n, generator=gen, device=device)
+    w[::3] = 0.0                                  # non-holders
+    return w, torch.clamp(w.sum(), min=1e-12)
+
+
+def _check_deq_group(qs, ss, w, den, block, launches):
+    before = twops.dequant_agg.launches
+    outs = twops.dequant_agg_group(qs, ss, w, den, block)
+    torch.cuda.synchronize()
+    assert twops.dequant_agg.launches == before + launches
+    for q, s, out in zip(qs, ss, outs):
+        assert out.shape == (q.shape[1],) and out.is_contiguous()
+        assert out.data_ptr() % 16 == 0
+        ref = twref.dequant_agg_ref(q, s, w, den, block)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   atol=1e-5)
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 64])
+def test_dequant_agg_group_matches_plain_at_cnn_leaves_on_card(cuda, block):
+    """The 20 CNN leaves at N = 30 in one launch: at block 128 codes and
+    scales from the quantize kernel, as the transport makes them; at 64
+    made up over rows padded to the block."""
+    sizes = _cnn_leaf_sizes()
+    w, den = _deq_weights(30, block, cuda)
+    if block == 128:
+        qs, ss = tqops.quantize_group(_quant_leaves(30, sizes, 5, cuda), 8)
+    else:
+        qs, ss = _deq_leaves(30, [-(-d // block) * block for d in sizes],
+                             block, 5, cuda)
+    _check_deq_group(qs, ss, w, den, block, launches=1)
+
+
+@pytest.mark.cuda
+def test_dequant_agg_group_beyond_the_leaf_cap_on_card(cuda):
+    sizes = [128 * (1 + (7 * i) % 40) for i in range(40)]
+    qs, ss = _deq_leaves(6, sizes, 128, 1, cuda, unaligned={5, 35})
+    w, den = _deq_weights(6, 1, cuda)
+    _, _, _, cap = twops._kernels()
+    assert cap < len(sizes) <= 2 * cap
+    _check_deq_group(qs, ss, w, den, 128, launches=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 64, 12, 8])
+def test_dequant_agg_group_with_unaligned_and_ragged_leaves_on_card(cuda,
+                                                                    block):
+    """Aligned and unaligned leaves whose last tile is part full, in one
+    call; at blocks 12 and 8 (not multiples of 16) every leaf takes the
+    scalar path, each column with its own scale."""
+    sizes = [block * nb for nb in (1, 3, 18, 5, 7, 32, 2)]
+    qs, ss = _deq_leaves(5, sizes, block, block, cuda, unaligned={1, 3, 6})
+    w, den = _deq_weights(5, block, cuda)
+    _check_deq_group(qs, ss, w, den, block, launches=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 8])
+def test_dequant_agg_group_propagates_nan_scale_of_zero_weight_row_on_card(
+        cuda, block):
+    """A NaN scale in a row of weight 0 poisons its block of the result
+    and nothing else, on the vector and the scalar path."""
+    sizes = [block, 3 * block, 32 * block]
+    qs, ss = _deq_leaves(4, sizes, block, 0, cuda, unaligned={1})
+    for i, s in enumerate(ss):
+        s[2, i] = float("nan")
+    w = torch.tensor([0.5, 0.25, 0.0, 0.25], device=cuda)
+    outs = twops.dequant_agg_group(qs, ss, w, torch.ones((), device=cuda),
+                                   block)
+    for i, out in enumerate(outs):
+        nan = torch.isnan(out.cpu())
+        assert nan[i * block:(i + 1) * block].all()
+        assert nan.sum() == block
+
+
+@pytest.mark.cuda
+def test_dequant_agg_group_is_bit_equal_across_calls_on_card(cuda):
+    sizes = [128, 2_304, 589_824, 640]
+    qs, ss = _deq_leaves(30, sizes, 128, 2, cuda, unaligned={3})
+    w, den = _deq_weights(30, 2, cuda)
+    first = twops.dequant_agg_group(qs, ss, w, den)
+    second = twops.dequant_agg_group(qs, ss, w, den)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 # -- transport quantization as one grouped launch over a param dict's leaves --
 
 def _quant_leaves(rows, sizes, seed, device, unaligned=()):

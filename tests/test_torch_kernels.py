@@ -256,6 +256,36 @@ def test_dequant_agg_of_quantized_updates_matches_two_step():
     np.testing.assert_allclose(fused.numpy(), np.asarray(jfused), atol=1e-5)
 
 
+@pytest.mark.parametrize("block", [128, 64])
+@pytest.mark.parametrize("n", [1, 7, 30])
+def test_dequant_agg_group_matches_reference(block, n):
+    """Leaves of mixed lengths in one grouped call, zero-weight rows
+    among them, each against the reference's jnp ref and its Pallas
+    kernel in interpret mode."""
+    rng = np.random.default_rng(n * block)
+    sizes = [128, 2304, 640, 1024]
+    qs = [rng.integers(-127, 128, (n, d)).astype(np.int8) for d in sizes]
+    ss = [rng.uniform(1e-3, 0.05, (n, d // block)).astype(np.float32)
+          for d in sizes]
+    w = rng.uniform(0, 1, n).astype(np.float32)
+    w[rng.uniform(0, 1, n) < 0.3] = 0.0
+    w[0] = max(w[0], 0.1)
+    den = np.float32(w.sum())
+    outs = twops.dequant_agg_group([torch.from_numpy(q) for q in qs],
+                                   [torch.from_numpy(s) for s in ss],
+                                   torch.from_numpy(w), torch.tensor(den),
+                                   block)
+    assert len(outs) == len(sizes)
+    for q, s, out in zip(qs, ss, outs):
+        assert out.dtype == torch.float32 and out.shape == (q.shape[1],)
+        ref = jwref.dequant_agg_ref(q, s, w, den, block=block)
+        pallas = jwops.dequant_agg(jnp.asarray(q), jnp.asarray(s), w, den,
+                                   block=block)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+        np.testing.assert_allclose(out.numpy(), np.asarray(pallas),
+                                   atol=1e-5)
+
+
 @pytest.mark.parametrize("literal", [False, True])
 def test_weighted_average_pytree_matches_reference(literal):
     rng = np.random.default_rng(5)
@@ -389,27 +419,52 @@ def test_group_wrappers_take_an_empty_group():
     assert twops.multi_weighted_agg_group([], torch.ones(2, 3),
                                           torch.ones(2)) == []
     assert twops.weighted_agg_group([], torch.ones(3), torch.tensor(1.0)) == []
+    assert twops.dequant_agg_group([], [], torch.ones(3),
+                                   torch.tensor(1.0)) == []
 
 
 def _bad_groups():
+    """Each case: the group calls that must raise ValueError."""
     u, meta = torch.zeros(4, 8), torch.zeros(4, 8, device="meta")
+
+    def eq1(leaves):
+        return [lambda: twops.multi_weighted_agg_group(
+                    leaves, torch.ones(2, 4), torch.ones(2)),
+                lambda: twops.weighted_agg_group(leaves, torch.ones(4),
+                                                 torch.tensor(4.0))]
+
+    q, s = torch.zeros(4, 256, dtype=torch.int8), torch.ones(4, 2)
+
+    def deq(qs, ss, block=128):
+        return [lambda: twops.dequant_agg_group(qs, ss, torch.ones(4),
+                                                torch.tensor(4.0), block)]
+
     return {
-        "mismatched B": [u, torch.zeros(3, 8)],
-        "mixed devices": [u, meta],
-        "non-contiguous leaf": [u, torch.zeros(8, 4).t()],
-        "not float32": [u, torch.zeros(4, 8, dtype=torch.float64)],
-        "not 2-D": [u, torch.zeros(4, 2, 4)],
+        "mismatched B": eq1([u, torch.zeros(3, 8)]),
+        "mixed devices": eq1([u, meta]),
+        "non-contiguous leaf": eq1([u, torch.zeros(8, 4).t()]),
+        "not float32": eq1([u, torch.zeros(4, 8, dtype=torch.float64)]),
+        "not 2-D": eq1([u, torch.zeros(4, 2, 4)]),
+        "dequant_agg scales shape": deq([q, q], [s, torch.ones(4, 3)]),
+        "dequant_agg D % block": deq([q], [torch.ones(4, 2)], block=96),
+        "dequant_agg mismatched N": deq(
+            [q, torch.zeros(3, 256, dtype=torch.int8)],
+            [s, torch.ones(3, 2)]),
+        "dequant_agg lists of different lengths": deq([q, q], [s]),
+        "dequant_agg codes not int8": deq([q, q.float()], [s, s]),
+        "dequant_agg scales not float32": deq([q], [s.double()]),
+        "dequant_agg non-contiguous codes": deq(
+            [torch.zeros(256, 4, dtype=torch.int8).t()], [s]),
+        "dequant_agg mixed devices": deq([q, q.to("meta")],
+                                         [s, s.to("meta")]),
     }
 
 
 @pytest.mark.parametrize("case", list(_bad_groups()))
 def test_group_wrappers_reject_bad_leaves(case):
-    leaves = _bad_groups()[case]
-    with pytest.raises(ValueError):
-        twops.multi_weighted_agg_group(leaves, torch.ones(2, 4),
-                                       torch.ones(2))
-    with pytest.raises(ValueError):
-        twops.weighted_agg_group(leaves, torch.ones(4), torch.tensor(4.0))
+    for call in _bad_groups()[case]:
+        with pytest.raises(ValueError):
+            call()
 
 
 def test_group_wrappers_reject_bad_weights():
