@@ -6,8 +6,17 @@ on the card against the same round on the CPU, then drives the main path
 — FedCD (paper Algorithm 1, mode A) and the FedAvg baseline on the
 paper's 10-layer CNN at full width, 30 devices, fused engine — checks
 that the legacy, batched and fused engines agree on the card, and drives
-the legacy and batched engines at the same full width. Each path reports
-which kernels it launched.
+the legacy and batched engines at the same full width, then the
+pipelined fused path (``fused+pipeline``: round t+1's training enqueued
+before round t's readback) for FedCD and FedAvg and FedCD with holder-
+only validation scoring (``fused+pipeline+sparse:1.1``) at the same full
+width. Each path reports which kernels it launched; the pipelined path
+also reports in how many rounds the readback returned while the next
+round's speculative training was still running on the card. Last, the
+overlap check runs 3 pipelined rounds of FedCD and of FedAvg with a
+fixed device spin enqueued after each speculation: a readback that
+waited on the stream would return after the spin in every round, and
+the run fails then.
 
     python3 chip_smoke.py
 
@@ -47,6 +56,11 @@ RAGGED_DEQ = [(1, 128, 128), (5, 2304, 64), (30, 384, 128),
               (4, 192, 64)]         # (N, D, block)
 MIXED_DEQ_BLOCKS = [1, 3, 18, 5, 4608, 7, 32, 2]   # leaf lengths in blocks
 ENGINE_ROUNDS = 8                   # the engine-agreement phase (MLP)
+# the fused engine's pipelined and sparse specs, held to "fused" (MLP)
+PIPELINE_SPECS = ("fused+pipeline", "fused+sparse:1.1",
+                  "fused+pipeline+sparse:0.9")
+OVERLAP_ROUNDS = 3                  # the overlap check: 2 speculations used
+HOLD_CYCLES = 40_000_000            # its device spin, ~20-40 ms a round
 MIXED_LEAVES = [10, 2303, 4096, 129, 5, 1027, 589_824, 1, 128]
 BACK_TO_BACK = 20                   # calls captured in one graph
 # the paper config's lr (0.08) sends this CNN to NaN within a round on
@@ -523,7 +537,11 @@ def engines_agree(device):
     """Phase 6: the legacy, batched and fused engines on the card, FedCD
     over 8 MLP rounds and FedAvg over 4 (the reference's engine-
     equivalence setup: 8 devices, milestones 2/5), unquantized: discrete
-    state exact, params within AGG_TOL."""
+    state exact, params within AGG_TOL. Then the pipelined and sparse
+    fused runs (``PIPELINE_SPECS``, ``fused+pipeline`` for FedAvg), each
+    held to the ``fused`` run at the same bar. Returns the largest param
+    difference, the live models and each pipelined run's
+    ``pipeline_stats``."""
     import torch
 
     from repro_torch.configs.fedcd_cifar import HIERARCHICAL
@@ -546,46 +564,60 @@ def engines_agree(device):
         return {k: v.cpu() for k, v in srv.registry.params[m].items()}
 
     fedcd, fedavg = {}, {}
-    for engine in ENGINES:
+    for engine in ENGINES + PIPELINE_SPECS:
         fedcd[engine] = FedCDServer(cfg, params, mlp_loss, mlp_accuracy,
                                     data, batch_size=16, spec=engine,
                                     device=device)
         fedcd[engine].run(ENGINE_ROUNDS)
+    for engine in ENGINES + ("fused+pipeline",):
         fedavg[engine] = FedAvgServer(cfg, params, mlp_loss, mlp_accuracy,
                                       data, batch_size=16, spec=engine,
                                       device=device)
         fedavg[engine].run(4)
-    ref, err = fedcd["legacy"], 0.0
-    for engine in ("batched", "fused"):
-        other = fedcd[engine]
+    err = 0.0
+    pairs = ([("legacy", e) for e in ("batched", "fused")]
+             + [("fused", e) for e in PIPELINE_SPECS])
+    for base, engine in pairs:
+        ref, other = fedcd[base], fedcd[engine]
         if (ref.registry.live_ids() != other.registry.live_ids()
                 or ref.registry.genealogy() != other.registry.genealogy()
                 or not np.array_equal(ref.state.active, other.state.active)
                 or not np.array_equal(ref.state.history, other.state.history,
                                       equal_nan=True)):
             fail(f"engines: FedCD {engine} control-plane state differs "
-                 "from legacy")
+                 f"from {base}")
         for a, b in zip(ref.metrics, other.metrics):
             if not (np.array_equal(a.preferred, b.preferred)
                     and np.array_equal(a.test_acc, b.test_acc)
+                    and np.array_equal(a.val_acc, b.val_acc)
                     and a.live_models == b.live_models
-                    and a.active_models == b.active_models):
+                    and a.active_models == b.active_models
+                    and a.comm_bytes == b.comm_bytes):
                 fail(f"engines: FedCD {engine} round {a.round} metrics "
-                     "differ from legacy")
+                     f"differ from {base}")
         for m in ref.registry.live_ids():
             ra, rb = rows(ref, m), rows(other, m)
             err = max([err] + [float((ra[k] - rb[k]).abs().max())
                                for k in ra])
-        a_ref, a_other = fedavg["legacy"], fedavg[engine]
+    for base, engine in [("legacy", "batched"), ("legacy", "fused"),
+                         ("fused", "fused+pipeline")]:
+        a_ref, a_other = fedavg[base], fedavg[engine]
         for a, b in zip(a_ref.metrics, a_other.metrics):
-            if not np.array_equal(a.test_acc, b.test_acc):
-                fail(f"engines: FedAvg {engine} round {a.round} differs")
+            if not (np.array_equal(a.test_acc, b.test_acc)
+                    and np.array_equal(a.val_acc, b.val_acc)):
+                fail(f"engines: FedAvg {engine} round {a.round} differs "
+                     f"from {base}")
         err = max([err] + [float((a_ref.params[k].cpu()
                                   - a_other.params[k].cpu()).abs().max())
                            for k in a_ref.params])
     if not err <= AGG_TOL:
         fail(f"engines: params differ by {err} > {AGG_TOL}")
-    return err, ref.registry.live_ids()
+    stats = {f"fedcd {s}": fedcd[s].pipeline_stats.as_dict()
+             for s in PIPELINE_SPECS if fedcd[s].pipeline_stats}
+    stats["fedavg fused+pipeline"] = \
+        fedavg["fused+pipeline"].pipeline_stats.as_dict()
+    sparse = {s: fedcd[s].planner.sparse_rounds for s in PIPELINE_SPECS}
+    return err, fedcd["legacy"].registry.live_ids(), stats, sparse
 
 
 def engine_path(device, engine):
@@ -634,6 +666,148 @@ def engine_path(device, engine):
             fail(f"{engine} {name}: non-finite params after "
                  f"{SMOKE_ROUNDS} rounds")
     return walls
+
+
+class OverlapProbe:
+    """The overlap check, wired in by wrapping the pipelined executors'
+    ``speculate`` and ``readback``: a CUDA event is recorded right after
+    each speculative training is enqueued and queried right after the
+    next ``readback()`` returns. ``overlapped`` counts the readbacks that
+    returned while that training was still running; ``speculated`` the
+    readbacks that had one in flight; ``last`` is the latest readback's
+    finding (None when it had no speculation in flight).
+
+    ``hold_cycles``: a device spin (``torch.cuda._sleep``) enqueued right
+    after each speculation, before the event. Where the host enqueues
+    the training more slowly than the card runs it, the training ends
+    about when its enqueue does, whatever the readback waits on; the
+    spin keeps the stream busy for a fixed time after it, so a readback
+    that waits on its own copies returns inside the spin and one that
+    waits on the stream returns after it, on any host."""
+
+    def __init__(self, classes, hold_cycles: int = 0):
+        import torch
+        self.speculated = self.overlapped = 0
+        self.last = None
+        self._saved = [(cls, cls.speculate, cls.readback) for cls in classes]
+        for cls, speculate, readback in self._saved:
+            def spec(ex, plan, _inner=speculate):
+                before = ex._spec
+                _inner(ex, plan)
+                ex._probe_event = None
+                if ex._spec is not None and ex._spec is not before:
+                    if hold_cycles:
+                        torch.cuda._sleep(hold_cycles)
+                    ex._probe_event = torch.cuda.Event()
+                    ex._probe_event.record()
+
+            def read(ex, _inner=readback):
+                out = _inner(ex)
+                event = getattr(ex, "_probe_event", None)
+                self.last = None
+                if event is not None:
+                    self.last = not event.query()
+                    self.speculated += 1
+                    self.overlapped += int(self.last)
+                    ex._probe_event = None
+                return out
+            cls.speculate, cls.readback = spec, read
+
+    def remove(self) -> None:
+        for cls, speculate, readback in self._saved:
+            cls.speculate, cls.readback = speculate, readback
+
+
+def cnn_cell():
+    """Phase 5's configuration: the paper's CNN at full width, 30 devices
+    at the partition's default sizes, int8 transport, lr CNN_LR. Returns
+    (cfg, params, data, loss_fn, acc_fn)."""
+    import torch
+
+    from repro_torch.configs.fedcd_cifar import HIERARCHICAL
+    from repro_torch.data.partition import hierarchical_devices, stack_devices
+    from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn
+
+    data = stack_devices(hierarchical_devices(seed=0))
+    cfg = dataclasses.replace(HIERARCHICAL, quantize_bits=8, lr=CNN_LR)
+    params = init_cnn(torch.Generator().manual_seed(0))
+    return cfg, params, data, cnn_loss, cnn_accuracy
+
+
+def overlap_check(device):
+    """Phase 9: FedCD and FedAvg on ``fused+pipeline`` for OVERLAP_ROUNDS
+    rounds of the CNN cell, to be run under an :class:`OverlapProbe` with
+    ``hold_cycles``. Returns the speculations consumed (hit + repaired)."""
+    import torch
+
+    from repro_torch.core.fedavg import FedAvgServer
+    from repro_torch.core.fedcd import FedCDServer
+
+    cfg, params, data, loss_fn, acc_fn = cnn_cell()
+    consumed = 0
+    for cls in (FedCDServer, FedAvgServer):
+        srv = cls(cfg, params, loss_fn, acc_fn, data, batch_size=32,
+                  spec="fused+pipeline", device=device)
+        srv.run(OVERLAP_ROUNDS)
+        torch.cuda.synchronize()
+        st = srv.pipeline_stats
+        consumed += st.hit + st.repaired
+    return consumed
+
+
+PIPELINED_PATHS = (("fedcd fused+pipeline", "fedcd", "fused+pipeline"),
+                   ("fedavg fused+pipeline", "fedavg", "fused+pipeline"),
+                   ("fedcd fused+pipeline+sparse:1.1", "fedcd",
+                    "fused+pipeline+sparse:1.1"))
+
+
+def pipelined_path(device, probe, name, server, spec):
+    """Phase 8, one path: phase 5's configuration (the paper's CNN at full
+    width, 30 devices, int8 transport, 6 rounds) on ``spec`` for the
+    ``server`` ("fedcd" or "fedavg"). Rounds run back to back with no
+    synchronisation between them (a pipelined round returns with the next
+    round's training on the card), so a round's wall is the host time
+    from one ``run_round`` return to the next; the card is drained at the
+    end. Each round's line says whether its readback overlapped the
+    speculation (``probe``, an installed :class:`OverlapProbe`). Returns
+    (walls, drain_s, pipeline_stats)."""
+    import torch
+
+    from repro_torch.core.fedavg import FedAvgServer
+    from repro_torch.core.fedcd import FedCDServer
+
+    cfg, params, data, cnn_loss, cnn_accuracy = cnn_cell()
+    cls = FedCDServer if server == "fedcd" else FedAvgServer
+    srv = cls(cfg, params, cnn_loss, cnn_accuracy, data, batch_size=32,
+              spec=spec, device=device)
+    walls = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(1, SMOKE_ROUNDS + 1):
+        m = srv.run_round(t)
+        t1 = time.perf_counter()
+        walls.append(t1 - t0)
+        t0 = t1
+        live = (f" live={m.live_models} active={m.active_models}"
+                if cls is FedCDServer else "")
+        print(f"[{name} round {t}] wall_s={walls[-1]:.4f} "
+              f"test_acc={m.test_acc.mean():.4f}{live} "
+              f"readback_overlapped={probe.last}", flush=True)
+        if not (np.isfinite(m.test_acc).all()
+                and np.isfinite(m.val_acc).all()):
+            fail(f"{name} round {t}: non-finite accuracy")
+    torch.cuda.synchronize()
+    drain = time.perf_counter() - t0
+    if cls is FedCDServer:
+        if srv.metrics[4].live_models < 2:
+            fail(f"{name}: fewer than 2 live models after round 5")
+        trees = [srv.registry.params[m] for m in srv.registry.live_ids()]
+    else:
+        trees = [srv.params]
+    if not all(bool(torch.isfinite(v).all()) for tree in trees
+               for v in tree.values()):
+        fail(f"{name}: non-finite params after {SMOKE_ROUNDS} rounds")
+    return walls, drain, srv.pipeline_stats.as_dict()
 
 
 def count_roundtrips():
@@ -754,21 +928,25 @@ def main() -> int:
                  f"{roundtrips.calls} roundtrip calls that make "
                  f"{roundtrips.launches} launches of each")
 
-    walls, launches = drive(lambda: main_path(device))
-    report("main path", walls, launches)
+    walls_main, launches = drive(lambda: main_path(device))
+    report("main path", walls_main, launches)
     for name in ("multi_weighted_agg", "quantize", "dequantize"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     check_transport_launches("main path", launches)
 
-    # phase 6: the three engines agree on the card
-    err, live = engines_agree(device)
-    print(f"[engines] legacy == batched == fused over {ENGINE_ROUNDS} MLP "
-          f"rounds (FedCD) and 4 (FedAvg): discrete state equal, params "
-          f"max_abs_err={err}, live={live}")
+    # phase 6: the three engines agree on the card, and the pipelined and
+    # sparse fused runs agree with the fused one
+    err, live, stats, sparse = engines_agree(device)
+    print(f"[engines] legacy == batched == fused == {' == '.join(PIPELINE_SPECS)}"
+          f" over {ENGINE_ROUNDS} MLP rounds (FedCD) and legacy == batched =="
+          f" fused == fused+pipeline over 4 (FedAvg): discrete state and "
+          f"accuracies equal, params max_abs_err={err}, live={live}, "
+          f"sparse_rounds={sparse}")
+    for name, st in stats.items():
+        print(f"[engines pipeline_stats] {name}: {st}")
 
-    # phase 7: this slice's path, the legacy engine, at full width; then
-    # the batched engine
+    # phase 7: the legacy engine at full width; then the batched engine
     walls, legacy = drive(lambda: engine_path(device, "legacy"))
     report("legacy path", walls, legacy)
     if legacy["weighted_agg"] <= 0:
@@ -783,10 +961,70 @@ def main() -> int:
         if batched[name] <= 0:
             fail(f"kernel {name} was not launched on the batched path")
     check_transport_launches("batched path", batched)
+    fused_counts = dict(launches)
     launches["weighted_agg"] = legacy["weighted_agg"]
 
+    # phase 8: the pipelined paths at full width, each with its own counts,
+    # with the overlap check on the real rounds
+    from repro_torch.federated.executors import (FedAvgFusedExecutor,
+                                                 FusedExecutor)
+    sync = {"fedcd": np.mean([w[0] for w in walls_main[1:]]),
+            "fedavg": np.mean([w[1] for w in walls_main[1:]])}
+    probe = OverlapProbe((FusedExecutor, FedAvgFusedExecutor))
+    pipelined = {}
+    consumed = 0
+    try:
+        for name, server, spec in PIPELINED_PATHS:
+            (pwalls, drain, st), counts = drive(
+                lambda: pipelined_path(device, probe, name, server, spec))
+            consumed += st["hit"] + st["repaired"]
+            print(f"[{name}] mean wall_s rounds 2-{SMOKE_ROUNDS}="
+                  f"{np.mean(pwalls[1:]):.4f} (phase 5 sync {server} "
+                  f"fused={sync[server]:.4f}) total_s="
+                  f"{sum(pwalls) + drain:.4f} drain_s={drain:.4f} "
+                  f"pipeline_stats={st} launches={counts}")
+            # FedCD moves int8 rows (kernels 1-3); FedAvg's fused round
+            # has no transport in either package (kernel 1 only)
+            needed = (("multi_weighted_agg", "quantize", "dequantize")
+                      if server == "fedcd" else ("multi_weighted_agg",))
+            for kernel in needed:
+                if counts[kernel] <= 0:
+                    fail(f"kernel {kernel} was not launched on {name}")
+            if server == "fedcd":
+                check_transport_launches(name, counts)
+            elif counts["quantize"] or counts["dequantize"] \
+                    or roundtrips.calls:
+                fail(f"{name}: {roundtrips.calls} transport roundtrips, "
+                     f"{counts['quantize']} quantize and "
+                     f"{counts['dequantize']} dequantize launches, where "
+                     f"FedAvg makes none")
+            pipelined[name] = counts
+    finally:
+        probe.remove()
+    print(f"[overlap natural] readback returned while the next round's "
+          f"speculative training was still running in {probe.overlapped} of "
+          f"{probe.speculated} speculated rounds ({consumed} speculations "
+          f"consumed; few where the host, not the card, sets the training's "
+          f"pace)")
+
+    # phase 9: the overlap check, with a device spin after each speculation
+    # so that its finding does not depend on the host's pace
+    probe = OverlapProbe((FusedExecutor, FedAvgFusedExecutor),
+                         hold_cycles=HOLD_CYCLES)
+    try:
+        consumed = overlap_check(device)
+    finally:
+        probe.remove()
+    print(f"[overlap] readback returned while the next round's speculative "
+          f"training (+ a {HOLD_CYCLES}-cycle spin) was still running in "
+          f"{probe.overlapped} of {probe.speculated} speculated rounds "
+          f"({consumed} speculations consumed)")
+    if consumed and not probe.overlapped:
+        fail("overlap: every readback waited for the speculative training")
+
     # launches: kernels 1-3 on the fused main path, weighted_agg on the
-    # legacy path; dequant_agg is on no path, so its count stays 0
+    # legacy path; dequant_agg is on no path, so its count stays 0. Each
+    # path's own counts are under "launches_by_path".
     meta = {
         "multi_weighted_agg": ("csrc/weighted_agg.cu",
                                "src/repro/kernels/weighted_agg/kernel.py:77",
@@ -811,7 +1049,11 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            "launches_by_path": {
+                "fused": fused_counts[name], "legacy": legacy[name],
+                "batched": batched[name],
+                **{path: counts[name] for path, counts in pipelined.items()}}})
     kernels[-1]["note"] = ("no path calls it, in either package; launched "
                            "only by the kernel check above")
     print(json.dumps({"kernels": kernels}))

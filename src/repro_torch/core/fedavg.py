@@ -6,14 +6,17 @@ isolates the algorithm: one global model, uniform averaging over the
 participating devices' updates. Engines mirror FedCDServer: ``"fused"``
 (default) keeps the global model as row 0 of a device bank and runs the
 round as one call; ``"batched"`` / ``"legacy"`` keep it as a param dict
-on the device. It draws the same sampling stream as FedCDServer, so
-FedCD-vs-FedAvg comparisons see identical cohorts.
+on the device. ``"fused+pipeline"`` splits train and finish and
+enqueues round t+1's training (its sample prefetched) before round t's
+readback. It draws the same sampling stream as FedCDServer, in the same
+order with or without the pipeline, so FedCD-vs-FedAvg comparisons see
+identical cohorts.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,8 +50,9 @@ class FedAvgServer:
                  straggler: Any = None,
                  device: Optional[Union[str, torch.device]] = None):
         """``spec``: an :class:`~repro_torch.core.spec.EngineSpec` or
-        preset string — ``"fused"``, ``"batched"`` or ``"legacy"``. The
-        FedCD-only capabilities (``scenario``, ``sparse_eval``,
+        preset string — ``"fused"`` (optionally ``+pipeline``),
+        ``"batched"`` or ``"legacy"``. ``engine="llm"`` and the FedCD-only
+        capabilities (``scenario``, ``sparse_eval``,
         ``migrate_threshold``, ``use_agg_kernel``) raise ``ValueError``
         as in the reference; fields the port does not run yet raise
         ``NotImplementedError``. ``engine=``/``mesh=``/``pipeline=``/
@@ -60,6 +64,10 @@ class FedAvgServer:
         spec = resolve_spec(
             spec, dict(engine=engine, mesh=mesh, pipeline=pipeline,
                        straggler=straggler), "FedAvgServer")
+        if spec.engine == "llm":
+            raise ValueError(
+                "engine='llm' is the mode-B LM plane — construct "
+                "federated.llm.FedLLMTrainer with this spec instead")
         for name, on in (("scenario churn", spec.scenario is not None),
                          ("sparse_eval", spec.sparse_eval is not None),
                          ("migrate_threshold",
@@ -71,6 +79,7 @@ class FedAvgServer:
         reject_unported(spec, "FedAvgServer")
         self.spec = spec
         self.engine = spec.engine
+        self.pipeline = spec.pipeline
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rng = np.random.default_rng(cfg.seed)
@@ -81,7 +90,8 @@ class FedAvgServer:
         databank = DeviceDataBank(data, self.device)
         if self.engine == "fused":
             self.executor = FedAvgFusedExecutor(cfg, databank, params,
-                                                loss_fn, acc_fn)
+                                                loss_fn, acc_fn,
+                                                pipeline=self.pipeline)
         else:
             self.executor = FedAvgHostExecutor(
                 cfg, databank, params, loss_fn, acc_fn, batch_size,
@@ -89,6 +99,13 @@ class FedAvgServer:
         self.metrics: List[FedAvgRound] = []
         self._model_bytes = sum(v.numel() * v.element_size()
                                 for v in params.values())
+        self._prefetch: Optional[Tuple[int, Tuple[np.ndarray,
+                                                  np.ndarray]]] = None
+
+    @property
+    def pipeline_stats(self):
+        """Speculation accounting (pipelined executors; None otherwise)."""
+        return self.executor.stats
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -111,14 +128,25 @@ class FedAvgServer:
             pair_device=d_ids, transfers=2 * len(d_ids),
             val_stale=[0], test_stale=[0])
 
+    def _draw_sample(self) -> Tuple[np.ndarray, np.ndarray]:
+        return draw_round_sample(
+            self.rng, self.n_devices, self.cfg.devices_per_round,
+            self.data["train"][0].shape[1], self.batch_size,
+            self.cfg.local_epochs)
+
     def run_round(self, t: int) -> FedAvgRound:
         t0 = time.time()
-        cfg = self.cfg
-        participating, perms = draw_round_sample(
-            self.rng, self.n_devices, cfg.devices_per_round,
-            self.data["train"][0].shape[1], self.batch_size,
-            cfg.local_epochs)
+        if self._prefetch is not None and self._prefetch[0] == t:
+            participating, perms = self._prefetch[1]
+            self._prefetch = None
+        else:
+            participating, perms = self._draw_sample()
         self.executor.launch(self._plan(t, participating, perms))
+        if self.pipeline:
+            # FedAvg's next round depends on nothing this round computes:
+            # prefetch the sample and enqueue its training now
+            self._prefetch = (t + 1, self._draw_sample())
+            self.executor.speculate(self._plan(t + 1, *self._prefetch[1]))
         result = self.executor.readback()
         m = FedAvgRound(
             round=t, test_acc=result.test_acc, val_acc=result.val_acc,

@@ -18,6 +18,12 @@ EngineSpec`, which runs the round on the server's device:
 * ``"legacy"``: the per-model loop, every model trained on every device
   (:class:`~repro_torch.federated.executors.LegacyExecutor`).
 
+On ``fused``, ``+pipeline`` splits the round into train and finish and
+enqueues round t+1's training before round t's readback (cross-round
+speculation), and ``+sparse:<x>`` scores only holders' validation
+splits on rounds whose stale rows are sparser than ``x``; both keep the
+synchronous round's results.
+
 Host RNG streams match the reference's on every engine: ``rng`` drives
 round sampling, ``life_rng`` the clone-score noise.
 """
@@ -90,10 +96,12 @@ class FedCDServer:
 
         ``spec``: an :class:`~repro_torch.core.spec.EngineSpec` or preset
         string (``"fused"``, ``"batched"``, ``"legacy"``, each optionally
-        ``+kernel``). The other engine kwargs are the reference's
+        ``+kernel``; ``fused`` also with ``+pipeline`` and/or
+        ``+sparse:<x>``). The other engine kwargs are the reference's
         deprecated spellings and translate through ``resolve_spec``.
-        Invalid combinations raise ``ValueError`` and fields the port
-        does not run yet ``NotImplementedError``, here at construction.
+        Invalid combinations (and ``engine="llm"``, the LM plane) raise
+        ``ValueError`` and fields the port does not run yet
+        ``NotImplementedError``, here at construction.
 
         ``device=None`` means ``"cuda"``; without a GPU this raises —
         pass ``device="cpu"`` to run on the CPU. The fused engine updates
@@ -106,9 +114,14 @@ class FedCDServer:
                        migrate_threshold=migrate_threshold,
                        use_agg_kernel=use_agg_kernel,
                        straggler=straggler), "FedCDServer")
+        if spec.engine == "llm":
+            raise ValueError(
+                "engine='llm' is the mode-B LM plane — construct "
+                "federated.llm.FedLLMTrainer with this spec instead")
         reject_unported(spec, "FedCDServer")
         self.spec = spec
         self.engine = spec.engine
+        self.pipeline = spec.pipeline
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rng = np.random.default_rng(cfg.seed)
@@ -126,7 +139,7 @@ class FedCDServer:
             params, cfg.max_models, stacked=(self.engine == "fused"))
         self.state = init_scores(self.n_devices, cfg.max_models,
                                  cfg.score_window)
-        self.planner = RoundPlanner(cfg)
+        self.planner = RoundPlanner(cfg, sparse_eval=spec.sparse_eval)
         self.executor = self._make_executor(loss_fn, acc_fn)
         self.metrics: List[RoundMetrics] = []
         self._model_bytes = sum(v.numel() * v.element_size()
@@ -141,11 +154,16 @@ class FedCDServer:
     def _make_executor(self, loss_fn: Callable, acc_fn: Callable):
         if self.engine == "fused":
             return FusedExecutor(self.cfg, self.registry, self.databank,
-                                 loss_fn, acc_fn)
+                                 loss_fn, acc_fn, pipeline=self.pipeline)
         cls = (BatchedExecutor if self.engine == "batched"
                else LegacyExecutor)
         return cls(self.cfg, self.registry, self.databank, loss_fn, acc_fn,
                    self.batch_size)
+
+    @property
+    def pipeline_stats(self):
+        """Speculation accounting (pipelined executors; None otherwise)."""
+        return self.executor.stats
 
     # -- transport accounting (paper §3.6) --------------------------------
     def _transport_bytes(self, n_transfers: int) -> int:
@@ -180,6 +198,12 @@ class FedCDServer:
         self.executor.launch(plan)
         # overlap: draw round t+1's sample while the device works
         self._prefetch = (t + 1, self._draw_sample())
+        if self.pipeline:
+            # cross-round speculation: enqueue round t+1's training from
+            # the prefetched sample + pre-lifecycle state
+            spec = self.planner.build_speculative(
+                t + 1, self._prefetch[1], self.state, self.registry)
+            self.executor.speculate(spec)
         result = self.executor.readback()
 
         transfers = plan.transfers

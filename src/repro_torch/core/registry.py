@@ -30,10 +30,15 @@ class StackedParamBank:
     ``(m_cap, ...)`` tensor whose row ``m`` is model ``m``. Unlike the
     reference, which replaces its immutable arrays, rows are written IN
     PLACE: clones and the fused round (``index_copy_``) update the
-    tensors of ``tree`` themselves."""
+    tensors of ``tree`` themselves.
+
+    ``version`` counts host-side row writes (``__setitem__``: the initial
+    model and clones), not the round's own scatter: a pipelined
+    executor's speculative training is stale once it changed."""
 
     def __init__(self, m_cap: int, template: Params):
         self.m_cap = m_cap
+        self.version = 0
         self.tree: Params = {
             k: torch.zeros((m_cap,) + tuple(v.shape), dtype=v.dtype,
                            device=v.device)
@@ -56,6 +61,7 @@ class StackedParamBank:
         for k, v in self.tree.items():
             v[m].copy_(torch.as_tensor(row[k]))
         self._present.add(m)
+        self.version += 1
 
     def pop(self, m: int, default: Any = None) -> Any:
         """Mark row ``m`` absent. Its storage stays (masked, not freed)."""

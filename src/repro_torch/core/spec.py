@@ -16,15 +16,18 @@ String grammar (``EngineSpec.parse``)::
                | "sparse" ":" FLOAT | "migrate" ":" FLOAT
 
 What the port runs so far: the meshless engines ``fused``, ``batched``
-and ``legacy``, with or without ``+kernel``. ``+kernel`` is accepted and
-changes nothing: on CUDA tensors the port's hand-written kernels are
-always the aggregation path, and their plain versions serve CPU tensors
-only. Every other field parses and validates as in the reference and is
-then rejected by the servers at construction (``reject_unported``). Two
-things cannot even be built yet: ``+semisync`` needs the straggler model
-of ``data/scenarios.py`` and an injected ``mesh`` needs
-``launch/mesh.py``; both raise ``NotImplementedError`` naming their
-ROADMAP items.
+and ``legacy``, with or without ``+kernel``, and on ``fused`` the
+pipelined dispatch (``+pipeline``) and holder-only validation scoring
+(``+sparse:<x>``). ``+kernel`` is accepted and changes nothing: on CUDA
+tensors the port's hand-written kernels are always the aggregation path,
+and their plain versions serve CPU tensors only. ``engine="llm"`` parses
+as in the reference, and the servers refuse it with the reference's
+``ValueError`` (it is the LM trainer's spec). Every other field parses
+and validates as in the reference and is then rejected by the servers
+at construction (``reject_unported``). Two things cannot even be built
+yet: ``+semisync`` needs the straggler model of ``data/scenarios.py``
+and an injected ``mesh`` needs ``launch/mesh.py``; both raise
+``NotImplementedError`` naming their ROADMAP items.
 """
 from __future__ import annotations
 
@@ -260,13 +263,8 @@ def reject_unported(spec: EngineSpec, owner: str) -> None:
     field of a validated ``spec`` that the port cannot run yet and the
     ROADMAP item that ports it."""
     checks = [
-        ("engine='llm' (the mode-B LM plane)", spec.engine == "llm",
-         "ROADMAP Queue 1 item 13 (mode-B LM path)"),
         ("mesh sharding", spec.sharded or spec.mesh is not None, MESH_ITEM),
         ("migrate_threshold", spec.migrate_threshold is not None, MESH_ITEM),
-        ("pipeline", spec.pipeline, "ROADMAP Queue 1 item 7 (+pipeline)"),
-        ("sparse_eval", spec.sparse_eval is not None,
-         "ROADMAP Queue 1 item 7 (+pipeline, sparse eval)"),
         ("a straggler model", spec.straggler is not None, SEMISYNC_ITEM),
         ("scenario churn", spec.scenario is not None,
          "ROADMAP Queue 1 item 9 (churn)"),

@@ -5,7 +5,8 @@ Holds every device's train/val/test splits as one stacked ``(N, n, ...)``
 tensor pair per split on the server's device. With a static population
 the device id is the data row (the reference's ``row_of`` is the
 identity); joins, leaves, drifts and data sharding come with the churn
-slice.
+slice. ``version`` counts data-row writes, as the reference's does; with
+a static population nothing writes rows, so it stays 0.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ class DeviceDataBank:
         stack_devices``. Images stay float32 NHWC; labels become int64
         (the index type PyTorch's gathers take)."""
         self.n_devices = int(np.asarray(data["train"][0]).shape[0])
+        self.version = 0
         self.splits: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         for k in SPLITS:
             xs, ys = data[k]

@@ -1,14 +1,35 @@
 """Device-side round executors: the data-plane half of a federated round
-(port of the synchronous legacy, batched and fused executors of
-``repro/federated/executors.py``).
+(port of the meshless legacy, batched and fused executors of
+``repro/federated/executors.py``, synchronous and pipelined).
 
 A :class:`RoundExecutor` turns one host-built
 :class:`~repro_torch.core.plan.RoundPlan` into device work. The contract:
 
     plan_hints()  -> what the executor can reuse bit-identically
     launch(plan)  -> enqueue the round's device work
+    speculate(p)  -> optionally enqueue round t+1's TRAINING from a
+                     speculative plan (pipelined executors only)
     readback()    -> wait for the eval matrices, return RoundResult
     collect(pref) -> the round's preferred-model test/val accuracies
+
+**Pipelined execution** (``pipeline=True`` on the fused executors):
+training is a pure read of the parameter bank (``make_pair_train``), so
+round t+1's training is enqueued, from the prefetched sample and the
+pre-lifecycle population, before round t's eval matrices are read back.
+The device then trains while the host reads back, runs the lifecycle
+and plans. At the next ``launch`` the speculation is *repaired*
+(deletions only shrink the pair set: dead pairs keep zero aggregation
+weight, dead rows drop out of the scatter) or *invalidated and
+retrained* (clones wrote bank rows or added pairs, seen through the
+bank's ``version`` and a pair-subset check). Aggregation weights,
+scatter rows and eval schedules are never speculative: they come from
+the TRUE plan at launch, which is why repair is exact.
+
+**Readback without synchronisation.** Every eval matrix is copied to
+the host as soon as it is enqueued, before any speculation: into pinned
+memory, non-blocking, with an event recorded after the copy. A reader
+waits on that event alone, so round t+1's training, enqueued after it,
+keeps running while the host works (a ``.cpu()`` would wait for it).
 """
 from __future__ import annotations
 
@@ -26,11 +47,13 @@ from repro_torch.core.plan import EvalHints, RoundPlan
 from repro_torch.core.registry import ModelRegistry
 from repro_torch.data.bank import DeviceDataBank
 from repro_torch.federated.simulation import (bucket_size, make_eval,
+                                              make_fused_apply,
                                               make_fused_eval,
-                                              make_fused_round,
+                                              make_fused_finish,
                                               make_group_eval,
-                                              make_group_train,
                                               make_local_train,
+                                              make_pair_eval,
+                                              make_pair_train,
                                               pad_live_rows, pad_work_batch)
 from repro_torch.models.common import Params
 
@@ -42,9 +65,30 @@ class RoundResult:
 
 
 @dataclass
+class PipelineStats:
+    """Cross-round speculation accounting."""
+    speculated: int = 0                  # train dispatches pre-launched
+    hit: int = 0                         # consumed unchanged
+    repaired: int = 0                    # consumed after deletions
+    invalidated: int = 0                 # stale at launch (clone writes /
+    #                                      pairs outside the batch)
+    discarded: int = 0                   # never consumed (extinction /
+    #                                      no-pair round)
+    skipped: int = 0                     # not speculated (milestone intent)
+
+    def as_dict(self) -> Dict[str, int]:
+        return {"speculated": self.speculated, "hit": self.hit,
+                "repaired": self.repaired,
+                "invalidated": self.invalidated,
+                "discarded": self.discarded, "skipped": self.skipped}
+
+
+@dataclass
 class TrainMeta:
     """Which (model, device) pairs a train batch covers, in bucket-column
-    order; ``b_pad`` is the padded batch width."""
+    order (the repair contract: aggregation weights are addressed by
+    these columns, so a superset batch aggregates identically once dead
+    pairs get zero weight); ``b_pad`` is the padded batch width."""
     pair_model: List[int]
     pair_device: List[int]
     b_pad: int
@@ -54,12 +98,34 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _host_async(t: torch.Tensor) -> Callable[[], np.ndarray]:
+    """Start copying ``t`` to the host and return the reader that waits
+    for that copy alone. On the card: a non-blocking copy into pinned
+    memory and an event recorded after it, which the reader waits on
+    (not the stream, so later work does not delay it). On the CPU a
+    plain copy."""
+    if t.device.type != "cuda":
+        host = _host(t)
+        return lambda: host
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t.detach(), non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+
+    def read() -> np.ndarray:
+        done.synchronize()
+        return out.numpy()
+    return read
+
+
 def _stack(trees: List[Params]) -> Params:
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
 class RoundExecutor:
     """Shared scaffolding; engines override the dispatch internals."""
+
+    stats: Optional[PipelineStats] = None    # pipelined executors only
 
     def __init__(self, cfg: FedCDConfig, registry: ModelRegistry,
                  databank: DeviceDataBank):
@@ -166,7 +232,7 @@ class BatchedExecutor(RoundExecutor):
     def __init__(self, cfg, registry, databank, loss_fn, acc_fn,
                  batch_size: int):
         super().__init__(cfg, registry, databank)
-        self.group_train = make_group_train(loss_fn, cfg.lr, batch_size)
+        self.group_train = make_pair_train(loss_fn, cfg.lr)
         self.group_eval = make_group_eval(acc_fn)
 
     def _stack_params(self, model_ids: List[int], pad_to: int) -> Params:
@@ -226,15 +292,28 @@ class BatchedExecutor(RoundExecutor):
 
 class FusedExecutor(RoundExecutor):
     """The device-resident data plane: params live in the registry's
-    stacked bank and the synchronous round is ONE ``make_fused_round``
-    call that updates the bank in place. Owns the per-model eval-row
-    caches and the test-row prediction."""
+    stacked bank, a round trains its pairs (``make_pair_train``) and
+    then aggregates, scatters into the bank in place and evaluates the
+    stale rows (``make_fused_finish``). Owns the per-model eval-row
+    caches and the test-row prediction. ``pipeline=True`` adds
+    cross-round speculation (module docstring): a round then takes its
+    training from the speculation when it still covers the plan.
 
-    def __init__(self, cfg, registry, databank, loss_fn, acc_fn):
+    A dropped speculation needs no parking place (the reference keeps
+    one, ``_spec_graveyard``, because destructing an in-flight JAX
+    buffer blocks the host): PyTorch's caching allocator hands a freed
+    block only to work ordered after it on the same stream, so dropping
+    an enqueued batch never waits."""
+
+    def __init__(self, cfg, registry, databank, loss_fn, acc_fn,
+                 pipeline: bool = False):
         super().__init__(cfg, registry, databank)
-        self._round = make_fused_round(loss_fn, acc_fn, cfg.lr,
-                                       cfg.quantize_bits)
+        self.pipeline = pipeline
         self._eval = make_fused_eval(acc_fn)
+        self._pair_eval = make_pair_eval(acc_fn)
+        self._train = make_pair_train(loss_fn, cfg.lr)
+        self._apply = make_fused_apply(cfg.quantize_bits)
+        self._finish = make_fused_finish(acc_fn, cfg.quantize_bits)
         # eval-row caches: a model's params change ONLY when it trains or
         # is born, so its (N,) accuracy rows are reused until then
         self._val_cache: Dict[int, np.ndarray] = {}
@@ -243,6 +322,10 @@ class FusedExecutor(RoundExecutor):
         self._needs_refresh = False
         self._pending: Optional[Tuple[RoundPlan, Dict[str, Callable]]] = \
             None
+        self._spec: Optional[Tuple[RoundPlan, Params, TrainMeta,
+                                   Tuple[int, int]]] = None
+        self._last_plan: Optional[RoundPlan] = None
+        self.stats = PipelineStats() if pipeline else None
 
     # -- planning hints + lifecycle hooks ---------------------------------
     def plan_hints(self) -> EvalHints:
@@ -268,7 +351,10 @@ class FusedExecutor(RoundExecutor):
     def _apply_weights(self, meta: TrainMeta, plan: RoundPlan
                        ) -> Tuple[np.ndarray, np.ndarray]:
         """(A_pad, B) weight matrix + padded agg row indices, addressed by
-        META's pair columns."""
+        META's pair columns (on a repaired speculation they are a superset
+        of the plan's pairs: dead pairs score c=0 and models outside the
+        plan's agg set get no weight row, so the superset aggregates
+        identically)."""
         agg_rows = pad_live_rows(plan.agg_models)
         slot = {m: j for j, m in enumerate(plan.agg_models)}
         w = np.zeros((len(agg_rows), meta.b_pad), np.float32)
@@ -279,23 +365,57 @@ class FusedExecutor(RoundExecutor):
         w[len(plan.agg_models):] = w[0]
         return w, agg_rows
 
-    def _batch_args(self, pair_model: List[int], pair_device: List[int],
-                    perms: np.ndarray
-                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
-                               TrainMeta]:
+    def _dispatch_train(self, tree: Params, pair_model: List[int],
+                        pair_device: List[int], perms: np.ndarray
+                        ) -> Tuple[Params, TrainMeta]:
         m_idx, d_idx, pperms = pad_work_batch(
             pair_model, pair_device, [perms[d] for d in pair_device])
-        meta = TrainMeta(list(pair_model), list(pair_device), len(m_idx))
-        return m_idx, d_idx, pperms, meta
+        trained = self._train(tree, m_idx, *self._dev["train"], d_idx,
+                              pperms)
+        return trained, TrainMeta(list(pair_model), list(pair_device),
+                                  len(m_idx))
+
+    def _dispatch_apply(self, trained: Params, meta: TrainMeta,
+                        plan: RoundPlan) -> None:
+        w, agg_rows = self._apply_weights(meta, plan)
+        self._apply(self.registry.params.tree, trained, w, agg_rows)
 
     # -- eval dispatch / readers ------------------------------------------
     @staticmethod
     def _val_reader_dense(mat: torch.Tensor, models: List[int]
                           ) -> Callable:
+        read_mat = _host_async(mat)
+
         def read() -> Dict[int, np.ndarray]:
-            rows = _host(mat)[:len(models)]
+            rows = read_mat()[:len(models)]
             return {m: rows[j] for j, m in enumerate(models)}
         return read
+
+    def _val_reader_sparse(self, vec: torch.Tensor, plan: RoundPlan
+                           ) -> Callable:
+        """Merge sparse per-pair accuracies into full cached rows: pair
+        k's value is ``vec[k]``; untouched entries keep their cached value
+        and never-scored rows start at zero (only active entries are ever
+        read)."""
+        read_vec = _host_async(vec)
+
+        def read() -> Dict[int, np.ndarray]:
+            v = read_vec()
+            rows: Dict[int, np.ndarray] = {}
+            for k, (m, d) in enumerate(zip(plan.val_pair_model,
+                                           plan.val_pair_device)):
+                if m not in rows:
+                    rows[m] = self._val_cache.get(
+                        m, np.zeros(self.n_devices)).copy()
+                rows[m][d] = v[k]
+            return rows
+        return read
+
+    def _dispatch_sparse_val(self, plan: RoundPlan) -> Callable:
+        vec = self._pair_eval(self.registry.params.tree,
+                              plan.val_pair_model, plan.val_pair_device,
+                              *self._dev["val"])
+        return self._val_reader_sparse(vec, plan)
 
     def _dispatch_dense(self, models: List[int], split: str) -> Callable:
         mat = self._eval(self.registry.params.tree, pad_live_rows(models),
@@ -305,33 +425,122 @@ class FusedExecutor(RoundExecutor):
     def _dispatch_evals(self, plan: RoundPlan) -> Dict[str, Callable]:
         pend: Dict[str, Callable] = {}
         if plan.val_stale:
-            pend["val"] = self._dispatch_dense(plan.val_stale, "val")
+            pend["val"] = (self._dispatch_sparse_val(plan)
+                           if plan.sparse_val
+                           else self._dispatch_dense(plan.val_stale, "val"))
         if plan.test_stale:
             pend["test"] = self._dispatch_dense(plan.test_stale, "test")
         return pend
 
     # -- launch -----------------------------------------------------------
+    def _readers(self, plan: RoundPlan, val_mat: torch.Tensor,
+                 test_mat: torch.Tensor) -> Dict[str, Callable]:
+        pend: Dict[str, Callable] = {}
+        if plan.val_stale:
+            pend["val"] = self._val_reader_dense(val_mat, plan.val_stale)
+        if plan.test_stale:
+            pend["test"] = self._val_reader_dense(test_mat, plan.test_stale)
+        return pend
+
+    def _finish_round(self, trained: Params, meta: TrainMeta,
+                      plan: RoundPlan) -> Dict[str, Callable]:
+        """Aggregate + scatter + stale-row eval as ONE call (the
+        ``make_fused_finish`` program): everything a round does after
+        training."""
+        w, agg_rows = self._apply_weights(meta, plan)
+        val_mat, test_mat = self._finish(
+            self.registry.params.tree, trained, w, agg_rows,
+            pad_live_rows(plan.val_stale or plan.live[:1]),
+            pad_live_rows(plan.test_stale or plan.live[:1]),
+            *self._dev["val"], *self._dev["test"])
+        return self._readers(plan, val_mat, test_mat)
+
     def launch(self, plan: RoundPlan) -> None:
+        """Train (or take the speculation), then finish: dense rounds in
+        one finish call; sparse-val rounds apply, then run the eval
+        calls; rounds with no pairs are eval-only."""
+        self._last_plan = plan
         bank = self.registry.params
         if plan.pair_model:
-            # the whole round as ONE call
-            m_idx, d_idx, pperms, meta = self._batch_args(
-                plan.pair_model, plan.pair_device, plan.perms)
-            w, agg_rows = self._apply_weights(meta, plan)
-            val_mat, test_mat = self._round(
-                bank.tree, m_idx, d_idx, pperms, w, agg_rows,
-                pad_live_rows(plan.val_stale or plan.live[:1]),
-                pad_live_rows(plan.test_stale or plan.live[:1]),
-                *self._dev["train"], *self._dev["val"], *self._dev["test"])
-            pend: Dict[str, Callable] = {}
-            if plan.val_stale:
-                pend["val"] = self._val_reader_dense(val_mat, plan.val_stale)
-            if plan.test_stale:
-                pend["test"] = self._val_reader_dense(test_mat,
-                                                      plan.test_stale)
+            spec = self._take_speculation(plan)
+            if spec is None:
+                trained, meta = self._dispatch_train(
+                    bank.tree, plan.pair_model, plan.pair_device,
+                    plan.perms)
+            else:
+                trained, meta = spec
+            if plan.sparse_val:
+                self._dispatch_apply(trained, meta, plan)
+                pend = self._dispatch_evals(plan)
+            else:
+                pend = self._finish_round(trained, meta, plan)
         else:
-            pend = self._dispatch_evals(plan)      # no pairs: eval only
+            self._drop_speculation()
+            pend = self._dispatch_evals(plan)
         self._pending = (plan, pend)
+
+    # -- speculation ------------------------------------------------------
+    def _discard_spec(self, invalidated: bool) -> None:
+        """Abandon the pending speculation. ``invalidated`` separates
+        launch-time staleness (clones) from never-consumed batches
+        (extinction / no-pair rounds) in the stats."""
+        self._spec = None
+        if invalidated:
+            self.stats.invalidated += 1
+        else:
+            self.stats.discarded += 1
+
+    def _drop_speculation(self) -> None:
+        if self._spec is not None:
+            self._discard_spec(invalidated=False)
+
+    def _take_speculation(self, plan: RoundPlan
+                          ) -> Optional[Tuple[Params, TrainMeta]]:
+        """Consume the pending speculative train batch if it still covers
+        the true plan: deletions only shrink the pair set, so a superset
+        batch is repairable (dead pairs aggregate with zero weight);
+        clones add pairs and rewrite bank rows, so a version mismatch
+        retrains from scratch."""
+        if self._spec is None:
+            return None
+        spec_plan, trained, meta, versions = self._spec
+        if (spec_plan.round != plan.round
+                or (self.registry.params.version,
+                    self.databank.version) != versions):
+            self._discard_spec(invalidated=True)
+            return None
+        covered = set(zip(meta.pair_model, meta.pair_device))
+        if any(p not in covered for p in plan.pairs()):
+            self._discard_spec(invalidated=True)
+            return None
+        self._spec = None
+        if len(plan.pair_model) == len(meta.pair_model):
+            self.stats.hit += 1
+        else:
+            self.stats.repaired += 1
+        return trained, meta
+
+    def speculate(self, plan: RoundPlan) -> None:
+        if not self.pipeline:
+            return
+        self._drop_speculation()
+        if self._last_plan is not None and (
+                self._last_plan.clone_milestone
+                or self._last_plan.churn_next
+                or self._last_plan.fold_next):
+            # pending lifecycle intent: milestone clones rewrite bank rows
+            # and add pairs — don't burn a dispatch
+            self.stats.skipped += 1
+            return
+        if not plan.pair_model:
+            return
+        trained, meta = self._dispatch_train(
+            self.registry.params.tree, plan.pair_model, plan.pair_device,
+            plan.perms)
+        self._spec = (plan, trained, meta,
+                      (self.registry.params.version,
+                       self.databank.version))
+        self.stats.speculated += 1
 
     # -- readback + collect -----------------------------------------------
     def readback(self) -> RoundResult:
@@ -423,13 +632,13 @@ class FedAvgHostExecutor:
         self.params = init_params
         self.batched = batched
         if batched:
-            self.group_train = make_group_train(loss_fn, cfg.lr,
-                                                batch_size)
+            self.group_train = make_pair_train(loss_fn, cfg.lr)
         else:
             self.local_train = make_local_train(loss_fn, cfg.lr,
                                                 batch_size)
         self.evaluate = make_eval(acc_fn)
         self._result: Optional[FedAvgResult] = None
+        self.stats: Optional[PipelineStats] = None
 
     def get_params(self) -> Params:
         return self.params
@@ -471,17 +680,29 @@ class FedAvgHostExecutor:
 
 class FedAvgFusedExecutor:
     """Device-resident FedAvg: the global model is row 0 of a (1, ...)
-    bank and the synchronous round is one ``make_fused_round`` call with
-    one-row buckets, updating the bank in place."""
+    bank; a round trains the participants (``make_pair_train``) and
+    finishes with one-row buckets (``make_fused_finish``), updating the
+    bank in place. ``pipeline=True`` enqueues the next round's training
+    before this round's eval rows are read back."""
 
     def __init__(self, cfg: FedCDConfig, databank: DeviceDataBank,
-                 init_params: Dict[str, torch.Tensor], loss_fn, acc_fn):
+                 init_params: Dict[str, torch.Tensor], loss_fn, acc_fn,
+                 pipeline: bool = False):
         self.cfg = cfg
         self.databank = databank
         self.n_devices = databank.n_devices
+        self.pipeline = pipeline
         self._stacked = {k: v[None].clone() for k, v in init_params.items()}
-        self._round = make_fused_round(loss_fn, acc_fn, cfg.lr)
-        self._pending: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._train = make_pair_train(loss_fn, cfg.lr)
+        self._finish = make_fused_finish(acc_fn)
+        self._pending: Optional[Tuple[Callable, Callable]] = None
+        self._spec: Optional[Tuple[int, Params, TrainMeta]] = None
+        self._last_plan: Optional[RoundPlan] = None
+        self.stats = PipelineStats() if pipeline else None
+
+    @property
+    def _dev(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        return self.databank.splits
 
     def get_params(self) -> Dict[str, torch.Tensor]:
         return {k: v[0] for k, v in self._stacked.items()}
@@ -489,22 +710,58 @@ class FedAvgFusedExecutor:
     def set_params(self, value: Dict[str, torch.Tensor]) -> None:
         for k, v in self._stacked.items():
             v[0].copy_(torch.as_tensor(value[k]))
+        self._park_spec()                # the bank was rewritten
+
+    def _park_spec(self) -> None:
+        """Drop a pending speculation (no parking place is needed: see
+        :class:`FusedExecutor`)."""
+        self._spec = None
+
+    # -- split-phase pieces -------------------------------------------------
+    def _dispatch_train(self, plan: RoundPlan) -> Tuple[Params, TrainMeta]:
+        d_ids = plan.pair_device
+        m_idx, d_idx, pp = pad_work_batch(
+            [0] * len(d_ids), list(d_ids), [plan.perms[d] for d in d_ids])
+        trained = self._train(self._stacked, m_idx, *self._dev["train"],
+                              d_idx, pp)
+        return trained, TrainMeta([0] * len(d_ids), list(d_ids), len(m_idx))
+
+    def _dispatch_finish(self, trained: Params, meta: TrainMeta,
+                         plan: RoundPlan
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        # weights come from the TRUE plan (1 per participating pair)
+        w = np.zeros((1, meta.b_pad), np.float32)
+        for k, d in enumerate(meta.pair_device):
+            w[0, k] = plan.scores[d, 0]
+        row = np.zeros(1, np.int32)
+        return self._finish(self._stacked, trained, w, row, row, row,
+                            *self._dev["val"], *self._dev["test"])
 
     def launch(self, plan: RoundPlan) -> None:
-        d_ids = plan.pair_device
-        b = len(d_ids)
-        m_idx, d_idx, pp = pad_work_batch(
-            [0] * b, list(d_ids), [plan.perms[d] for d in d_ids])
-        w = np.zeros((1, len(m_idx)), np.float32)
-        w[0, :b] = plan.scores[np.asarray(d_ids, np.int64), 0]
-        row = np.zeros(1, np.int32)
-        splits = self.databank.splits
-        self._pending = self._round(
-            self._stacked, m_idx, d_idx, pp, w, row, row, row,
-            *splits["train"], *splits["val"], *splits["test"])
+        self._last_plan = plan
+        if self._spec is not None and self._spec[0] == plan.round:
+            _, trained, meta = self._spec
+            self._spec = None
+            self.stats.hit += 1
+        else:
+            self._park_spec()
+            trained, meta = self._dispatch_train(plan)
+        val_mat, test_mat = self._dispatch_finish(trained, meta, plan)
+        self._pending = (_host_async(val_mat), _host_async(test_mat))
+
+    def speculate(self, plan: RoundPlan) -> None:
+        if not self.pipeline:
+            return
+        if self._last_plan is not None and self._last_plan.fold_next:
+            # round t+1 folds stale updates into the bank first: training
+            # against pre-fold params would be wasted
+            self.stats.skipped += 1
+            return
+        trained, meta = self._dispatch_train(plan)
+        self._spec = (plan.round, trained, meta)
+        self.stats.speculated += 1
 
     def readback(self) -> FedAvgResult:
-        val_mat, test_mat = self._pending
+        read_val, read_test = self._pending
         self._pending = None
-        return FedAvgResult(val_acc=_host(val_mat)[0],
-                            test_acc=_host(test_mat)[0])
+        return FedAvgResult(val_acc=read_val()[0], test_acc=read_test()[0])

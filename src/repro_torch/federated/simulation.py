@@ -10,14 +10,19 @@ the reference:
 
 * ``make_local_train`` / ``make_eval`` — the legacy per-model loop's
   building blocks (one model trains on every device);
-* ``make_group_train`` / ``make_group_eval`` — the batched engine: one
+* ``make_pair_train`` / ``make_group_eval`` — the batched engine: one
   call over gathered (model, device) pairs, dense (M, N) eval matrices;
-* ``make_fused_round`` / ``make_fused_eval`` — the fused engine: train,
-  eq-1 aggregation, the transport roundtrip and the scatter into the
-  stacked bank in one call, then the val/test eval matrices.
+* the fused engine, synchronous or pipelined alike: ``make_pair_train``
+  (training, a pure read of the stacked bank), then ``make_fused_finish``
+  (``make_fused_apply``: eq-1 aggregation, the transport roundtrip and
+  the scatter into the bank; then the val/test eval matrices of
+  ``make_fused_eval``); ``make_pair_eval`` scores holders only (sparse
+  eval).
 
 Index, permutation and weight arguments are host numpy arrays; params
-and data are tensors on the server's device.
+and data are tensors on the server's device. A host array reaches the
+card through pinned memory without blocking (``to_device``): a pageable
+copy would make the host wait for every kernel enqueued before it.
 """
 from __future__ import annotations
 
@@ -70,8 +75,20 @@ def pad_live_rows(live: "list[int]", minimum: int = 1) -> np.ndarray:
     return idx
 
 
+def to_device(a: np.ndarray, dtype: type, device: torch.device
+              ) -> torch.Tensor:
+    """Host array -> tensor of numpy ``dtype`` on ``device``, without
+    synchronising the stream: a CUDA copy is staged in pinned memory and
+    made non-blocking (PyTorch waits for the stream to drain after a
+    pageable copy). On the CPU a plain conversion."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, np.int64), device=device)
+    return to_device(a, np.int64, device)
 
 
 def _pair_train(loss_fn: Callable, lr: float) -> Callable:
@@ -161,25 +178,28 @@ def make_eval(acc_fn: Callable) -> Callable:
     return evaluate
 
 
-def make_group_train(loss_fn: Callable, lr: float, batch_size: int
-                     ) -> Callable:
-    """Batched multi-model local training over a gathered work batch:
-    fn(stacked (M, ...), m_idx (B,), xs, ys, d_idx (B,), perms (B, T, b))
-    -> trained param dict with leading pair axis B. Pair k trains model
-    ``m_idx[k]`` of ``stacked`` on device ``d_idx[k]``'s data; only
-    ``(participating & holder)`` pairs are gathered, so the work is
-    O(pairs), not the legacy O(models x devices)."""
+def make_pair_train(loss_fn: Callable, lr: float) -> Callable:
+    """Step 1 of a round (paper Algorithm 1 lines 5-12), multi-model
+    local training over a gathered work batch: fn(stacked (M, ...),
+    m_idx (B,), xs, ys, d_idx (B,), perms (B, T, b)) -> trained param
+    dict with leading pair axis B. Pair k trains row ``m_idx[k]`` of
+    ``stacked`` on device ``d_idx[k]``'s data; only ``(participating &
+    holder)`` pairs are gathered, so the work is O(pairs), not the
+    legacy O(models x devices). A pure read of the bank (no scatter, no
+    aggregation), which is what lets the pipelined executors enqueue
+    round t+1's training while round t's eval matrices are still on
+    their way to the host, and drop the result on a misspeculation."""
     train = _pair_train(loss_fn, lr)
 
-    def group_train(stacked: Params, m_idx: np.ndarray, xs: torch.Tensor,
-                    ys: torch.Tensor, d_idx: np.ndarray,
-                    perms: np.ndarray) -> Params:
+    def pair_train(stacked: Params, m_idx: np.ndarray, xs: torch.Tensor,
+                   ys: torch.Tensor, d_idx: np.ndarray,
+                   perms: np.ndarray) -> Params:
         device = xs.device
         with torch.no_grad():
             return train(stacked, _index(m_idx, device), xs, ys,
                          _index(d_idx, device), _index(perms, device))
 
-    return group_train
+    return pair_train
 
 
 def make_group_eval(acc_fn: Callable) -> Callable:
@@ -196,43 +216,80 @@ def make_group_eval(acc_fn: Callable) -> Callable:
     return group_eval
 
 
-def make_fused_round(loss_fn: Callable, acc_fn: Callable, lr: float,
-                     quantize_bits: int = 0) -> Callable:
-    """The fused engine's whole round as one call.
-
-    Returns fn(stacked (m_cap, ...) [updated in place], m_idx (B,),
-    d_idx (B,), perms (B, T, b), w (A, B), agg_rows (A,), live_idx (L,),
-    test_idx (R,), xs, ys, vx, vy, tx, ty) -> (val_mat (L, N),
-    test_mat (R, N)); the index and weight arguments are host numpy.
-
-    Semantics, in order (paper Algorithm 1 lines 5-12):
-      1. train the gathered (participating & holder) pairs;
+def make_fused_apply(quantize_bits: int = 0) -> Callable:
+    """Steps 2-4 of a round: fn(stacked [updated in place], trained
+    (B, ...), w (A, B), agg_rows (A,)) -> None.
       2. score-weighted aggregation of the models that trained, over the
          bucketed (A, B) weight matrix (row j weights the pairs of model
          ``agg_rows[j]``; padding rows repeat row 0);
       3. the transport quantize roundtrip of the A aggregated rows, when
          ``quantize_bits`` is set;
-      4. the scatter of the updated rows into the bank;
-      5. the live rows ``live_idx`` scored on every device's val split,
-         and the rows ``test_idx`` on every device's test split.
-    """
-    train = _pair_train(loss_fn, lr)
+      4. the scatter of the updated rows into the bank.
+    The weights and scatter rows arrive after training was enqueued,
+    which is what lets the host resolve them from round t-1's readback
+    while training runs."""
+
+    def apply_step(stacked: Params, trained: Params, w: np.ndarray,
+                   agg_rows: np.ndarray) -> None:
+        device = next(iter(stacked.values())).device
+        with torch.no_grad():
+            agg = _aggregate_rows(trained, to_device(w, np.float32, device),
+                                  quantize_bits)
+            _scatter_rows(stacked, agg, np.asarray(agg_rows))
+
+    return apply_step
+
+
+def make_fused_finish(acc_fn: Callable, quantize_bits: int = 0) -> Callable:
+    """Everything AFTER training as one call: fn(stacked [updated in
+    place], trained (B, ...), w (A, B), agg_rows (A,), live_idx (L,),
+    test_idx (R,), vx, vy, tx, ty) -> (val (L, N), test (R, N)). Steps
+    2-4 are ``make_fused_apply``; step 5 scores the rows ``live_idx`` on
+    every device's val split and the rows ``test_idx`` on every
+    device's test split. The index and weight arguments are host
+    numpy."""
+    apply_step = make_fused_apply(quantize_bits)
     eval_model = vmap(acc_fn, in_dims=(None, 0, 0))
 
-    def round_step(stacked, m_idx, d_idx, perms, w, agg_rows, live_idx,
-                   test_idx, xs, ys, vx, vy, tx, ty):
-        device = xs.device
+    def finish_step(stacked, trained, w, agg_rows, live_idx, test_idx,
+                    vx, vy, tx, ty):
+        apply_step(stacked, trained, w, agg_rows)
         with torch.no_grad():
-            trained = train(stacked, _index(m_idx, device), xs, ys,
-                            _index(d_idx, device), _index(perms, device))
-            w_t = torch.as_tensor(np.asarray(w, np.float32), device=device)
-            agg = _aggregate_rows(trained, w_t, quantize_bits)
-            _scatter_rows(stacked, agg, np.asarray(agg_rows))
             val = _eval_gathered(eval_model, stacked, live_idx, vx, vy)
             test = _eval_gathered(eval_model, stacked, test_idx, tx, ty)
         return val, test
 
-    return round_step
+    return finish_step
+
+
+def make_pair_eval(acc_fn: Callable) -> Callable:
+    """Holder-only (sparse) evaluation: fn(stacked, m_idx (P,),
+    d_idx (P,), xs, ys) -> (P,) accuracy of bank row ``m_idx[k]`` on
+    device ``d_idx[k]``'s split, in pair order (host numpy indices).
+    The pairs are grouped by model: each model's holders are scored in
+    one call of the dense path's per-row eval, on their gathered splits,
+    so O(active pairs) eval work and no per-pair copy of the params."""
+    eval_model = vmap(acc_fn, in_dims=(None, 0, 0))
+
+    def pair_eval(stacked: Params, m_idx: np.ndarray, d_idx: np.ndarray,
+                  xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+        m_idx, d_idx = np.asarray(m_idx), np.asarray(d_idx)
+        device = xs.device
+        if not len(m_idx):
+            return torch.zeros(0, dtype=torch.float32, device=device)
+        order, parts = [], []
+        with torch.no_grad():
+            for m in np.unique(m_idx):
+                sel = np.nonzero(m_idx == m)[0]
+                rows = _index(d_idx[sel], device)
+                parts.append(eval_model(
+                    {k: v[int(m)] for k, v in stacked.items()},
+                    xs[rows], ys[rows]))
+                order.append(sel)
+            inverse = np.argsort(np.concatenate(order), kind="stable")
+            return torch.cat(parts)[_index(inverse, device)]
+
+    return pair_eval
 
 
 def make_fused_eval(acc_fn: Callable) -> Callable:

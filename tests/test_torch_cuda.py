@@ -502,3 +502,116 @@ def test_quantize_group_past_32_bit_offsets_on_card(cuda):
     assert torch.equal(qs[1], qr) and torch.equal(ss[1], sr)
     assert torch.equal(outs[1], tqref.dequantize_ref(qr, sr, (3, 1_000),
                                                      torch.float32))
+
+
+# -- the pipelined and sparse fused paths on the card -------------------------
+
+def _mlp_servers(device, specs, hidden=32, n_train=64, batch_size=16,
+                 fedavg=False, rounds=8):
+    """The reference's engine-equivalence setup (MLP, 8 devices,
+    milestones 2/5), one server per spec, each run ``rounds`` rounds."""
+    import dataclasses
+
+    from repro_torch.configs.fedcd_cifar import HIERARCHICAL
+    from repro_torch.core.fedavg import FedAvgServer
+    from repro_torch.core.fedcd import FedCDServer
+    from repro_torch.data.partition import hierarchical_devices, stack_devices
+    from repro_torch.models.mlp import (init_mlp_classifier, mlp_accuracy,
+                                        mlp_loss)
+
+    data = stack_devices(hierarchical_devices(
+        seed=0, devices_per_archetype=1, n_train=n_train, n_val=32,
+        n_test=32, noise=2.0)[:8])
+    cfg = dataclasses.replace(HIERARCHICAL, n_devices=8, devices_per_round=4,
+                              milestones=(2, 5), max_models=8,
+                              late_delete_round=6, seed=0)
+    params = init_mlp_classifier(torch.Generator().manual_seed(0),
+                                 hidden=hidden)
+    cls = FedAvgServer if fedavg else FedCDServer
+    out = {s: cls(cfg, params, mlp_loss, mlp_accuracy, data,
+                  batch_size=batch_size, spec=s, device=device)
+           for s in specs}
+    for srv in out.values():
+        if rounds:
+            srv.run(rounds)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["fused+pipeline", "fused+sparse:1.1",
+                                  "fused+pipeline+sparse:0.9"])
+def test_pipelined_and_sparse_fedcd_match_fused_on_card(cuda, spec):
+    """Discrete state and accuracies exact, params within 1e-5, against
+    the synchronous dense ``fused`` run on the card."""
+    runs = _mlp_servers(cuda, ["fused", spec])
+    ref, other = runs["fused"], runs[spec]
+    assert ref.registry.live_ids() == other.registry.live_ids()
+    assert ref.registry.genealogy() == other.registry.genealogy()
+    np.testing.assert_array_equal(ref.state.active, other.state.active)
+    np.testing.assert_array_equal(ref.state.history, other.state.history)
+    for a, b in zip(ref.metrics, other.metrics):
+        np.testing.assert_array_equal(a.preferred, b.preferred)
+        np.testing.assert_array_equal(a.test_acc, b.test_acc)
+        np.testing.assert_array_equal(a.val_acc, b.val_acc)
+        assert a.comm_bytes == b.comm_bytes
+    for m in ref.registry.live_ids():
+        for k, v in ref.registry.params[m].items():
+            np.testing.assert_allclose(other.registry.params[m][k].cpu(),
+                                       v.cpu(), atol=1e-5, rtol=0)
+    if "pipeline" in spec:
+        st = other.pipeline_stats
+        assert st.speculated > 0 and st.hit + st.repaired > 0
+    if "sparse" in spec:
+        assert other.planner.sparse_rounds > 0
+
+
+@pytest.mark.cuda
+def test_pipelined_fedavg_matches_fused_on_card(cuda):
+    runs = _mlp_servers(cuda, ["fused", "fused+pipeline"], fedavg=True,
+                        rounds=4)
+    ref, pipe = runs["fused"], runs["fused+pipeline"]
+    for a, b in zip(ref.metrics, pipe.metrics):
+        np.testing.assert_array_equal(a.test_acc, b.test_acc)
+        np.testing.assert_array_equal(a.val_acc, b.val_acc)
+    for k, v in ref.params.items():
+        np.testing.assert_allclose(pipe.params[k].cpu(), v.cpu(), atol=1e-5,
+                                   rtol=0)
+    assert pipe.pipeline_stats.hit == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fedavg", [False, True])
+def test_readback_overlaps_speculative_training_on_card(cuda, fedavg):
+    """The readback waits on its own copies' event, not on the stream: it
+    returns while the next round's speculative training, enqueued after
+    the eval matrices, is still running. A device spin after each
+    speculation keeps the stream busy for a fixed time, so the finding
+    does not depend on whether the host or the card sets the pace."""
+    srv = _mlp_servers(cuda, ["fused+pipeline"], fedavg=fedavg,
+                       rounds=0)["fused+pipeline"]
+    ex = srv.executor
+    speculate, readback = ex.speculate, ex.readback
+    seen = {"event": None, "speculated": 0, "overlapped": 0}
+
+    def spec(plan):
+        before = ex._spec
+        speculate(plan)
+        seen["event"] = None
+        if ex._spec is not None and ex._spec is not before:
+            torch.cuda._sleep(40_000_000)        # ~20-40 ms
+            seen["event"] = torch.cuda.Event()
+            seen["event"].record()
+
+    def read():
+        out = readback()
+        if seen["event"] is not None:
+            seen["speculated"] += 1
+            seen["overlapped"] += int(not seen["event"].query())
+            seen["event"] = None
+        return out
+    ex.speculate, ex.readback = spec, read
+    srv.run(6)
+    torch.cuda.synchronize()
+    assert seen["speculated"] >= 4
+    assert seen["overlapped"] >= 1
+    assert all(np.isfinite(m.test_acc).all() for m in srv.metrics)

@@ -179,7 +179,7 @@ def test_unported_options_and_missing_gpu_raise():
                                  hidden=32)
     with pytest.raises(NotImplementedError):
         TFedCD(_tcfg(cfg), p, tmlp.mlp_loss, tmlp.mlp_accuracy, data,
-               device="cpu", pipeline=True)
+               device="cpu", spec="sharded@2+pipeline")
     with pytest.raises(NotImplementedError):
         TFedAvg(_tcfg(cfg), p, tmlp.mlp_loss, tmlp.mlp_accuracy, data,
-                device="cpu", spec="fused+pipeline")
+                device="cpu", spec="sharded@2+pipeline")

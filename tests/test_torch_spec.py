@@ -1,5 +1,6 @@
 """The port's EngineSpec against the reference's: the same preset
-grammar, the same canonical strings, the same ``ValueError``s, and
+grammar, the same canonical strings, the same ``ValueError``s (the
+servers refuse ``engine="llm"`` with the reference's), and
 ``NotImplementedError`` — at construction, naming its ROADMAP item — for
 every field whose slice has not landed (the straggler model of
 ``+semisync``, a launch mesh, and the servers' unported engines).
@@ -133,6 +134,34 @@ def test_servers_accept_ported_engines(spec):
         assert avg.engine == spec
 
 
+@pytest.mark.parametrize("server,kw", [
+    ("fedcd", dict(spec="fused+pipeline")),
+    ("fedcd", dict(spec="fused+sparse:0.25")),
+    ("fedcd", dict(pipeline=True)),
+    ("fedcd", dict(sparse_eval=0.5)),
+    ("fedavg", dict(spec="fused+pipeline")),
+])
+def test_servers_accept_pipelined_and_sparse_specs(server, kw):
+    """``+pipeline`` and ``+sparse:<x>`` (and their deprecated kwargs)
+    construct and run on the fused engine."""
+    cfg, data = _small_setup()
+    cls = TFedCD if server == "fedcd" else TFedAvg
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        srv = cls(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy,
+                  data, batch_size=16, device="cpu", **kw)
+    assert srv.engine == "fused"
+    assert srv.spec.pipeline == bool(kw.get("pipeline")
+                                     or "pipeline" in kw.get("spec", ""))
+    srv.run(2)
+    assert len(srv.metrics) == 2
+    if srv.spec.pipeline:
+        assert srv.pipeline_stats.speculated >= 1
+    else:
+        assert srv.pipeline_stats is None
+        assert srv.planner.sparse_rounds >= 0
+
+
 def test_kernel_flag_changes_nothing():
     """``+kernel`` is accepted for grammar parity: the port's kernels
     are always the path on CUDA tensors, so the run is the same."""
@@ -170,38 +199,38 @@ def test_deprecated_kwargs_build_the_equivalent_spec():
                 spec="fused", engine="fused", device="cpu")
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(spec="sharded@2"), "item 12"),
-    (dict(spec="sharded@2x2+pipeline"), "item 12"),
-    (dict(spec="sharded@2+migrate:1.5"), "item 12"),
-    (dict(spec="fused+pipeline"), "item 7"),
-    (dict(spec="fused+sparse:0.25"), "item 7"),
-    (dict(spec=EngineSpec(straggler=STAND_IN)), "item 8"),
-    (dict(spec=EngineSpec(scenario=STAND_IN)), "item 9"),
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(spec="sharded@2"), NotImplementedError, "item 12"),
+    (dict(spec="sharded@2x2+pipeline"), NotImplementedError, "item 12"),
+    (dict(spec="sharded@2+migrate:1.5"), NotImplementedError, "item 12"),
+    (dict(spec=EngineSpec(straggler=STAND_IN)), NotImplementedError,
+     "item 8"),
+    (dict(spec=EngineSpec(scenario=STAND_IN)), NotImplementedError,
+     "item 9"),
     (dict(spec=EngineSpec(checkpoint_dir="ckpt", save_every=2)),
+     NotImplementedError, "item 10"),
+    (dict(spec=EngineSpec(resume_from="ckpt")), NotImplementedError,
      "item 10"),
-    (dict(spec=EngineSpec(resume_from="ckpt")), "item 10"),
-    (dict(spec=EngineSpec(faults=STAND_IN)), "item 10"),
-    (dict(spec="llm"), "item 13"),
-    (dict(mesh=object()), "item 12"),
-    (dict(pipeline=True), "item 7"),
-    (dict(sparse_eval=0.5), "item 7"),
+    (dict(spec=EngineSpec(faults=STAND_IN)), NotImplementedError,
+     "item 10"),
+    # the LM plane is another trainer's spec: the reference's ValueError
+    (dict(spec="llm"), ValueError, "mode-B LM plane"),
+    (dict(mesh=object()), NotImplementedError, "item 12"),
 ])
-def test_fedcd_rejects_unported_fields_at_construction(kw, item):
+def test_fedcd_rejects_unported_fields_at_construction(kw, exc, match):
     cfg, data = _small_setup()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(exc, match=match):
             TFedCD(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy,
                    data, batch_size=16, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("spec,exc", [
     ("sharded@2", NotImplementedError),
-    ("fused+pipeline", NotImplementedError),
     (EngineSpec(straggler=STAND_IN), NotImplementedError),
     (EngineSpec(checkpoint_dir="ckpt"), NotImplementedError),
-    ("llm", NotImplementedError),
+    ("llm", ValueError),                 # as in the reference
     # FedCD-only capabilities: ValueError, as in the reference
     ("fused+sparse:0.5", ValueError),
     ("fused+kernel", ValueError),
