@@ -61,6 +61,18 @@ PIPELINE_SPECS = ("fused+pipeline", "fused+sparse:1.1",
                   "fused+pipeline+sparse:0.9")
 OVERLAP_ROUNDS = 3                  # the overlap check: 2 speculations used
 HOLD_CYCLES = 40_000_000            # its device spin, ~20-40 ms a round
+# semi-synchronous rounds (phase 10): the default straggler model of
+# "+semisync", synchronous and pipelined; and a run in which every
+# device's update of round DROP_ROUND is lost (nothing aggregates)
+SEMISYNC_SPECS = ("fused+semisync", "fused+pipeline+semisync")
+DROP_ROUNDS = 4
+DROP_ROUND = 3
+# device churn (phase 11): random_churn over the 30 devices with these
+# rates joins, leaves and drifts within SMOKE_ROUNDS rounds and reuses a
+# freed data row (a leave and a join in round 3)
+CHURN_SEED = 3
+CHURN_RATES = dict(join_rate=0.6, leave_rate=0.6, drift_rate=0.5)
+CHURN_SPECS = ("fused", "fused+pipeline", "fused+sparse:1.1")
 MIXED_LEAVES = [10, 2303, 4096, 129, 5, 1027, 589_824, 1, 128]
 BACK_TO_BACK = 20                   # calls captured in one graph
 # the paper config's lr (0.08) sends this CNN to NaN within a round on
@@ -560,9 +572,6 @@ def engines_agree(device):
     params = init_mlp_classifier(torch.Generator().manual_seed(0),
                                  hidden=32)
 
-    def rows(srv, m):
-        return {k: v.cpu() for k, v in srv.registry.params[m].items()}
-
     fedcd, fedavg = {}, {}
     for engine in ENGINES + PIPELINE_SPECS:
         fedcd[engine] = FedCDServer(cfg, params, mlp_loss, mlp_accuracy,
@@ -578,38 +587,14 @@ def engines_agree(device):
     pairs = ([("legacy", e) for e in ("batched", "fused")]
              + [("fused", e) for e in PIPELINE_SPECS])
     for base, engine in pairs:
-        ref, other = fedcd[base], fedcd[engine]
-        if (ref.registry.live_ids() != other.registry.live_ids()
-                or ref.registry.genealogy() != other.registry.genealogy()
-                or not np.array_equal(ref.state.active, other.state.active)
-                or not np.array_equal(ref.state.history, other.state.history,
-                                      equal_nan=True)):
-            fail(f"engines: FedCD {engine} control-plane state differs "
-                 f"from {base}")
-        for a, b in zip(ref.metrics, other.metrics):
-            if not (np.array_equal(a.preferred, b.preferred)
-                    and np.array_equal(a.test_acc, b.test_acc)
-                    and np.array_equal(a.val_acc, b.val_acc)
-                    and a.live_models == b.live_models
-                    and a.active_models == b.active_models
-                    and a.comm_bytes == b.comm_bytes):
-                fail(f"engines: FedCD {engine} round {a.round} metrics "
-                     f"differ from {base}")
-        for m in ref.registry.live_ids():
-            ra, rb = rows(ref, m), rows(other, m)
-            err = max([err] + [float((ra[k] - rb[k]).abs().max())
-                               for k in ra])
+        err = max(err, trajectory_err(fedcd[base], fedcd[engine],
+                                      f"engines: FedCD {engine} against "
+                                      f"{base}"))
     for base, engine in [("legacy", "batched"), ("legacy", "fused"),
                          ("fused", "fused+pipeline")]:
-        a_ref, a_other = fedavg[base], fedavg[engine]
-        for a, b in zip(a_ref.metrics, a_other.metrics):
-            if not (np.array_equal(a.test_acc, b.test_acc)
-                    and np.array_equal(a.val_acc, b.val_acc)):
-                fail(f"engines: FedAvg {engine} round {a.round} differs "
-                     f"from {base}")
-        err = max([err] + [float((a_ref.params[k].cpu()
-                                  - a_other.params[k].cpu()).abs().max())
-                           for k in a_ref.params])
+        err = max(err, trajectory_err(fedavg[base], fedavg[engine],
+                                      f"engines: FedAvg {engine} against "
+                                      f"{base}"))
     if not err <= AGG_TOL:
         fail(f"engines: params differ by {err} > {AGG_TOL}")
     stats = {f"fedcd {s}": fedcd[s].pipeline_stats.as_dict()
@@ -832,6 +817,287 @@ def count_roundtrips():
     return counted
 
 
+class NoSyncProbe:
+    """Phases 10-11: the straggler harvest, the stale fold and the data
+    bank's row writes run under ``torch.cuda.set_sync_debug_mode("error")``,
+    so a call in them that waits for the stream (a pageable copy,
+    ``.cpu()``, ``.item()``) raises and fails the run. ``calls`` counts
+    the watched calls that had work: harvests, folds of a plan with
+    folds, row writes."""
+
+    def __init__(self):
+        from repro_torch.data.bank import DeviceDataBank
+        from repro_torch.federated import executors as ex
+        self.calls = {"harvest": 0, "fold": 0, "row_write": 0}
+        self._saved = []
+        self._watch(ex, "_harvest_rows", "harvest", lambda a: True)
+        for cls in (ex.FusedExecutor, ex.FedAvgFusedExecutor):
+            self._watch(cls, "_fold_stale", "fold", lambda a: bool(a[1].folds))
+        self._watch(DeviceDataBank, "_write_row", "row_write", lambda a: True)
+
+    def _watch(self, owner, attr, key, has_work):
+        import torch
+        inner = getattr(owner, attr)
+
+        def watched(*args):
+            self.calls[key] += int(has_work(args))
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return inner(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        setattr(owner, attr, watched)
+        self._saved.append((owner, attr, inner))
+
+    def remove(self) -> None:
+        for owner, attr, inner in self._saved:
+            setattr(owner, attr, inner)
+
+
+def run_cell(device, name, server, spec, rounds=SMOKE_ROUNDS, watch=None):
+    """Phases 10-11, one path: phase 5's configuration (the paper's CNN
+    at full width, 30 devices, int8 transport) on ``spec`` (a preset or
+    an EngineSpec) for the ``server`` ("fedcd" or "fedavg"), ``rounds``
+    rounds. ``watch(srv)`` may instrument the server first. A synchronous
+    round is timed to its end (``torch.cuda.synchronize()``); pipelined
+    rounds run back to back, each timed from one ``run_round`` return to
+    the next, and the card's drain after the last is timed on its own
+    (a speculation of the round after the last). Prints one line a round.
+    Returns (server, walls, drain_s)."""
+    import torch
+
+    from repro_torch.core.fedavg import FedAvgServer
+    from repro_torch.core.fedcd import FedCDServer
+
+    cfg, params, data, loss_fn, acc_fn = cnn_cell()
+    cls = FedCDServer if server == "fedcd" else FedAvgServer
+    srv = cls(cfg, params, loss_fn, acc_fn, data, batch_size=32, spec=spec,
+              device=device)
+    if watch is not None:
+        watch(srv)
+    walls = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(1, rounds + 1):
+        m = srv.run_round(t)
+        if not srv.pipeline:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        walls.append(t1 - t0)
+        t0 = t1
+        extra = ""
+        if cls is FedCDServer:
+            extra += (f" live={m.live_models} active={m.active_models} "
+                      f"present={int(srv.present.sum())}")
+        if srv.semisync_stats is not None:
+            st = srv.semisync_stats
+            extra += (f" stragglers={st.stragglers} dropouts={st.dropouts} "
+                      f"folded={st.folded} expired={st.expired}")
+        print(f"[{name} round {t}] wall_s={walls[-1]:.4f} "
+              f"test_acc={m.test_acc.mean():.4f}{extra}", flush=True)
+        if not (np.isfinite(m.test_acc).all()
+                and np.isfinite(m.val_acc).all()):
+            fail(f"{name} round {t}: non-finite accuracy")
+    torch.cuda.synchronize()
+    drain = time.perf_counter() - t0
+    trees = ([srv.registry.params[m] for m in srv.registry.live_ids()]
+             if cls is FedCDServer else [srv.params])
+    if not all(bool(torch.isfinite(v).all()) for tree in trees
+               for v in tree.values()):
+        fail(f"{name}: non-finite params after {rounds} rounds")
+    return srv, walls, drain
+
+
+def trajectory_err(ref, other, tag):
+    """Fail unless two runs of one server class walked the same
+    trajectory: FedCD's live models, genealogy, active matrix, score
+    history, presence and per-round metrics; FedAvg's per-round
+    accuracies. Returns the largest param difference."""
+    def rows(tree):
+        return {k: v.detach().cpu() for k, v in tree.items()}
+
+    for a, b in zip(ref.metrics, other.metrics, strict=True):
+        if not (np.array_equal(a.test_acc, b.test_acc)
+                and np.array_equal(a.val_acc, b.val_acc)
+                and a.comm_bytes == b.comm_bytes):
+            fail(f"{tag}: round {a.round} metrics differ")
+    if not hasattr(ref, "registry"):
+        pairs = [(rows(ref.params), rows(other.params))]
+    else:
+        if (ref.registry.live_ids() != other.registry.live_ids()
+                or ref.registry.genealogy() != other.registry.genealogy()
+                or not np.array_equal(ref.state.active, other.state.active)
+                or not np.array_equal(ref.state.history, other.state.history,
+                                      equal_nan=True)
+                or not np.array_equal(ref.present, other.present)
+                or not all(np.array_equal(a.preferred, b.preferred)
+                           and a.live_models == b.live_models
+                           and a.active_models == b.active_models
+                           for a, b in zip(ref.metrics, other.metrics))):
+            fail(f"{tag}: control-plane state differs")
+        pairs = [(rows(ref.registry.params[m]), rows(other.registry.params[m]))
+                 for m in ref.registry.live_ids()]
+    return max([0.0] + [float((a[k] - b[k]).abs().max())
+                        for a, b in pairs for k in a])
+
+
+def eval_only_watch(seen):
+    """A ``run_cell`` watch: record, per launched plan, whether it had
+    work pairs but no aggregated model (the FedCD no-aggregate branch),
+    and count FedAvg's ``_dispatch_eval_only`` calls."""
+    def watch(srv):
+        ex = srv.executor
+        if hasattr(ex, "_dispatch_eval_only"):
+            inner_eval = ex._dispatch_eval_only
+
+            def eval_only():
+                seen["eval_only"] += 1
+                return inner_eval()
+            ex._dispatch_eval_only = eval_only
+        inner = ex.launch
+
+        def launch(plan):
+            if plan.pair_model and not plan.agg_models:
+                seen["no_aggregate"].append(plan.round)
+            inner(plan)
+        ex.launch = launch
+    return watch
+
+
+def churn_schedule(data):
+    """Phase 11's schedule, its split sizes those of ``data``."""
+    from repro_torch.data.scenarios import random_churn
+    n = {k: data[k][0].shape[1] for k in ("train", "val", "test")}
+    return random_churn(SMOKE_ROUNDS, data["train"][0].shape[0],
+                        seed=CHURN_SEED, n_train=n["train"],
+                        n_val=n["val"], n_test=n["test"], **CHURN_RATES)
+
+
+def semisync_phase(run_path, nosync):
+    """Phase 10: semi-synchronous rounds at full width. ``run_path(name,
+    server, spec, rounds=, watch=)`` runs one path with its own launch
+    counts (``run_cell``) and returns (server, walls); ``nosync`` is the
+    installed :class:`NoSyncProbe`."""
+    from repro_torch.core.spec import EngineSpec
+    from repro_torch.data.scenarios import DeviceDropout, StragglerModel
+
+    # the zero-latency gate: fused+semisync with StragglerModel.zero()
+    # is fused, bit for bit
+    zero = EngineSpec(straggler=StragglerModel.zero())
+    gate = {}
+    for server in ("fedcd", "fedavg"):
+        ref, w_ref = run_path(f"{server} fused", server, "fused")
+        srv, _ = run_path(f"{server} fused+semisync zero", server, zero)
+        err = trajectory_err(ref, srv, f"{server} zero-latency gate")
+        gate[server] = sum(w_ref)
+        print(f"[semisync zero-latency {server}] discrete state equal, "
+              f"params max_abs_err={err} stats="
+              f"{srv.semisync_stats.as_dict()}")
+        if err != 0.0:
+            fail(f"{server}: zero-latency semi-sync is not bit-identical "
+                 f"to fused (params max err {err})")
+    # the default straggler model, synchronous and pipelined; a pipelined
+    # round 1 also trains round 2, so the paths compare by total wall
+    for server in ("fedcd", "fedavg"):
+        runs, totals = {}, {"fused": gate[server]}
+        for spec in SEMISYNC_SPECS:
+            runs[spec], walls = run_path(f"{server} {spec}", server, spec)
+            totals[spec] = sum(walls)
+        sync, piped = (runs[s] for s in SEMISYNC_SPECS)
+        st = sync.semisync_stats.as_dict()
+        err = trajectory_err(sync, piped, f"{server} semisync pipelined")
+        print(f"[semisync {server}] {' == '.join(SEMISYNC_SPECS)}: "
+              f"discrete state equal, params max_abs_err={err}, "
+              f"semisync_stats={st} pipeline_stats="
+              f"{piped.pipeline_stats.as_dict()} total wall_s of "
+              f"{SMOKE_ROUNDS} rounds: " + " ".join(
+                  f"{k}={v:.4f}" for k, v in totals.items()))
+        if piped.semisync_stats.as_dict() != st:
+            fail(f"{server}: semisync stats differ when pipelined")
+        if not (st["stragglers"] > 0 and st["folded"] > 0):
+            fail(f"{server}: no straggler was buffered and folded "
+                 f"({st})")
+        if not err <= AGG_TOL:
+            fail(f"{server}: semisync pipelined params differ by {err}")
+    # every device's update of DROP_ROUND lost: nothing aggregates
+    lost = StragglerModel(dropouts=tuple(
+        DeviceDropout(DROP_ROUND, d) for d in range(N_DEVICES)))
+    for server in ("fedcd", "fedavg"):
+        seen = {"no_aggregate": [], "eval_only": 0}
+        srv, _ = run_path(f"{server} fused+pipeline+semisync total dropout",
+                          server, EngineSpec(pipeline=True, straggler=lost),
+                          rounds=DROP_ROUNDS, watch=eval_only_watch(seen))
+        print(f"[semisync total dropout {server}] round {DROP_ROUND}: "
+              f"no-aggregate rounds={seen['no_aggregate']} "
+              f"eval-only dispatches={seen['eval_only']} stats="
+              f"{srv.semisync_stats.as_dict()}")
+        if seen["no_aggregate"] != [DROP_ROUND]:
+            fail(f"{server}: round {DROP_ROUND} did not take the "
+                 f"no-aggregate branch")
+        if server == "fedavg" and seen["eval_only"] != 1:
+            fail("fedavg: _dispatch_eval_only did not run once")
+    print(f"[nosync semisync] harvests={nosync.calls['harvest']} "
+          f"folds={nosync.calls['fold']} under sync_debug_mode=error")
+    if not (nosync.calls["harvest"] and nosync.calls["fold"]):
+        fail("phase 10: no harvest or no fold ran under the probe")
+
+
+def churn_phase(run_path, nosync):
+    """Phase 11: device churn (``random_churn`` over the 30 devices) at
+    full width on ``CHURN_SPECS``, each held to the first; arguments as
+    :func:`semisync_phase`'s."""
+    import dataclasses as dc
+
+    from repro_torch.core.spec import EngineSpec
+
+    data = cnn_cell()[2]
+    sched = churn_schedule(data)
+    t0 = time.perf_counter()
+    sched.make_device(np.random.default_rng(0), 0)
+    print(f"[churn] host s to draw one device's splits "
+          f"({data['train'][0].shape[1]}/{data['val'][0].shape[1]}/"
+          f"{data['test'][0].shape[1]} images): "
+          f"{time.perf_counter() - t0:.4f}")
+    kinds = [type(e).__name__ for e in sched.events]
+    print(f"[churn schedule] seed={CHURN_SEED} {CHURN_RATES} events="
+          f"{[(type(e).__name__, *dc.astuple(e)) for e in sched.events]}")
+    if not all(k in kinds for k in ("DeviceJoin", "DeviceLeave",
+                                    "LabelDrift")):
+        fail(f"churn: the schedule lacks a join, leave or drift: {kinds}")
+    churned, totals = {}, {}
+    for spec in CHURN_SPECS:
+        churned[spec], walls = run_path(
+            f"fedcd {spec} churn", "fedcd",
+            dc.replace(EngineSpec.parse(spec), scenario=sched))
+        totals[spec] = sum(walls)
+        reeval = [t for t in range(1, SMOKE_ROUNDS + 1)
+                  if sched.joins_at(t) or sched.drifts_at(t)]
+        print(f"[fedcd {spec} churn] rounds that re-evaluate every "
+              f"live model (a join or drift clears the caches): {reeval} "
+              f"walls there={[round(walls[t - 1], 4) for t in reeval]}")
+    base = churned[CHURN_SPECS[0]]
+    bank = base.executor.databank
+    if bank.identity_map():
+        fail("churn: no data row was reused (the id -> row map is the "
+             "identity)")
+    for spec in CHURN_SPECS[1:]:
+        err = trajectory_err(base, churned[spec], f"churn {spec}")
+        print(f"[churn {spec}] == {CHURN_SPECS[0]}: discrete state "
+              f"equal, params max_abs_err={err}, total wall_s "
+              f"{totals[spec]:.4f} against {totals[CHURN_SPECS[0]]:.4f}")
+        if not err <= AGG_TOL:
+            fail(f"churn {spec}: params differ by {err}")
+    print(f"[churn] present={int(base.present.sum())} of "
+          f"{base.n_devices} ids, rows {bank.n_cap}, row_of={bank.row_of}"
+          f" sparse_rounds={churned[CHURN_SPECS[2]].planner.sparse_rounds}"
+          f" pipeline_stats="
+          f"{churned[CHURN_SPECS[1]].pipeline_stats.as_dict()}")
+    print(f"[nosync churn] row writes={nosync.calls['row_write']} under "
+          f"sync_debug_mode=error")
+    if not nosync.calls["row_write"]:
+        fail("phase 11: no data-bank row write ran under the probe")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1022,6 +1288,42 @@ def main() -> int:
     if consumed and not probe.overlapped:
         fail("overlap: every readback waited for the speculative training")
 
+    # phases 10-11 run under the no-sync probe; every path has its own
+    # launch counts. They hold runs to each other bit for bit, and the
+    # CNN's training is not run-to-run deterministic on cuDNN's default
+    # convolution algorithms (phase 5 and phase 8 read different round-1
+    # accuracies on one seed), so cuDNN takes deterministic ones here
+    torch.backends.cudnn.deterministic = True
+    print(f"[determinism] phases 10-11: torch.backends.cudnn.deterministic="
+          f"{torch.backends.cudnn.deterministic}")
+    nosync = NoSyncProbe()
+    later = {}                       # path -> launch counts, phases 10-11
+
+    def run_path(name, server, spec, rounds=SMOKE_ROUNDS, watch=None):
+        (srv, walls, drain), counts = drive(
+            lambda: run_cell(device, name, server, spec, rounds, watch))
+        later[name] = counts
+        transport = (f" roundtrip calls={roundtrips.calls}"
+                     if server == "fedcd" else "")
+        print(f"[{name}] mean wall_s rounds 2-{rounds}="
+              f"{np.mean(walls[1:]):.4f} total_s={sum(walls):.4f} "
+              f"drain_s={drain:.4f} walls={[round(w, 4) for w in walls]}"
+              f" launches={counts}{transport}", flush=True)
+        if counts["multi_weighted_agg"] <= 0:
+            fail(f"kernel multi_weighted_agg was not launched on {name}")
+        if server == "fedcd":
+            check_transport_launches(name, counts)
+        elif counts["quantize"] or counts["dequantize"] or roundtrips.calls:
+            fail(f"{name}: FedAvg made transport launches")
+        return srv, walls
+
+    try:
+        semisync_phase(run_path, nosync)
+        churn_phase(run_path, nosync)
+    finally:
+        nosync.remove()
+        torch.backends.cudnn.deterministic = False
+
     # launches: kernels 1-3 on the fused main path, weighted_agg on the
     # legacy path; dequant_agg is on no path, so its count stays 0. Each
     # path's own counts are under "launches_by_path".
@@ -1053,7 +1355,8 @@ def main() -> int:
             "launches_by_path": {
                 "fused": fused_counts[name], "legacy": legacy[name],
                 "batched": batched[name],
-                **{path: counts[name] for path, counts in pipelined.items()}}})
+                **{path: counts[name] for path, counts in pipelined.items()},
+                **{path: counts[name] for path, counts in later.items()}}})
     kernels[-1]["note"] = ("no path calls it, in either package; launched "
                            "only by the kernel check above")
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 """FedAvg baseline (McMahan et al. 2017), the paper's comparison system
-(port of ``repro/core/fedavg.py``, the synchronous meshless engines).
+(port of ``repro/core/fedavg.py``, the meshless engines).
 
 Identical client loop and data plumbing as FedCDServer so the comparison
 isolates the algorithm: one global model, uniform averaging over the
@@ -8,9 +8,10 @@ participating devices' updates. Engines mirror FedCDServer: ``"fused"``
 round as one call; ``"batched"`` / ``"legacy"`` keep it as a param dict
 on the device. ``"fused+pipeline"`` splits train and finish and
 enqueues round t+1's training (its sample prefetched) before round t's
-readback. It draws the same sampling stream as FedCDServer, in the same
-order with or without the pipeline, so FedCD-vs-FedAvg comparisons see
-identical cohorts.
+readback. ``+semisync`` makes rounds semi-synchronous through the same
+coordinator as FedCD's planner (one model, id 0). It draws the same
+sampling stream as FedCDServer, in the same order with or without the
+pipeline, so FedCD-vs-FedAvg comparisons see identical cohorts.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.config import FedCDConfig
 from repro_torch.core.fedcd import to_device
-from repro_torch.core.plan import RoundPlan
+from repro_torch.core.plan import RoundPlan, SemiSyncCoordinator
 from repro_torch.core.spec import reject_unported, resolve_spec
 from repro_torch.data.bank import DeviceDataBank
 from repro_torch.device import resolve_device
@@ -50,9 +51,9 @@ class FedAvgServer:
                  straggler: Any = None,
                  device: Optional[Union[str, torch.device]] = None):
         """``spec``: an :class:`~repro_torch.core.spec.EngineSpec` or
-        preset string — ``"fused"`` (optionally ``+pipeline``),
-        ``"batched"`` or ``"legacy"``. ``engine="llm"`` and the FedCD-only
-        capabilities (``scenario``, ``sparse_eval``,
+        preset string — ``"fused"`` (optionally ``+pipeline`` and/or
+        ``+semisync``), ``"batched"`` or ``"legacy"``. ``engine="llm"``
+        and the FedCD-only capabilities (``scenario``, ``sparse_eval``,
         ``migrate_threshold``, ``use_agg_kernel``) raise ``ValueError``
         as in the reference; fields the port does not run yet raise
         ``NotImplementedError``. ``engine=``/``mesh=``/``pipeline=``/
@@ -96,6 +97,9 @@ class FedAvgServer:
             self.executor = FedAvgHostExecutor(
                 cfg, databank, params, loss_fn, acc_fn, batch_size,
                 batched=(self.engine == "batched"))
+        self.semisync = (SemiSyncCoordinator(spec.straggler,
+                                             self.n_devices)
+                         if spec.straggler is not None else None)
         self.metrics: List[FedAvgRound] = []
         self._model_bytes = sum(v.numel() * v.element_size()
                                 for v in params.values())
@@ -106,6 +110,13 @@ class FedAvgServer:
     def pipeline_stats(self):
         """Speculation accounting (pipelined executors; None otherwise)."""
         return self.executor.stats
+
+    @property
+    def semisync_stats(self):
+        """Semi-synchronous round accounting
+        (:class:`~repro_torch.core.plan.SemiSyncStats`; None when the spec
+        has no straggler model)."""
+        return self.semisync.stats if self.semisync is not None else None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -141,7 +152,10 @@ class FedAvgServer:
             self._prefetch = None
         else:
             participating, perms = self._draw_sample()
-        self.executor.launch(self._plan(t, participating, perms))
+        plan = self._plan(t, participating, perms)
+        if self.semisync is not None:
+            self.semisync.resolve(plan, live=[0])
+        self.executor.launch(plan)
         if self.pipeline:
             # FedAvg's next round depends on nothing this round computes:
             # prefetch the sample and enqueue its training now

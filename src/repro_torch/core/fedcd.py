@@ -1,5 +1,6 @@
 """FedCD server orchestration — paper Algorithm 1, mode A (port of
-``repro/core/fedcd.py``, the synchronous meshless engines).
+``repro/core/fedcd.py``: the meshless engines; on ``fused`` also
+pipelined, semi-synchronous and churning populations).
 
 One ``FedCDServer.run_round`` = one pass of Algorithm 1: sample K
 devices → each trains all its active models for E epochs → score-weighted
@@ -22,10 +23,15 @@ On ``fused``, ``+pipeline`` splits the round into train and finish and
 enqueues round t+1's training before round t's readback (cross-round
 speculation), and ``+sparse:<x>`` scores only holders' validation
 splits on rounds whose stale rows are sparser than ``x``; both keep the
-synchronous round's results.
+synchronous round's results. ``+semisync`` (a straggler model) makes
+rounds semi-synchronous: pairs past the quorum deadline are buffered and
+folded back in, discounted, rounds later. ``scenario=`` (a
+:class:`~repro_torch.data.scenarios.ChurnSchedule`) lets devices join,
+leave and drift at round starts.
 
 Host RNG streams match the reference's on every engine: ``rng`` drives
-round sampling, ``life_rng`` the clone-score noise.
+round sampling, ``life_rng`` the clone-score noise, the schedule's own
+stream the data of joining and drifting devices.
 """
 from __future__ import annotations
 
@@ -96,8 +102,9 @@ class FedCDServer:
 
         ``spec``: an :class:`~repro_torch.core.spec.EngineSpec` or preset
         string (``"fused"``, ``"batched"``, ``"legacy"``, each optionally
-        ``+kernel``; ``fused`` also with ``+pipeline`` and/or
-        ``+sparse:<x>``). The other engine kwargs are the reference's
+        ``+kernel``; ``fused`` also with ``+pipeline``, ``+semisync``
+        and/or ``+sparse:<x>``, and an ``EngineSpec`` with a
+        ``scenario``). The other engine kwargs are the reference's
         deprecated spellings and translate through ``resolve_spec``.
         Invalid combinations (and ``engine="llm"``, the LM plane) raise
         ``ValueError`` and fields the port does not run yet
@@ -128,18 +135,37 @@ class FedCDServer:
         self.life_rng = np.random.default_rng([cfg.seed, LIFECYCLE_STREAM])
         self.data = data
         self.batch_size = batch_size
-        self.n_devices = data["train"][0].shape[0]
-        if self.n_devices != cfg.n_devices:
-            raise ValueError(f"data has {self.n_devices} devices, config "
+        n_initial = data["train"][0].shape[0]
+        if n_initial != cfg.n_devices:
+            raise ValueError(f"data has {n_initial} devices, config "
                              f"{cfg.n_devices}")
-        self.databank = DeviceDataBank(data, self.device)
+        self.scenario = scenario = spec.scenario
+        # device-id space: ids are control plane and never reused, so the
+        # score state sizes to every id the scenario can ever create; data
+        # ROWS are bank layout and are reused. Static populations keep id
+        # space == row space == N.
+        self.n_devices = n_initial + (scenario.total_joins
+                                      if scenario is not None else 0)
+        self.present = np.zeros(self.n_devices, bool)
+        self.present[:n_initial] = True
+        self._churn_rng = (scenario.make_rng()
+                           if scenario is not None else None)
+        self.databank = DeviceDataBank(
+            data, self.device,
+            n_cap=(scenario.row_capacity(n_initial)
+                   if scenario is not None else None),
+            id_cap=self.n_devices)
         params = to_device(init_params, self.device)
         # only the fused engine stacks its params into one bank
         self.registry = ModelRegistry.create(
             params, cfg.max_models, stacked=(self.engine == "fused"))
         self.state = init_scores(self.n_devices, cfg.max_models,
                                  cfg.score_window)
-        self.planner = RoundPlanner(cfg, sparse_eval=spec.sparse_eval)
+        # ids beyond the initial population haven't joined yet
+        self.state.active[n_initial:, :] = False
+        self.planner = RoundPlanner(cfg, sparse_eval=spec.sparse_eval,
+                                    straggler=spec.straggler,
+                                    n_devices=self.n_devices)
         self.executor = self._make_executor(loss_fn, acc_fn)
         self.metrics: List[RoundMetrics] = []
         self._model_bytes = sum(v.numel() * v.element_size()
@@ -165,6 +191,14 @@ class FedCDServer:
         """Speculation accounting (pipelined executors; None otherwise)."""
         return self.executor.stats
 
+    @property
+    def semisync_stats(self):
+        """Semi-synchronous round accounting
+        (:class:`~repro_torch.core.plan.SemiSyncStats`; None when the spec
+        has no straggler model)."""
+        coord = self.planner.semisync
+        return coord.stats if coord is not None else None
+
     # -- transport accounting (paper §3.6) --------------------------------
     def _transport_bytes(self, n_transfers: int) -> int:
         return n_transfers * self._compressed_bytes
@@ -174,11 +208,18 @@ class FedCDServer:
         return qz.roundtrip(params, self.cfg.quantize_bits)
 
     # -- round sampling ----------------------------------------------------
-    def _draw_sample(self) -> Tuple[np.ndarray, np.ndarray]:
+    def _draw_sample(self, present: Optional[np.ndarray] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """One round's participation mask + minibatch perms. ``present``
+        overrides the current presence mask (the prefetch passes the NEXT
+        round's post-churn population, computable because the schedule
+        is scripted)."""
         return draw_round_sample(self.rng, self.n_devices,
                                  self.cfg.devices_per_round,
                                  self.data["train"][0].shape[1],
-                                 self.batch_size, self.cfg.local_epochs)
+                                 self.batch_size, self.cfg.local_epochs,
+                                 present=(self.present if present is None
+                                          else present))
 
     def _round_sample(self, t: int) -> Tuple[np.ndarray, np.ndarray]:
         if self._prefetch is not None and self._prefetch[0] == t:
@@ -187,17 +228,74 @@ class FedCDServer:
             return sample
         return self._draw_sample()
 
+    # -- device churn ------------------------------------------------------
+    def _present_after(self, t: int) -> np.ndarray:
+        """The presence mask once round ``t``'s scheduled churn applies,
+        WITHOUT applying it (joins claim sequential ids)."""
+        mask = self.present.copy()
+        if self.scenario is None or not self.scenario.has_events(t):
+            return mask
+        for e in self.scenario.leaves_at(t):
+            mask[e.device] = False
+        nid = self.databank.next_id
+        for _ in self.scenario.joins_at(t):
+            mask[nid] = True
+            nid += 1
+        return mask
+
+    def _apply_churn(self, t: int) -> Tuple[List[int], List[int]]:
+        """Resolve round ``t``'s device-lifecycle intents at round start
+        (leaves → joins → drifts). A joining device activates every live
+        model with an empty score window (raw score 1.0 — the paper's
+        init); a leaving device's preferences clear and its data-bank
+        slot frees for reuse; a drifting device's splits rewrite in place
+        and its score window resets (its history scored the OLD
+        distribution)."""
+        if self.scenario is None or not self.scenario.has_events(t):
+            return [], []
+        joined: List[int] = []
+        left: List[int] = []
+        drifted: List[int] = []
+        for e in self.scenario.leaves_at(t):
+            d = e.device
+            self.present[d] = False
+            self.state.active[d, :] = False
+            self.state.history[d] = np.nan
+            self.databank.remove(d)
+            left.append(d)
+        for e in self.scenario.joins_at(t):
+            dev = self.scenario.make_device(self._churn_rng, e.archetype)
+            d = self.databank.add(dev)
+            self.present[d] = True
+            for m in self.registry.live_ids():
+                self.state.active[d, m] = True
+            joined.append(d)
+        for e in self.scenario.drifts_at(t):
+            self.databank.update(
+                e.device,
+                self.scenario.make_device(self._churn_rng, e.archetype))
+            self.state.history[e.device] = np.nan
+            drifted.append(e.device)
+        self.executor.on_churn(joined, left, drifted)
+        return joined, left
+
     # -- Algorithm 1 -------------------------------------------------------
     def run_round(self, t: int) -> RoundMetrics:
         t0 = time.time()
         cfg = self.cfg
+        joined, left = self._apply_churn(t)
         sample = self._round_sample(t)
         c = normalized_scores(self.state)
+        churn_next = (self.scenario is not None
+                      and self.scenario.has_events(t + 1))
         plan = self.planner.build(t, sample, c, self.state, self.registry,
-                                  self.executor.plan_hints())
+                                  self.executor.plan_hints(),
+                                  churn=(joined, left),
+                                  churn_next=churn_next)
         self.executor.launch(plan)
         # overlap: draw round t+1's sample while the device works
-        self._prefetch = (t + 1, self._draw_sample())
+        self._prefetch = (t + 1,
+                          self._draw_sample(self._present_after(t + 1)))
         if self.pipeline:
             # cross-round speculation: enqueue round t+1's training from
             # the prefetched sample + pre-lifecycle state
@@ -216,6 +314,7 @@ class FedCDServer:
             transfers += sum(int(self.state.active[:, m2].sum())
                              for m2 in self.registry.live_ids())
             self.executor.on_clones(cloned)
+            self.planner.on_clones(cloned)   # clones inherit fold mass
 
         metrics = self._collect(t, transfers, time.time() - t0)
         self.metrics.append(metrics)
@@ -227,7 +326,7 @@ class FedCDServer:
         preferred = np.argmax(np.where(self.state.active, c, -1.0), axis=1)
         test_acc, val_acc = self.executor.collect(preferred)
         stds = []
-        for i in range(self.n_devices):
+        for i in np.nonzero(self.present)[0]:
             ci = c[i, self.state.active[i]]
             stds.append(ci.std() if ci.size else 0.0)
         return RoundMetrics(

@@ -17,17 +17,21 @@ String grammar (``EngineSpec.parse``)::
 
 What the port runs so far: the meshless engines ``fused``, ``batched``
 and ``legacy``, with or without ``+kernel``, and on ``fused`` the
-pipelined dispatch (``+pipeline``) and holder-only validation scoring
-(``+sparse:<x>``). ``+kernel`` is accepted and changes nothing: on CUDA
-tensors the port's hand-written kernels are always the aggregation path,
-and their plain versions serve CPU tensors only. ``engine="llm"`` parses
-as in the reference, and the servers refuse it with the reference's
+pipelined dispatch (``+pipeline``), holder-only validation scoring
+(``+sparse:<x>``), semi-synchronous rounds (``+semisync``, which
+attaches a default :class:`~repro_torch.data.scenarios.StragglerModel`;
+construct the spec directly to tune it) and, for FedCD, device churn
+(``scenario=``, a :class:`~repro_torch.data.scenarios.ChurnSchedule`).
+``+kernel`` is accepted and changes nothing: on CUDA tensors the port's
+hand-written kernels are always the aggregation path, and their plain
+versions serve CPU tensors only. ``engine="llm"`` parses as in the
+reference, and the servers refuse it with the reference's
 ``ValueError`` (it is the LM trainer's spec). Every other field parses
-and validates as in the reference and is then rejected by the servers
-at construction (``reject_unported``). Two things cannot even be built
-yet: ``+semisync`` needs the straggler model of ``data/scenarios.py``
-and an injected ``mesh`` needs ``launch/mesh.py``; both raise
-``NotImplementedError`` naming their ROADMAP items.
+and validates as in the reference and is then rejected by the servers at
+construction (``reject_unported``): the sharded planes and row
+migration, checkpoints and fault injection. An injected ``mesh`` cannot
+even be built yet: it raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -35,11 +39,12 @@ import warnings
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
+from repro_torch.data.scenarios import StragglerModel
+
 MESHLESS_ENGINES = ("fused", "batched", "legacy")
 ENGINES = MESHLESS_ENGINES + ("llm",)
 
 # the ROADMAP Queue 1 item that ports each capability
-SEMISYNC_ITEM = "ROADMAP Queue 1 item 8 (+semisync)"
 MESH_ITEM = "ROADMAP Queue 1 item 12 (sharded engines)"
 
 
@@ -74,9 +79,7 @@ class EngineSpec:
     # -- construction ------------------------------------------------------
     @classmethod
     def parse(cls, text: str) -> "EngineSpec":
-        """Build a spec from the preset grammar (module docstring).
-        ``+semisync`` raises ``NotImplementedError`` once the rest of the
-        preset has parsed and validated."""
+        """Build a spec from the preset grammar (module docstring)."""
         parts = text.strip().split("+")
         head, flags = parts[0], parts[1:]
         engine, _, shard_txt = head.partition("@")
@@ -100,7 +103,6 @@ class EngineSpec:
                 raise ValueError(
                     f"{text!r}: bad shard counts {shard_txt!r} "
                     "(want INT or INTxINT)") from None
-        semisync = False
         for flag in flags:
             name, _, value = flag.partition(":")
             if name == "pipeline" and not value:
@@ -108,19 +110,13 @@ class EngineSpec:
             elif name == "kernel" and not value:
                 kw["use_agg_kernel"] = True
             elif name == "semisync" and not value:
-                semisync = True
+                kw["straggler"] = StragglerModel()
             elif name == "sparse" and value:
                 kw["sparse_eval"] = float(value)
             elif name == "migrate" and value:
                 kw["migrate_threshold"] = float(value)
             else:
                 raise ValueError(f"{text!r}: unknown flag {flag!r}")
-        if semisync:
-            # validate the rest with a stand-in, so a preset the reference
-            # rejects raises its ValueError here too
-            cls(engine=engine, straggler=object(), **kw).validate()
-            raise _unported(f"{text!r}: the straggler model of "
-                            "'+semisync'", SEMISYNC_ITEM)
         return cls(engine=engine, **kw).validate()
 
     @classmethod
@@ -265,9 +261,6 @@ def reject_unported(spec: EngineSpec, owner: str) -> None:
     checks = [
         ("mesh sharding", spec.sharded or spec.mesh is not None, MESH_ITEM),
         ("migrate_threshold", spec.migrate_threshold is not None, MESH_ITEM),
-        ("a straggler model", spec.straggler is not None, SEMISYNC_ITEM),
-        ("scenario churn", spec.scenario is not None,
-         "ROADMAP Queue 1 item 9 (churn)"),
         ("save_every/checkpoint_dir/resume_from",
          bool(spec.save_every or spec.checkpoint_dir or spec.resume_from),
          "ROADMAP Queue 1 item 10 (checkpoints)"),

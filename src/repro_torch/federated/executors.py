@@ -1,6 +1,7 @@
 """Device-side round executors: the data-plane half of a federated round
 (port of the meshless legacy, batched and fused executors of
-``repro/federated/executors.py``, synchronous and pipelined).
+``repro/federated/executors.py``: synchronous, pipelined and
+semi-synchronous rounds, and device churn on the fused ones).
 
 A :class:`RoundExecutor` turns one host-built
 :class:`~repro_torch.core.plan.RoundPlan` into device work. The contract:
@@ -30,6 +31,19 @@ the host as soon as it is enqueued, before any speculation: into pinned
 memory, non-blocking, with an event recorded after the copy. A reader
 waits on that event alone, so round t+1's training, enqueued after it,
 keeps running while the host works (a ``.cpu()`` would wait for it).
+
+**Semi-synchronous rounds** (a plan with straggler or dropped pairs):
+straggler pairs still train; their trained rows are copied out of the
+batch on the card at launch, before any speculation (``_harvest_rows``),
+and keyed (dispatch round, model, device) into the executor's carry-over
+buffer. When the planner says a buffered update has arrived, the next
+launch blends it into its model's bank row on the card
+(``_blend_stale``), before that round's dispatch. Neither ever copies to
+the host.
+
+**Device churn**: plans name devices by id; the data bank's ``row_of``
+resolves data rows at dispatch (``_drows``) and eval-matrix columns map
+back to ids (``_to_id_row``).
 """
 from __future__ import annotations
 
@@ -54,7 +68,8 @@ from repro_torch.federated.simulation import (bucket_size, make_eval,
                                               make_local_train,
                                               make_pair_eval,
                                               make_pair_train,
-                                              pad_live_rows, pad_work_batch)
+                                              pad_live_rows, pad_work_batch,
+                                              to_device)
 from repro_torch.models.common import Params
 
 
@@ -122,6 +137,78 @@ def _stack(trees: List[Params]) -> Params:
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
+StaleKey = Tuple[int, int, int]          # (dispatch round, model, device)
+
+
+def _harvest_rows(stale_updates: Dict[StaleKey, Params], plan: RoundPlan,
+                  trained: Params, meta: TrainMeta) -> None:
+    """Copy the straggler pairs' trained rows out of the batch into the
+    carry-over buffer keyed (dispatch round, model, device): one gather
+    per leaf into new tensors, on the batch's device and stream, so the
+    rows never reach the host and no later write to the batch can touch
+    them. Addressed by (model, device) through META's columns — on a
+    repaired speculation the batch is a superset in its own column
+    order, so plan indices must not be used directly."""
+    col = {p: k for k, p in enumerate(zip(meta.pair_model,
+                                          meta.pair_device))}
+    keys, cols = [], []
+    for k in plan.straggler_pairs:
+        m, d = plan.pair_model[k], plan.pair_device[k]
+        if (m, d) in col:
+            keys.append((plan.round, m, d))
+            cols.append(col[(m, d)])
+    if not keys:
+        return
+    idx = to_device(np.asarray(cols), np.int64,
+                    next(iter(trained.values())).device)
+    rows = {name: v.index_select(0, idx) for name, v in trained.items()}
+    for j, key in enumerate(keys):
+        stale_updates[key] = {name: v[j] for name, v in rows.items()}
+
+
+def _matured(stale_updates: Dict[StaleKey, Params], plan: RoundPlan
+             ) -> List[Tuple[int, float, List[Tuple[float, Params]]]]:
+    """Take the plan's fold orders out of the carry-over buffer: drop the
+    expired keys, and return (model, prior mass, [(weight, row), ...])
+    for each model with a buffered update to fold."""
+    for key in plan.fold_drops:
+        stale_updates.pop(key, None)
+    out = []
+    for m, (mass, entries) in plan.folds.items():
+        updates = []
+        for e in entries:
+            key = (e.dispatch_round, m, e.device)
+            if key in stale_updates:
+                updates.append((e.weight, stale_updates.pop(key)))
+        if updates:
+            out.append((m, mass, updates))
+    return out
+
+
+def _blend_stale(current: Params, mass: float,
+                 updates: List[Tuple[float, Params]]) -> Params:
+    """The eq-1 fold: blend staleness-discounted stale updates into a
+    model's params as a mass-weighted average,
+    ``(M·w + Σ c̃_j·v_j) / (M + Σ c̃_j)``. With M = 0 (a model that never
+    aggregated) this is the plain eq-1 average of the late arrivals.
+    The reference's float32 operation order, one rounding per step:
+    ``acc = w·M``, then ``acc = acc + c̃_j·v_j`` per update, then
+    ``acc / total``. Every coefficient is a float32 tensor (one pinned
+    copy to the device), so the division is IEEE division, never a
+    multiply by a reciprocal, and the same on the CPU and the card."""
+    total = mass + sum(w for w, _ in updates)
+    cur0 = next(iter(current.values()))
+    coef = to_device(np.array([mass] + [w for w, _ in updates] + [total],
+                              np.float32), np.float32, cur0.device)
+    out: Params = {}
+    for k, cur in current.items():
+        acc = cur.float() * coef[0]
+        for j, (_, tree) in enumerate(updates, 1):
+            acc = acc + coef[j] * tree[k].float()
+        out[k] = (acc / coef[-1]).to(cur.dtype)
+    return out
+
+
 class RoundExecutor:
     """Shared scaffolding; engines override the dispatch internals."""
 
@@ -132,7 +219,7 @@ class RoundExecutor:
         self.cfg = cfg
         self.registry = registry
         self.databank = databank
-        self.n_devices = databank.n_devices
+        self.n_devices = databank.id_cap
         self._result: Optional[RoundResult] = None
 
     @property
@@ -297,7 +384,8 @@ class FusedExecutor(RoundExecutor):
     stale rows (``make_fused_finish``). Owns the per-model eval-row
     caches and the test-row prediction. ``pipeline=True`` adds
     cross-round speculation (module docstring): a round then takes its
-    training from the speculation when it still covers the plan.
+    training from the speculation when it still covers the plan. Owns
+    the semi-synchronous carry-over buffer of harvested straggler rows.
 
     A dropped speculation needs no parking place (the reference keeps
     one, ``_spec_graveyard``, because destructing an in-flight JAX
@@ -325,12 +413,49 @@ class FusedExecutor(RoundExecutor):
         self._spec: Optional[Tuple[RoundPlan, Params, TrainMeta,
                                    Tuple[int, int]]] = None
         self._last_plan: Optional[RoundPlan] = None
+        # harvested straggler rows (on the server's device), blended back
+        # in by ``_fold_stale`` when the planner says so
+        self._stale_updates: Dict[StaleKey, Params] = {}
         self.stats = PipelineStats() if pipeline else None
+
+    # -- device id -> data row resolution ---------------------------------
+    def _drows(self, device_ids: List[int]) -> List[int]:
+        """Plans name devices by id; the bank's ``row_of`` resolves their
+        data rows at dispatch (the identity while there is no churn)."""
+        row_of = self.databank.row_of
+        return [row_of[d] for d in device_ids]
+
+    def _to_id_row(self, vec: np.ndarray) -> np.ndarray:
+        """Map one eval-matrix row (indexed by data row) to the device-id
+        indexing of the control plane. The full-fleet identity keeps the
+        static layout; any absence takes the explicit map, so DEPARTED
+        devices' columns read 0 on every engine (their stale rows still
+        compute values that must not leak into metrics)."""
+        bank = self.databank
+        if (bank.id_cap == bank.n_cap == bank.n_present
+                and bank.identity_map()):
+            return vec
+        out = np.zeros(self.n_devices, vec.dtype)
+        for d in bank.present_ids():
+            out[d] = vec[bank.row_of[d]]
+        return out
 
     # -- planning hints + lifecycle hooks ---------------------------------
     def plan_hints(self) -> EvalHints:
         return EvalHints(set(self._val_cache), set(self._test_cache),
                          list(self._pred_rows))
+
+    def on_churn(self, joined: List[int], left: List[int],
+                 drifted: List[int]) -> None:
+        """Joins and drifts rewrite data-bank rows, so every cached
+        per-model accuracy row holds stale columns: drop the caches and
+        let the next plan mark the population stale (one full re-eval
+        round). A pure leave changes no data: the departed device's
+        cached entries are never read again (its active row is
+        cleared)."""
+        if joined or drifted:
+            self._val_cache.clear()
+            self._test_cache.clear()
 
     def on_clones(self, cloned: List[Tuple[int, int]]) -> None:
         if not cloned:
@@ -368,8 +493,10 @@ class FusedExecutor(RoundExecutor):
     def _dispatch_train(self, tree: Params, pair_model: List[int],
                         pair_device: List[int], perms: np.ndarray
                         ) -> Tuple[Params, TrainMeta]:
+        # d_idx holds data ROWS; perms stay indexed by device id
         m_idx, d_idx, pperms = pad_work_batch(
-            pair_model, pair_device, [perms[d] for d in pair_device])
+            pair_model, self._drows(pair_device),
+            [perms[d] for d in pair_device])
         trained = self._train(tree, m_idx, *self._dev["train"], d_idx,
                               pperms)
         return trained, TrainMeta(list(pair_model), list(pair_device),
@@ -381,14 +508,14 @@ class FusedExecutor(RoundExecutor):
         self._apply(self.registry.params.tree, trained, w, agg_rows)
 
     # -- eval dispatch / readers ------------------------------------------
-    @staticmethod
-    def _val_reader_dense(mat: torch.Tensor, models: List[int]
+    def _val_reader_dense(self, mat: torch.Tensor, models: List[int]
                           ) -> Callable:
         read_mat = _host_async(mat)
 
         def read() -> Dict[int, np.ndarray]:
             rows = read_mat()[:len(models)]
-            return {m: rows[j] for j, m in enumerate(models)}
+            return {m: self._to_id_row(rows[j])
+                    for j, m in enumerate(models)}
         return read
 
     def _val_reader_sparse(self, vec: torch.Tensor, plan: RoundPlan
@@ -413,7 +540,8 @@ class FusedExecutor(RoundExecutor):
 
     def _dispatch_sparse_val(self, plan: RoundPlan) -> Callable:
         vec = self._pair_eval(self.registry.params.tree,
-                              plan.val_pair_model, plan.val_pair_device,
+                              plan.val_pair_model,
+                              self._drows(plan.val_pair_device),
                               *self._dev["val"])
         return self._val_reader_sparse(vec, plan)
 
@@ -455,13 +583,30 @@ class FusedExecutor(RoundExecutor):
             *self._dev["val"], *self._dev["test"])
         return self._readers(plan, val_mat, test_mat)
 
+    # -- semi-synchronous fold ---------------------------------------------
+    def _fold_stale(self, plan: RoundPlan) -> None:
+        """Blend the plan's matured straggler updates into their models'
+        bank rows, on the card, through the bank's item protocol, which
+        bumps its ``version`` and so invalidates any speculation built on
+        pre-fold params. Runs at launch, BEFORE dispatch: this round's
+        training and eval see post-fold params. The quantize roundtrip
+        follows the round's aggregate → quantize → scatter order."""
+        for m, mass, updates in _matured(self._stale_updates, plan):
+            if m in self.registry.params:
+                new = _blend_stale(self.registry.params[m], mass, updates)
+                self.registry.params[m] = self._maybe_compress(new)
+
     def launch(self, plan: RoundPlan) -> None:
-        """Train (or take the speculation), then finish: dense rounds in
-        one finish call; sparse-val rounds apply, then run the eval
-        calls; rounds with no pairs are eval-only."""
+        """Fold, then train (or take the speculation), then finish: dense
+        rounds in one finish call; sparse-val rounds, and rounds where no
+        model aggregates, apply (if one does), then run the eval calls;
+        rounds with nothing to train (no pairs, or every pair dropped)
+        are eval-only. Straggler rows are harvested right after
+        training."""
         self._last_plan = plan
+        self._fold_stale(plan)
         bank = self.registry.params
-        if plan.pair_model:
+        if plan.pair_model and (plan.agg_models or plan.straggler_pairs):
             spec = self._take_speculation(plan)
             if spec is None:
                 trained, meta = self._dispatch_train(
@@ -469,8 +614,11 @@ class FusedExecutor(RoundExecutor):
                     plan.perms)
             else:
                 trained, meta = spec
-            if plan.sparse_val:
-                self._dispatch_apply(trained, meta, plan)
+            if plan.straggler_pairs:
+                _harvest_rows(self._stale_updates, plan, trained, meta)
+            if plan.sparse_val or not plan.agg_models:
+                if plan.agg_models:
+                    self._dispatch_apply(trained, meta, plan)
                 pend = self._dispatch_evals(plan)
             else:
                 pend = self._finish_round(trained, meta, plan)
@@ -497,10 +645,11 @@ class FusedExecutor(RoundExecutor):
     def _take_speculation(self, plan: RoundPlan
                           ) -> Optional[Tuple[Params, TrainMeta]]:
         """Consume the pending speculative train batch if it still covers
-        the true plan: deletions only shrink the pair set, so a superset
-        batch is repairable (dead pairs aggregate with zero weight);
-        clones add pairs and rewrite bank rows, so a version mismatch
-        retrains from scratch."""
+        the true plan: deletions and device leaves only shrink the pair
+        set, so a superset batch is repairable (dead pairs aggregate with
+        zero weight); clones add pairs and rewrite PARAM bank rows, folds
+        rewrite them too, and joins and drifts rewrite DATA bank rows, so
+        a version mismatch retrains from scratch."""
         if self._spec is None:
             return None
         spec_plan, trained, meta, versions = self._spec
@@ -528,8 +677,10 @@ class FusedExecutor(RoundExecutor):
                 self._last_plan.clone_milestone
                 or self._last_plan.churn_next
                 or self._last_plan.fold_next):
-            # pending lifecycle intent: milestone clones rewrite bank rows
-            # and add pairs — don't burn a dispatch
+            # pending lifecycle intent: milestone clones rewrite param
+            # rows and add pairs; next-round device churn rewrites data
+            # rows / changes the cohort; a next-round stale fold rewrites
+            # param rows at launch — don't burn a dispatch
             self.stats.skipped += 1
             return
         if not plan.pair_model:
@@ -550,8 +701,8 @@ class FusedExecutor(RoundExecutor):
             self._val_cache.update(pend["val"]())
         if "test" in pend:
             self._test_cache.update(pend["test"]())
-        # a changed model's old test row is stale: drop it unless it was
-        # just re-evaluated
+        # a changed model's (aggregated or stale-folded) old test row is
+        # stale: drop it unless it was just re-evaluated
         for m in plan.changed_models():
             if m not in plan.test_stale:
                 self._test_cache.pop(m, None)
@@ -564,7 +715,8 @@ class FusedExecutor(RoundExecutor):
         """(len(rows), N) accuracy of the given models on one split."""
         mat = self._eval(self.registry.params.tree, pad_live_rows(rows),
                          *self._dev[split])
-        return _host(mat)[:len(rows)]
+        return np.stack([self._to_id_row(r)
+                         for r in _host(mat)[:len(rows)]])
 
     def _refresh_caches(self) -> None:
         """Quantized cloning made every clone's params differ from its
@@ -585,6 +737,7 @@ class FusedExecutor(RoundExecutor):
             self._needs_refresh = False
         entries = self.registry.entries
         wanted = [int(m) for m in preferred]
+        # departed (or not yet joined) devices report no accuracy
         usable = [m if (m in entries and entries[m].alive
                         and m in self._val_cache
                         and i in self.databank) else None
@@ -628,7 +781,7 @@ class FedAvgHostExecutor:
                  batched: bool):
         self.cfg = cfg
         self.databank = databank
-        self.n_devices = databank.n_devices
+        self.n_devices = databank.id_cap
         self.params = init_params
         self.batched = batched
         if batched:
@@ -683,21 +836,26 @@ class FedAvgFusedExecutor:
     bank; a round trains the participants (``make_pair_train``) and
     finishes with one-row buckets (``make_fused_finish``), updating the
     bank in place. ``pipeline=True`` enqueues the next round's training
-    before this round's eval rows are read back."""
+    before this round's eval rows are read back. Semi-synchronous rounds
+    harvest straggler rows and fold them back in on the card, as
+    :class:`FusedExecutor` does; a round whose every pair straggled or
+    dropped only evaluates (``_dispatch_eval_only``)."""
 
     def __init__(self, cfg: FedCDConfig, databank: DeviceDataBank,
                  init_params: Dict[str, torch.Tensor], loss_fn, acc_fn,
                  pipeline: bool = False):
         self.cfg = cfg
         self.databank = databank
-        self.n_devices = databank.n_devices
+        self.n_devices = databank.id_cap
         self.pipeline = pipeline
         self._stacked = {k: v[None].clone() for k, v in init_params.items()}
         self._train = make_pair_train(loss_fn, cfg.lr)
         self._finish = make_fused_finish(acc_fn)
+        self._evalp = make_fused_eval(acc_fn)
         self._pending: Optional[Tuple[Callable, Callable]] = None
         self._spec: Optional[Tuple[int, Params, TrainMeta]] = None
         self._last_plan: Optional[RoundPlan] = None
+        self._stale_updates: Dict[StaleKey, Params] = {}
         self.stats = PipelineStats() if pipeline else None
 
     @property
@@ -716,6 +874,14 @@ class FedAvgFusedExecutor:
         """Drop a pending speculation (no parking place is needed: see
         :class:`FusedExecutor`)."""
         self._spec = None
+
+    # -- semi-synchronous fold ---------------------------------------------
+    def _fold_stale(self, plan: RoundPlan) -> None:
+        """Blend buffered straggler updates into the global model (id 0)
+        on the card, BEFORE this round's dispatch; ``set_params`` drops a
+        pending speculation, which read pre-fold params."""
+        for _, mass, updates in _matured(self._stale_updates, plan):
+            self.set_params(_blend_stale(self.get_params(), mass, updates))
 
     # -- split-phase pieces -------------------------------------------------
     def _dispatch_train(self, plan: RoundPlan) -> Tuple[Params, TrainMeta]:
@@ -737,16 +903,31 @@ class FedAvgFusedExecutor:
         return self._finish(self._stacked, trained, w, row, row, row,
                             *self._dev["val"], *self._dev["test"])
 
+    def _dispatch_eval_only(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A round whose every pair straggled or dropped: the global
+        model keeps its (post-fold) params; only the eval rows run."""
+        row = np.zeros(1, np.int32)
+        return (self._evalp(self._stacked, row, *self._dev["val"]),
+                self._evalp(self._stacked, row, *self._dev["test"]))
+
     def launch(self, plan: RoundPlan) -> None:
         self._last_plan = plan
-        if self._spec is not None and self._spec[0] == plan.round:
-            _, trained, meta = self._spec
-            self._spec = None
-            self.stats.hit += 1
+        self._fold_stale(plan)           # drops any (pre-fold) speculation
+        trained = meta = None
+        if plan.agg_models or plan.straggler_pairs:
+            if self._spec is not None and self._spec[0] == plan.round:
+                _, trained, meta = self._spec
+                self._spec = None
+                self.stats.hit += 1
+            else:
+                self._park_spec()
+                trained, meta = self._dispatch_train(plan)
+        if plan.straggler_pairs:
+            _harvest_rows(self._stale_updates, plan, trained, meta)
+        if plan.agg_models:
+            val_mat, test_mat = self._dispatch_finish(trained, meta, plan)
         else:
-            self._park_spec()
-            trained, meta = self._dispatch_train(plan)
-        val_mat, test_mat = self._dispatch_finish(trained, meta, plan)
+            val_mat, test_mat = self._dispatch_eval_only()
         self._pending = (_host_async(val_mat), _host_async(test_mat))
 
     def speculate(self, plan: RoundPlan) -> None:

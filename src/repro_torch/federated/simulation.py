@@ -320,13 +320,23 @@ def make_perms(rng: np.random.Generator, n_devices: int, n_examples: int,
 
 def draw_round_sample(rng: np.random.Generator, n_devices: int,
                       devices_per_round: int, n_examples: int,
-                      batch_size: int, epochs: int
+                      batch_size: int, epochs: int,
+                      present: "np.ndarray | None" = None
                       ) -> Tuple[np.ndarray, np.ndarray]:
     """One round's participation mask + shared minibatch perms — the one
     place the sampling stream is consumed, so FedCD and FedAvg servers
-    with equal seeds train identical cohorts (static population)."""
+    with equal seeds train identical cohorts. ``present`` (churn
+    scenarios): sample only present device ids, clamping the cohort to
+    the population; the full-fleet fast path consumes the generator
+    exactly as the presence-free form, so static runs keep their
+    streams."""
     participating = np.zeros(n_devices, bool)
-    chosen = rng.choice(n_devices, devices_per_round, replace=False)
+    if present is None or present.all():
+        chosen = rng.choice(n_devices, devices_per_round, replace=False)
+    else:
+        ids = np.nonzero(present)[0]
+        k = min(devices_per_round, len(ids))
+        chosen = ids[rng.choice(len(ids), k, replace=False)]
     participating[chosen] = True
     perms = make_perms(rng, n_devices, n_examples, batch_size, epochs)
     return participating, perms

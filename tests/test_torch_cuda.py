@@ -507,9 +507,10 @@ def test_quantize_group_past_32_bit_offsets_on_card(cuda):
 # -- the pipelined and sparse fused paths on the card -------------------------
 
 def _mlp_servers(device, specs, hidden=32, n_train=64, batch_size=16,
-                 fedavg=False, rounds=8):
+                 fedavg=False, rounds=8, **cfg_kw):
     """The reference's engine-equivalence setup (MLP, 8 devices,
-    milestones 2/5), one server per spec, each run ``rounds`` rounds."""
+    milestones 2/5), one server per spec, each run ``rounds`` rounds.
+    ``specs``: preset strings, or a {name: spec} dict."""
     import dataclasses
 
     from repro_torch.configs.fedcd_cifar import HIERARCHICAL
@@ -524,13 +525,15 @@ def _mlp_servers(device, specs, hidden=32, n_train=64, batch_size=16,
         n_test=32, noise=2.0)[:8])
     cfg = dataclasses.replace(HIERARCHICAL, n_devices=8, devices_per_round=4,
                               milestones=(2, 5), max_models=8,
-                              late_delete_round=6, seed=0)
+                              late_delete_round=6, seed=0, **cfg_kw)
     params = init_mlp_classifier(torch.Generator().manual_seed(0),
                                  hidden=hidden)
     cls = FedAvgServer if fedavg else FedCDServer
-    out = {s: cls(cfg, params, mlp_loss, mlp_accuracy, data,
-                  batch_size=batch_size, spec=s, device=device)
-           for s in specs}
+    if not isinstance(specs, dict):
+        specs = {s: s for s in specs}
+    out = {name: cls(cfg, params, mlp_loss, mlp_accuracy, data,
+                     batch_size=batch_size, spec=s, device=device)
+           for name, s in specs.items()}
     for srv in out.values():
         if rounds:
             srv.run(rounds)
@@ -615,3 +618,98 @@ def test_readback_overlaps_speculative_training_on_card(cuda, fedavg):
     assert seen["speculated"] >= 4
     assert seen["overlapped"] >= 1
     assert all(np.isfinite(m.test_acc).all() for m in srv.metrics)
+
+
+# -- semi-synchronous rounds and device churn on the card ---------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [0, 8])
+@pytest.mark.parametrize("fedavg", [False, True])
+def test_zero_latency_semisync_is_bit_identical_to_fused_on_card(cuda, bits,
+                                                                 fedavg):
+    """The zero-latency gate on the card: ``fused+semisync`` with
+    ``StragglerModel.zero()`` takes the synchronous path, bit for bit."""
+    from repro_torch.core.spec import EngineSpec
+    from repro_torch.data.scenarios import StragglerModel
+
+    runs = _mlp_servers(
+        cuda, {"fused": "fused",
+               "zero": EngineSpec(straggler=StragglerModel.zero())},
+        fedavg=fedavg, rounds=4 if fedavg else 6, quantize_bits=bits)
+    ref, zero = runs["fused"], runs["zero"]
+    for a, b in zip(ref.metrics, zero.metrics):
+        np.testing.assert_array_equal(a.test_acc, b.test_acc)
+        np.testing.assert_array_equal(a.val_acc, b.val_acc)
+    if fedavg:
+        trees = [(ref.params, zero.params)]
+    else:
+        assert ref.registry.live_ids() == zero.registry.live_ids()
+        np.testing.assert_array_equal(ref.state.active, zero.state.active)
+        np.testing.assert_array_equal(ref.state.history, zero.state.history)
+        trees = [(ref.registry.params[m], zero.registry.params[m])
+                 for m in ref.registry.live_ids()]
+    for a, b in trees:
+        for k, v in a.items():
+            assert torch.equal(v, b[k]), k
+    st = zero.semisync_stats
+    assert st.ontime == st.dispatched > 0 and st.stragglers == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mass", [0.0, 0.61])
+def test_fold_blend_on_card_equals_cpu(cuda, mass):
+    """The stale fold's float32 operations (multiply, add, IEEE divide by
+    a tensor) give the same bits on the card as on the CPU."""
+    from repro_torch.federated.executors import _blend_stale
+
+    rng = np.random.default_rng(3)
+    shapes = {"conv": (3, 3, 64, 64), "dense": (2304, 10), "b": (10,)}
+    cur = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+           for k, s in shapes.items()}
+    ups = [(float(w), {k: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)) for k, s in shapes.items()})
+        for w in rng.uniform(0.05, 0.5, 4)]
+    host = _blend_stale(cur, mass, ups)
+    card = _blend_stale({k: v.to(cuda) for k, v in cur.items()}, mass,
+                        [(w, {k: v.to(cuda) for k, v in t.items()})
+                         for w, t in ups])
+    for k in shapes:
+        assert torch.equal(card[k].cpu(), host[k]), k
+
+
+@pytest.mark.cuda
+def test_churn_row_write_is_read_by_the_next_train_dispatch_on_card(cuda):
+    """A join reusing a freed slot writes its row through pinned memory
+    without blocking; a train dispatch enqueued right after reads the
+    new row (stream order), as the same dispatch on the CPU does."""
+    from repro_torch.data.bank import DeviceDataBank
+    from repro_torch.data.partition import hierarchical_devices, stack_devices
+    from repro_torch.data.scenarios import ChurnSchedule
+    from repro_torch.federated.simulation import make_pair_train
+    from repro_torch.models.mlp import init_mlp_classifier, mlp_loss
+
+    data = stack_devices(hierarchical_devices(
+        seed=0, devices_per_archetype=1, n_train=64, n_val=32, n_test=32))
+    sched = ChurnSchedule(n_train=64, n_val=32, n_test=32)
+    joined = sched.make_device(sched.make_rng(), 3)
+    params = init_mlp_classifier(torch.Generator().manual_seed(0), hidden=32)
+    train = make_pair_train(mlp_loss, 0.05)
+    perms = np.random.default_rng(0).permuted(
+        np.broadcast_to(np.arange(64, dtype=np.int32), (2, 64)),
+        axis=1).reshape(2, 4, 16)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        bank = DeviceDataBank(data, dev, id_cap=11)
+        stacked = {k: v[None].to(dev) for k, v in params.items()}
+        bank.remove(4)
+        v0 = bank.version
+        d = bank.add(joined)                 # slot 4 reused by id 10
+        assert (d, bank.row_of[d], bank.version) == (10, 4, v0 + 1)
+        trained = train(stacked, np.zeros(2, np.int32),
+                        *bank.splits["train"],
+                        np.array([bank.row_of[d], 0], np.int32), perms)
+        out[dev.type] = {k: v.cpu() for k, v in trained.items()}
+        xs = bank.splits["train"][0][4].cpu().numpy()
+        np.testing.assert_array_equal(xs, joined.train[0])
+    for k, v in out["cpu"].items():
+        np.testing.assert_allclose(out["cuda"][k], v, atol=1e-5, rtol=0)

@@ -43,11 +43,13 @@ def test_port_files_found():
     assert len(PORT_FILES) > 20
     assert (ROOT / "src" / "repro_torch" / "csrc" / "weighted_agg.cu").exists()
     assert (ROOT / "src" / "repro_torch" / "csrc" / "quantize.cu").exists()
+    # the port's own copy of the numpy-only scenario module
+    assert ROOT / "src" / "repro_torch" / "data" / "scenarios.py" in PORT_FILES
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.core.fedcd, repro_torch.core.fedavg, "
-            "repro_torch.kernels.build; "
+            "repro_torch.data.scenarios, repro_torch.kernels.build; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")

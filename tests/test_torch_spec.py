@@ -1,13 +1,15 @@
 """The port's EngineSpec against the reference's: the same preset
 grammar, the same canonical strings, the same ``ValueError``s (the
-servers refuse ``engine="llm"`` with the reference's), and
+servers refuse ``engine="llm"`` with the reference's), the reference's
+default straggler model behind ``+semisync``, and
 ``NotImplementedError`` — at construction, naming its ROADMAP item — for
-every field whose slice has not landed (the straggler model of
-``+semisync``, a launch mesh, and the servers' unported engines).
+every field whose slice has not landed (a launch mesh, checkpoints and
+fault injection). Semi-synchronous and churn specs construct and run.
 
 Cases are those of ``tests/test_spec.py`` (presets, bad presets, invalid
 combinations), each run through both packages.
 """
+import dataclasses
 import warnings
 
 import numpy as np
@@ -16,9 +18,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.core.spec import EngineSpec as JSpec  # noqa: E402
+from repro.data.scenarios import StragglerModel as JStraggler  # noqa: E402
 from repro_torch.core.fedavg import FedAvgServer as TFedAvg  # noqa: E402
 from repro_torch.core.fedcd import FedCDServer as TFedCD  # noqa: E402
 from repro_torch.core.spec import EngineSpec, resolve_spec  # noqa: E402
+from repro_torch.data.scenarios import (  # noqa: E402
+    ChurnSchedule, DeviceJoin, DeviceLeave, StragglerModel)
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from test_torch_slice import _small_setup, _tcfg  # noqa: E402
 
@@ -62,16 +67,20 @@ def _mlp():
 @pytest.mark.parametrize("text", PRESETS)
 def test_preset_canonical_matches_reference(text):
     ref = JSpec.parse(text)
-    if "semisync" in text:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            EngineSpec.parse(text)
-        return
     spec = EngineSpec.parse(text)
     assert spec.canonical == ref.canonical
     assert EngineSpec.parse(spec.canonical) == spec
     for name in ("engine", "model_shards", "data_shards", "pipeline",
                  "sparse_eval", "migrate_threshold", "use_agg_kernel"):
         assert getattr(spec, name) == getattr(ref, name), name
+    # "+semisync" attaches the reference's default straggler model
+    assert (spec.straggler is None) == (ref.straggler is None)
+    if "semisync" in text:
+        assert isinstance(spec.straggler, StragglerModel)
+        assert isinstance(ref.straggler, JStraggler)
+        for f in dataclasses.fields(ref.straggler):
+            assert (getattr(spec.straggler, f.name)
+                    == getattr(ref.straggler, f.name)), f.name
 
 
 @pytest.mark.parametrize("text", BAD_PRESETS)
@@ -203,10 +212,13 @@ def test_deprecated_kwargs_build_the_equivalent_spec():
     (dict(spec="sharded@2"), NotImplementedError, "item 12"),
     (dict(spec="sharded@2x2+pipeline"), NotImplementedError, "item 12"),
     (dict(spec="sharded@2+migrate:1.5"), NotImplementedError, "item 12"),
-    (dict(spec=EngineSpec(straggler=STAND_IN)), NotImplementedError,
-     "item 8"),
-    (dict(spec=EngineSpec(scenario=STAND_IN)), NotImplementedError,
-     "item 9"),
+    # semi-sync and churn are ported: what stops these specs is the field
+    # of a later item beside them
+    (dict(spec=EngineSpec(straggler=StragglerModel(),
+                          checkpoint_dir="ckpt")), NotImplementedError,
+     "item 10"),
+    (dict(spec=EngineSpec(scenario=ChurnSchedule(), model_shards=2)),
+     NotImplementedError, "item 12"),
     (dict(spec=EngineSpec(checkpoint_dir="ckpt", save_every=2)),
      NotImplementedError, "item 10"),
     (dict(spec=EngineSpec(resume_from="ckpt")), NotImplementedError,
@@ -228,7 +240,8 @@ def test_fedcd_rejects_unported_fields_at_construction(kw, exc, match):
 
 @pytest.mark.parametrize("spec,exc", [
     ("sharded@2", NotImplementedError),
-    (EngineSpec(straggler=STAND_IN), NotImplementedError),
+    (EngineSpec(straggler=StragglerModel(), faults=STAND_IN),
+     NotImplementedError),
     (EngineSpec(checkpoint_dir="ckpt"), NotImplementedError),
     ("llm", ValueError),                 # as in the reference
     # FedCD-only capabilities: ValueError, as in the reference
@@ -243,3 +256,33 @@ def test_fedavg_rejects_at_construction(spec, exc):
     with pytest.raises(exc):
         TFedAvg(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy, data,
                 batch_size=16, spec=spec, device="cpu")
+
+
+def _churn():
+    return ChurnSchedule(events=(DeviceLeave(1, 0), DeviceJoin(1, 3)),
+                         n_train=64, n_val=32, n_test=32)
+
+
+@pytest.mark.parametrize("server,spec", [
+    ("fedcd", "fused+semisync"),
+    ("fedcd", "fused+pipeline+semisync"),
+    ("fedavg", "fused+semisync"),
+    ("fedavg", "fused+pipeline+semisync"),
+    ("fedcd", EngineSpec(scenario=_churn())),
+    ("fedcd", EngineSpec(scenario=_churn(), pipeline=True,
+                         sparse_eval=1.1)),
+])
+def test_servers_run_semisync_and_churn_specs(server, spec):
+    """The specs items 8 and 9 port: they construct and run a round."""
+    cfg, data = _small_setup()
+    cls = TFedCD if server == "fedcd" else TFedAvg
+    srv = cls(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy, data,
+              batch_size=16, spec=spec, device="cpu")
+    srv.run(1)
+    assert len(srv.metrics) == 1
+    if srv.spec.straggler is not None:
+        assert srv.semisync_stats.rounds == 1
+    if srv.spec.scenario is not None:
+        assert srv.semisync_stats is None
+        assert not srv.present[0] and srv.present[cfg.n_devices]
+        assert srv.executor.databank.row_of[cfg.n_devices] == 0
