@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -73,6 +74,22 @@ DROP_ROUND = 3
 CHURN_SEED = 3
 CHURN_RATES = dict(join_rate=0.6, leave_rate=0.6, drift_rate=0.5)
 CHURN_SPECS = ("fused", "fused+pipeline", "fused+sparse:1.1")
+# crash and resume (phase 12): a checkpoint every CKPT_EVERY rounds; the
+# mid-save crash on a save round, every other phase the round after it,
+# so a resume replays an unsaved round
+CKPT_EVERY = 2
+RESUME_PATHS = (
+    ("fedcd fused", "fedcd", "fused", (
+        (4, "mid-save"), (5, "post-plan"), (5, "mid-dispatch"),
+        (5, "post-readback"))),
+    ("fedcd fused+pipeline", "fedcd", "fused+pipeline",
+     ((5, "mid-dispatch"),)),
+    ("fedcd fused+semisync", "fedcd", "fused+semisync",
+     ((5, "post-readback"),)),
+    ("fedcd fused+pipeline churn", "fedcd", "churn", ((5, "post-plan"),)),
+    ("fedavg fused+pipeline", "fedavg", "fused+pipeline",
+     ((5, "post-plan"),)),
+)
 MIXED_LEAVES = [10, 2303, 4096, 129, 5, 1027, 589_824, 1, 128]
 BACK_TO_BACK = 20                   # calls captured in one graph
 # the paper config's lr (0.08) sends this CNN to NaN within a round on
@@ -858,12 +875,14 @@ def run_cell(device, name, server, spec, rounds=SMOKE_ROUNDS, watch=None):
     """Phases 10-11, one path: phase 5's configuration (the paper's CNN
     at full width, 30 devices, int8 transport) on ``spec`` (a preset or
     an EngineSpec) for the ``server`` ("fedcd" or "fedavg"), ``rounds``
-    rounds. ``watch(srv)`` may instrument the server first. A synchronous
-    round is timed to its end (``torch.cuda.synchronize()``); pipelined
-    rounds run back to back, each timed from one ``run_round`` return to
-    the next, and the card's drain after the last is timed on its own
-    (a speculation of the round after the last). Prints one line a round.
-    Returns (server, walls, drain_s)."""
+    rounds. ``watch(srv)`` may instrument the server first. A server
+    resumed from a checkpoint at construction runs from the round after
+    it. A synchronous round is timed to its end
+    (``torch.cuda.synchronize()``); pipelined rounds run back to back,
+    each timed from one ``run_round`` return to the next, and the card's
+    drain after the last is timed on its own (a speculation of the round
+    after the last). Prints one line a round. Returns (server, walls of
+    the rounds run, drain_s)."""
     import torch
 
     from repro_torch.core.fedavg import FedAvgServer
@@ -878,7 +897,7 @@ def run_cell(device, name, server, spec, rounds=SMOKE_ROUNDS, watch=None):
     walls = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(1, rounds + 1):
+    for t in range(len(srv.metrics) + 1, rounds + 1):
         m = srv.run_round(t)
         if not srv.pipeline:
             torch.cuda.synchronize()
@@ -1098,6 +1117,172 @@ def churn_phase(run_path, nosync):
         fail("phase 11: no data-bank row write ran under the probe")
 
 
+class CheckpointClock:
+    """Phase 12: times every snapshot and every restore the servers make.
+    A snapshot is timed after the card has drained (the drain — work in
+    flight, e.g. a speculation the quiesce dropped — is timed on its
+    own); a restore to its end on the card (its row writes are
+    non-blocking)."""
+
+    def __init__(self):
+        import torch
+
+        from repro_torch.checkpoint import state
+        from repro_torch.core import fedavg, fedcd
+        self.saves, self.restores = [], []
+        self._saved = []
+
+        def timed(owner, attr, out, drain):
+            inner = getattr(owner, attr)
+
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                if drain:
+                    torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                result = inner(*args, **kw)
+                torch.cuda.synchronize()
+                out.append((t1 - t0, time.perf_counter() - t1))
+                return result
+            setattr(owner, attr, call)
+            self._saved.append((owner, attr, inner))
+
+        # the manager calls state's; the servers' save()/restore() and
+        # resume_from call their modules' own names
+        for owner in (state, fedcd, fedavg):
+            timed(owner, "save_server_state", self.saves, True)
+        for owner in (fedcd, fedavg):
+            timed(owner, "restore_server_state", self.restores, False)
+
+    def take(self):
+        """(saves, restores) recorded since the last call, as lists of
+        (drain_s, s) and (0, s)."""
+        out = (list(self.saves), list(self.restores))
+        self.saves.clear()
+        self.restores.clear()
+        return out
+
+    def remove(self) -> None:
+        for owner, attr, inner in self._saved:
+            setattr(owner, attr, inner)
+
+
+def resume_phase(run_path, crash_path, clock, device):
+    """Phase 12: crash and resume at full width (phase 5's CNN cell, one
+    checkpoint every CKPT_EVERY rounds into a temporary directory). For
+    each path of RESUME_PATHS: one uninterrupted run, then per scripted
+    fault a run that crashes there and a FRESH server resumed from the
+    checkpoint root (no faults) run to round SMOKE_ROUNDS; each resumed
+    run must equal the uninterrupted one (discrete state, metrics,
+    ``comm_bytes``, params max err 0.0; ``semisync_stats`` too; under
+    churn the present ids and ``next_id``). ``run_path`` and
+    ``crash_path(name, server, spec)`` run one counted path (the latter
+    expects the crash and fails without it); ``clock`` is the installed
+    :class:`CheckpointClock`. Last, the uninterrupted FedCD run's final
+    state, saved on the card, restores into a CPU server. Returns the
+    per-path numbers it printed."""
+    import dataclasses as dc
+    import tempfile
+
+    from repro_torch.checkpoint import latest_checkpoint, verify_checkpoint
+    from repro_torch.checkpoint.state import ARRAYS, MANIFEST
+    from repro_torch.core.fedcd import FedCDServer
+    from repro_torch.core.spec import EngineSpec
+    from repro_torch.data.scenarios import FaultEvent, FaultSchedule
+
+    cfg, params, data, loss_fn, acc_fn = cnn_cell()
+    sched = churn_schedule(data)
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        cpu_ckpt = None
+        for name, server, spec_name, faults in RESUME_PATHS:
+            base = (dc.replace(EngineSpec.parse("fused+pipeline"),
+                               scenario=sched)
+                    if spec_name == "churn" else EngineSpec.parse(spec_name))
+            ref, ref_walls = run_path(f"{name} uninterrupted", server, base)
+            if server == "fedcd" and cpu_ckpt is None:
+                cpu_ckpt = (ref, ref.save(os.path.join(tmp, "final")),
+                            clock.take()[0][0])
+            for t, phase in faults:
+                root = os.path.join(tmp, f"{server}-{spec_name}-{phase}")
+                faulted = dc.replace(
+                    base, save_every=CKPT_EVERY, checkpoint_dir=root,
+                    faults=FaultSchedule((FaultEvent(t, phase),)))
+                tag = f"{name} crash {phase}@{t}"
+                crash_path(tag, server, faulted)
+                saves, _ = clock.take()
+                steps = sorted(d for d in os.listdir(root)
+                               if d.startswith("step_"))
+                sizes = {d: os.path.getsize(os.path.join(root, d, ARRAYS))
+                         for d in steps}
+                latest = latest_checkpoint(root)
+                if phase == "mid-save":
+                    torn = os.path.join(root, f"step_{t:06d}")
+                    if not (os.path.exists(os.path.join(torn, ARRAYS))
+                            and not os.path.exists(
+                                os.path.join(torn, MANIFEST))
+                            and latest.endswith(
+                                f"step_{t - CKPT_EVERY:06d}")):
+                        fail(f"{tag}: the torn step was not skipped "
+                             f"(latest={latest})")
+                res, walls = run_path(f"{name} resume {phase}@{t}", server,
+                                      dc.replace(base, resume_from=root))
+                _, restores = clock.take()
+                err = trajectory_err(ref, res, f"{tag} resumed")
+                first = SMOKE_ROUNDS - len(walls) + 1
+                checks = []
+                if ref.semisync_stats is not None:
+                    same = (res.semisync_stats.as_dict()
+                            == ref.semisync_stats.as_dict())
+                    checks.append(f"semisync_stats equal={same}")
+                    if not same:
+                        fail(f"{tag}: semisync_stats differ after resume")
+                if spec_name == "churn":
+                    same = (res.databank.present_ids()
+                            == ref.databank.present_ids()
+                            and res.databank.next_id == ref.databank.next_id)
+                    checks.append(f"present ids and next_id equal={same}")
+                    if not same:
+                        fail(f"{tag}: the population differs after resume")
+                line = {
+                    "resumed_from": os.path.basename(latest),
+                    "arrays_npz_bytes": sizes,
+                    "save_s": [round(s, 4) for _, s in saves],
+                    "save_drain_s": [round(d, 4) for d, _ in saves],
+                    "restore_s": [round(s, 4) for _, s in restores],
+                    "resumed_round": first,
+                    "resumed_round_wall_s": round(walls[0], 4),
+                    "uninterrupted_round_wall_s": round(
+                        ref_walls[first - 1], 4),
+                    "params_max_abs_err": err}
+                print(f"[resume {tag}] discrete state equal " + " ".join(
+                    checks) + " " + json.dumps(line), flush=True)
+                report[tag] = line
+                if err != 0.0:
+                    fail(f"{tag}: resumed params differ from the "
+                         f"uninterrupted run by {err}")
+        # card -> CPU: the final state of the uninterrupted FedCD run
+        card, path, (_, save_s) = cpu_ckpt
+        verify_checkpoint(path)
+        host = FedCDServer(cfg, params, loss_fn, acc_fn, data, batch_size=32,
+                           spec="fused", device="cpu")
+        t0 = time.perf_counter()
+        host.restore(path)
+        took = time.perf_counter() - t0
+        err = trajectory_err(card, host, "card checkpoint on the CPU")
+        print(f"[resume card->cpu] verify_checkpoint passed, discrete state "
+              f"equal, params max_abs_err={err}, save_s={save_s:.4f} (on "
+              f"{device}, round {SMOKE_ROUNDS}) restore_s={took:.4f} (cpu) "
+              f"arrays_npz_bytes={os.path.getsize(os.path.join(path, ARRAYS))}",
+              flush=True)
+        if err != 0.0 or any(v.device.type != "cpu" for m in
+                             host.registry.live_ids()
+                             for v in host.registry.params[m].values()):
+            fail("card checkpoint on the CPU: params differ or not on the "
+                 "CPU")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1288,16 +1473,16 @@ def main() -> int:
     if consumed and not probe.overlapped:
         fail("overlap: every readback waited for the speculative training")
 
-    # phases 10-11 run under the no-sync probe; every path has its own
+    # phases 10-12 run under the no-sync probe; every path has its own
     # launch counts. They hold runs to each other bit for bit, and the
     # CNN's training is not run-to-run deterministic on cuDNN's default
     # convolution algorithms (phase 5 and phase 8 read different round-1
     # accuracies on one seed), so cuDNN takes deterministic ones here
     torch.backends.cudnn.deterministic = True
-    print(f"[determinism] phases 10-11: torch.backends.cudnn.deterministic="
+    print(f"[determinism] phases 10-12: torch.backends.cudnn.deterministic="
           f"{torch.backends.cudnn.deterministic}")
     nosync = NoSyncProbe()
-    later = {}                       # path -> launch counts, phases 10-11
+    later = {}                       # path -> launch counts, phases 10-12
 
     def run_path(name, server, spec, rounds=SMOKE_ROUNDS, watch=None):
         (srv, walls, drain), counts = drive(
@@ -1305,7 +1490,8 @@ def main() -> int:
         later[name] = counts
         transport = (f" roundtrip calls={roundtrips.calls}"
                      if server == "fedcd" else "")
-        print(f"[{name}] mean wall_s rounds 2-{rounds}="
+        first = rounds - len(walls) + 1        # after a resume, not 1
+        print(f"[{name}] mean wall_s rounds {first + 1}-{rounds}="
               f"{np.mean(walls[1:]):.4f} total_s={sum(walls):.4f} "
               f"drain_s={drain:.4f} walls={[round(w, 4) for w in walls]}"
               f" launches={counts}{transport}", flush=True)
@@ -1317,10 +1503,32 @@ def main() -> int:
             fail(f"{name}: FedAvg made transport launches")
         return srv, walls
 
+    def crash_path(name, server, spec):
+        """A counted run that must end in the spec's scripted crash."""
+        from repro_torch.data.scenarios import SimulatedCrash
+
+        def path():
+            try:
+                run_cell(device, name, server, spec)
+            except SimulatedCrash as crash:
+                return crash
+            return None
+        crash, counts = drive(path)
+        later[name] = counts
+        print(f"[{name}] {crash} launches={counts}", flush=True)
+        if crash is None:
+            fail(f"{name}: the scripted crash did not fire")
+
+    clock = None
     try:
         semisync_phase(run_path, nosync)
         churn_phase(run_path, nosync)
+        # phase 12: crash and resume at full width
+        clock = CheckpointClock()
+        resume_phase(run_path, crash_path, clock, device)
     finally:
+        if clock is not None:
+            clock.remove()
         nosync.remove()
         torch.backends.cudnn.deterministic = False
 

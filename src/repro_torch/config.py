@@ -1,10 +1,12 @@
 """FedCD algorithm hyperparameters (port of ``repro/config.py``,
-``FedCDConfig`` only — the LM architecture configs come with the mode-B
-slice)."""
+``FedCDConfig`` and the serialisation helpers — the LM architecture
+configs come with the mode-B slice)."""
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 
 @dataclass(frozen=True)
@@ -24,3 +26,29 @@ class FedCDConfig:
     lr: float = 0.05
     momentum: float = 0.0
     seed: int = 0
+
+
+def to_dict(cfg: Any) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
+def to_json(cfg: Any) -> str:
+    return json.dumps(to_dict(cfg), indent=2)
+
+
+def override(cfg: Any, **kw: Any) -> Any:
+    """Replace fields, supporting dotted paths for nested dataclasses.
+
+    >>> override(cfg, **{"lr": 0.01, "milestones": (2, 5)})
+    """
+    nested: Dict[str, Dict[str, Any]] = {}
+    flat: Dict[str, Any] = {}
+    for k, v in kw.items():
+        if "." in k:
+            head, rest = k.split(".", 1)
+            nested.setdefault(head, {})[rest] = v
+        else:
+            flat[k] = v
+    for head, sub in nested.items():
+        flat[head] = override(getattr(cfg, head), **sub)
+    return dataclasses.replace(cfg, **flat)

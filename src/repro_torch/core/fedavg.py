@@ -12,6 +12,7 @@ readback. ``+semisync`` makes rounds semi-synchronous through the same
 coordinator as FedCD's planner (one model, id 0). It draws the same
 sampling stream as FedCDServer, in the same order with or without the
 pipeline, so FedCD-vs-FedAvg comparisons see identical cohorts.
+Checkpoints, resume and scripted crashes work as in FedCDServer.
 """
 from __future__ import annotations
 
@@ -22,6 +23,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import CheckpointError
+from repro_torch.checkpoint.state import (CheckpointManager,
+                                          latest_checkpoint,
+                                          restore_server_state,
+                                          save_server_state)
 from repro_torch.config import FedCDConfig
 from repro_torch.core.fedcd import to_device
 from repro_torch.core.plan import RoundPlan, SemiSyncCoordinator
@@ -52,11 +58,12 @@ class FedAvgServer:
                  device: Optional[Union[str, torch.device]] = None):
         """``spec``: an :class:`~repro_torch.core.spec.EngineSpec` or
         preset string — ``"fused"`` (optionally ``+pipeline`` and/or
-        ``+semisync``), ``"batched"`` or ``"legacy"``. ``engine="llm"``
-        and the FedCD-only capabilities (``scenario``, ``sparse_eval``,
+        ``+semisync``), ``"batched"`` or ``"legacy"``, each with the
+        checkpoint fields. ``engine="llm"`` and the FedCD-only
+        capabilities (``scenario``, ``sparse_eval``,
         ``migrate_threshold``, ``use_agg_kernel``) raise ``ValueError``
-        as in the reference; fields the port does not run yet raise
-        ``NotImplementedError``. ``engine=``/``mesh=``/``pipeline=``/
+        as in the reference; the sharded planes, which the port does not
+        run yet, raise ``NotImplementedError``. ``engine=``/``mesh=``/``pipeline=``/
         ``straggler=`` are the deprecated spellings.
 
         ``device=None`` means ``"cuda"``; without a GPU this raises —
@@ -105,6 +112,19 @@ class FedAvgServer:
                                 for v in params.values())
         self._prefetch: Optional[Tuple[int, Tuple[np.ndarray,
                                                   np.ndarray]]] = None
+        # elastic checkpoint/resume + fault injection
+        self._faults = spec.faults
+        self._ckpt = (CheckpointManager(spec.checkpoint_dir,
+                                        spec.save_every,
+                                        faults=spec.faults)
+                      if spec.checkpoint_dir else None)
+        if spec.resume_from:
+            path = latest_checkpoint(spec.resume_from)
+            if path is None:
+                raise CheckpointError(
+                    f"resume_from={spec.resume_from!r}: no valid "
+                    "checkpoint found (torn/corrupt steps are skipped)")
+            restore_server_state(self, path)
 
     @property
     def pipeline_stats(self):
@@ -145,6 +165,23 @@ class FedAvgServer:
             self.data["train"][0].shape[1], self.batch_size,
             self.cfg.local_epochs)
 
+    # -- elastic checkpoint/resume -----------------------------------------
+    def _fault(self, t: int, phase: str) -> None:
+        if self._faults is not None:
+            self._faults.check(t, phase)
+
+    def save(self, path: str) -> str:
+        """Snapshot the complete logical round state (between rounds)."""
+        return save_server_state(self, path)
+
+    def restore(self, path: str) -> int:
+        """Restore from a checkpoint directory (or root — resolves to its
+        latest valid step); returns the last completed round."""
+        resolved = latest_checkpoint(path)
+        if resolved is None:
+            raise CheckpointError(f"no valid checkpoint under {path!r}")
+        return restore_server_state(self, resolved)
+
     def run_round(self, t: int) -> FedAvgRound:
         t0 = time.time()
         if self._prefetch is not None and self._prefetch[0] == t:
@@ -155,21 +192,27 @@ class FedAvgServer:
         plan = self._plan(t, participating, perms)
         if self.semisync is not None:
             self.semisync.resolve(plan, live=[0])
+        self._fault(t, "post-plan")
         self.executor.launch(plan)
         if self.pipeline:
             # FedAvg's next round depends on nothing this round computes:
             # prefetch the sample and enqueue its training now
             self._prefetch = (t + 1, self._draw_sample())
             self.executor.speculate(self._plan(t + 1, *self._prefetch[1]))
+        self._fault(t, "mid-dispatch")
         result = self.executor.readback()
         m = FedAvgRound(
             round=t, test_acc=result.test_acc, val_acc=result.val_acc,
             comm_bytes=2 * int(participating.sum()) * self._model_bytes,
             wall_s=time.time() - t0)
         self.metrics.append(m)
+        self._fault(t, "post-readback")
+        if self._ckpt is not None:
+            self._ckpt.maybe_save(self, t)
         return m
 
     def run(self, rounds: int, log_every: int = 0) -> List[FedAvgRound]:
+        # a resumed server continues from the round after its checkpoint
         for t in range(len(self.metrics) + 1, rounds + 1):
             m = self.run_round(t)
             if log_every and t % log_every == 0:

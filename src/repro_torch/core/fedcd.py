@@ -29,6 +29,14 @@ folded back in, discounted, rounds later. ``scenario=`` (a
 :class:`~repro_torch.data.scenarios.ChurnSchedule`) lets devices join,
 leave and drift at round starts.
 
+Elastic checkpoint/resume on every engine: ``save_every`` +
+``checkpoint_dir`` snapshot the complete round state every few rounds,
+``resume_from`` (a checkpoint, or a root resolving to its newest valid
+step) restores it at construction, and ``faults`` (a
+:class:`~repro_torch.data.scenarios.FaultSchedule`) scripts crashes at
+round phases. ``save(path)`` and ``restore(path)`` do the same by hand.
+Checkpoints are the reference's format (``repro_torch.checkpoint``).
+
 Host RNG streams match the reference's on every engine: ``rng`` drives
 round sampling, ``life_rng`` the clone-score noise, the schedule's own
 stream the data of joining and drifting devices.
@@ -42,6 +50,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import CheckpointError
+from repro_torch.checkpoint.state import (CheckpointManager,
+                                          latest_checkpoint,
+                                          restore_server_state,
+                                          save_server_state)
 from repro_torch.config import FedCDConfig
 from repro_torch.core import quantize as qz
 from repro_torch.core.lifecycle import apply_deletions, clone_at_milestone
@@ -104,10 +117,11 @@ class FedCDServer:
         string (``"fused"``, ``"batched"``, ``"legacy"``, each optionally
         ``+kernel``; ``fused`` also with ``+pipeline``, ``+semisync``
         and/or ``+sparse:<x>``, and an ``EngineSpec`` with a
-        ``scenario``). The other engine kwargs are the reference's
-        deprecated spellings and translate through ``resolve_spec``.
-        Invalid combinations (and ``engine="llm"``, the LM plane) raise
-        ``ValueError`` and fields the port does not run yet
+        ``scenario``; the checkpoint fields on every engine). The other
+        engine kwargs are the reference's deprecated spellings and
+        translate through ``resolve_spec``. Invalid combinations (and
+        ``engine="llm"``, the LM plane) raise ``ValueError`` and fields
+        the port does not run yet (the sharded planes)
         ``NotImplementedError``, here at construction.
 
         ``device=None`` means ``"cuda"``; without a GPU this raises —
@@ -176,6 +190,19 @@ class FedCDServer:
             if cfg.quantize_bits else self._model_bytes)
         self._prefetch: Optional[Tuple[int, Tuple[np.ndarray,
                                                   np.ndarray]]] = None
+        # elastic checkpoint/resume + fault injection
+        self._faults = spec.faults
+        self._ckpt = (CheckpointManager(spec.checkpoint_dir,
+                                        spec.save_every,
+                                        faults=spec.faults)
+                      if spec.checkpoint_dir else None)
+        if spec.resume_from:
+            path = latest_checkpoint(spec.resume_from)
+            if path is None:
+                raise CheckpointError(
+                    f"resume_from={spec.resume_from!r}: no valid "
+                    "checkpoint found (torn/corrupt steps are skipped)")
+            restore_server_state(self, path)
 
     def _make_executor(self, loss_fn: Callable, acc_fn: Callable):
         if self.engine == "fused":
@@ -279,6 +306,26 @@ class FedCDServer:
         self.executor.on_churn(joined, left, drifted)
         return joined, left
 
+    # -- elastic checkpoint/resume -----------------------------------------
+    def _fault(self, t: int, phase: str) -> None:
+        """Fault-injection hook: raise SimulatedCrash when the spec's
+        FaultSchedule scripts a crash at (round, phase)."""
+        if self._faults is not None:
+            self._faults.check(t, phase)
+
+    def save(self, path: str) -> str:
+        """Snapshot the complete logical round state (between rounds)."""
+        return save_server_state(self, path)
+
+    def restore(self, path: str) -> int:
+        """Restore from a checkpoint directory (or a checkpoint root,
+        resolving to its latest valid step). Returns the last completed
+        round; ``run`` continues from the next one."""
+        resolved = latest_checkpoint(path)
+        if resolved is None:
+            raise CheckpointError(f"no valid checkpoint under {path!r}")
+        return restore_server_state(self, resolved)
+
     # -- Algorithm 1 -------------------------------------------------------
     def run_round(self, t: int) -> RoundMetrics:
         t0 = time.time()
@@ -292,6 +339,7 @@ class FedCDServer:
                                   self.executor.plan_hints(),
                                   churn=(joined, left),
                                   churn_next=churn_next)
+        self._fault(t, "post-plan")
         self.executor.launch(plan)
         # overlap: draw round t+1's sample while the device works
         self._prefetch = (t + 1,
@@ -302,6 +350,7 @@ class FedCDServer:
             spec = self.planner.build_speculative(
                 t + 1, self._prefetch[1], self.state, self.registry)
             self.executor.speculate(spec)
+        self._fault(t, "mid-dispatch")
         result = self.executor.readback()
 
         transfers = plan.transfers
@@ -318,6 +367,9 @@ class FedCDServer:
 
         metrics = self._collect(t, transfers, time.time() - t0)
         self.metrics.append(metrics)
+        self._fault(t, "post-readback")
+        if self._ckpt is not None:
+            self._ckpt.maybe_save(self, t)
         return metrics
 
     # -- metrics -----------------------------------------------------------
@@ -338,6 +390,7 @@ class FedCDServer:
             wall_s=wall, preferred=preferred)
 
     def run(self, rounds: int, log_every: int = 0) -> List[RoundMetrics]:
+        # a resumed server continues from the round after its checkpoint
         for t in range(len(self.metrics) + 1, rounds + 1):
             m = self.run_round(t)
             if log_every and t % log_every == 0:

@@ -22,16 +22,18 @@ pipelined dispatch (``+pipeline``), holder-only validation scoring
 attaches a default :class:`~repro_torch.data.scenarios.StragglerModel`;
 construct the spec directly to tune it) and, for FedCD, device churn
 (``scenario=``, a :class:`~repro_torch.data.scenarios.ChurnSchedule`).
+On every meshless engine, elastic checkpoint/resume (``save_every``,
+``checkpoint_dir``, ``resume_from``) and scripted crashes (``faults``, a
+:class:`~repro_torch.data.scenarios.FaultSchedule`).
 ``+kernel`` is accepted and changes nothing: on CUDA tensors the port's
 hand-written kernels are always the aggregation path, and their plain
 versions serve CPU tensors only. ``engine="llm"`` parses as in the
 reference, and the servers refuse it with the reference's
-``ValueError`` (it is the LM trainer's spec). Every other field parses
-and validates as in the reference and is then rejected by the servers at
-construction (``reject_unported``): the sharded planes and row
-migration, checkpoints and fault injection. An injected ``mesh`` cannot
-even be built yet: it raises ``NotImplementedError`` naming its ROADMAP
-item.
+``ValueError`` (it is the LM trainer's spec). The sharded planes and row
+migration parse and validate as in the reference and are then rejected
+by the servers at construction (``reject_unported``). An injected
+``mesh`` cannot even be built yet: it raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -261,11 +263,6 @@ def reject_unported(spec: EngineSpec, owner: str) -> None:
     checks = [
         ("mesh sharding", spec.sharded or spec.mesh is not None, MESH_ITEM),
         ("migrate_threshold", spec.migrate_threshold is not None, MESH_ITEM),
-        ("save_every/checkpoint_dir/resume_from",
-         bool(spec.save_every or spec.checkpoint_dir or spec.resume_from),
-         "ROADMAP Queue 1 item 10 (checkpoints)"),
-        ("faults", spec.faults is not None,
-         "ROADMAP Queue 1 item 10 (checkpoints, fault injection)"),
     ]
     for name, on, item in checks:
         if on:

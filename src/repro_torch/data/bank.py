@@ -12,17 +12,18 @@ row and a later join may write over it (``n_cap`` bounds *concurrent*
 devices, ``id_cap`` the ids ever claimed). Without churn the map is the
 identity, the layout of ``partition.stack_devices``.
 
-``version`` counts row WRITES (joins, label-drift rewrites): the
-pipelined executors record it when they speculate a next-round training
-and invalidate the speculation when the data under it was rewritten
-(leaves need no bump — a departed device's pairs drop out of the true
-plan and repair zero-weights them). Row writes reach the card through
-pinned memory (``simulation.to_device``), so they never wait for work
-already on the stream.
+``version`` counts row WRITES (joins, label-drift rewrites, a
+checkpoint's :meth:`restore`): the pipelined executors record it when
+they speculate a next-round training and invalidate the speculation when
+the data under it was rewritten (leaves need no bump — a departed
+device's pairs drop out of the true plan and repair zero-weights them).
+Row writes reach the card through pinned memory
+(``simulation.to_device``), so they never wait for work already on the
+stream.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +46,10 @@ def _stack(a: np.ndarray, dtype: type, cap: int,
 
 
 class DeviceDataBank:
+    #: one data shard (the reference's layout fields, which checkpoints
+    #: record: a checkpoint of another layout restores by re-placement)
+    n_shards = 1
+
     def __init__(self, data: Dict[str, Tuple[np.ndarray, np.ndarray]],
                  device: torch.device, n_cap: Optional[int] = None,
                  id_cap: Optional[int] = None):
@@ -59,6 +64,7 @@ class DeviceDataBank:
         if cap < n0:
             raise ValueError(f"n_cap={n_cap} < {n0} initial devices")
         self.n_cap = cap
+        self.rows_per_shard = cap
         self.id_cap = id_cap if id_cap is not None else cap
         if self.id_cap < n0:
             raise ValueError(f"id_cap={id_cap} < {n0} initial devices")
@@ -117,14 +123,19 @@ class DeviceDataBank:
                 raise ValueError(f"{k} split shape {x.shape} != bank row "
                                  f"{tuple(xs.shape[1:])}")
 
-    def _write_row(self, r: int, device: DeviceData) -> None:
+    def _copy_row(self, r: int,
+                  splits: Mapping[str, Tuple[np.ndarray, np.ndarray]]
+                  ) -> None:
         """Overwrite row ``r`` of every split in place, each array staged
         through pinned memory and copied without blocking the host."""
         for k in SPLITS:
             xs, ys = self.splits[k]
-            x, y = getattr(device, k)
+            x, y = splits[k]
             xs[r].copy_(to_device(x, np.float32, self.device))
             ys[r].copy_(to_device(y, np.int64, self.device))
+
+    def _write_row(self, r: int, device: DeviceData) -> None:
+        self._copy_row(r, {k: getattr(device, k) for k in SPLITS})
         self.version += 1
 
     def add(self, device: DeviceData) -> int:
@@ -162,3 +173,31 @@ class DeviceDataBank:
         if device_id not in self._present:
             raise KeyError(device_id)
         self._present.discard(device_id)
+
+    # -- elastic restore ----------------------------------------------------
+    def restore(self, devices: Dict[int, Dict[str, Tuple[np.ndarray,
+                                                         np.ndarray]]],
+                next_id: int, row_of: Optional[Dict[int, int]] = None
+                ) -> None:
+        """Adopt a checkpoint's id-keyed device splits. With ``row_of`` (a
+        checkpoint of this one-shard layout) placement restores verbatim;
+        otherwise each id, in sorted order, takes the lowest free row as a
+        join does. Each named row is written in place into the existing
+        split tensors through pinned memory; rows not named keep their
+        (unreachable) content. ``version`` moves on once."""
+        self._present = set()
+        self.row_of = dict(row_of) if row_of is not None else {}
+        self._next_id = next_id
+        for d in sorted(devices):
+            r = self.row_of.get(d)
+            if r is None:
+                r = self._alloc_row()      # counts already-placed rows
+                self.row_of[d] = r
+            if not 0 <= r < self.n_cap:
+                raise IndexError(f"row {r} of device {d} beyond "
+                                 f"n_cap={self.n_cap}")
+            self._present.add(d)
+            self._copy_row(r, devices[d])
+        self._row_owner = {r: d for d, r in self.row_of.items()
+                           if d in self._present}
+        self.version += 1

@@ -20,6 +20,9 @@ pipelined executors' speculation guards rely on that.
 A :class:`StragglerModel` makes rounds semi-synchronous: per-device
 virtual latencies decide which pairs make the round's quorum deadline,
 drawn per round from a stream keyed on (seed, round) alone.
+
+A :class:`FaultSchedule` scripts process crashes at named phases of a
+round, for the elastic checkpoint/resume harness.
 """
 from __future__ import annotations
 
@@ -218,6 +221,58 @@ class StragglerModel:
             if d < id_cap:
                 dropped[d] = True
         return lat, dropped
+
+
+#: the scripted crash points a :class:`FaultSchedule` may name, in
+#: round order: after the plan is built, after dispatch (work in
+#: flight, nothing read back), after readback + lifecycle (the round's
+#: state is complete but unsaved), and inside the checkpoint writer
+#: between the array commit and the manifest commit (a torn save).
+FAULT_PHASES = ("post-plan", "mid-dispatch", "post-readback", "mid-save")
+
+
+class SimulatedCrash(RuntimeError):
+    """A scripted process crash (fault-injection harness). Raised
+    mid-round by the server's phase hooks — everything the process held
+    (device buffers, in-flight work, host state) is presumed lost;
+    recovery is construct-anew + ``resume_from``."""
+
+
+@dataclass(frozen=True)
+class FaultEvent:
+    """Crash the process at round ``round``, phase ``phase``."""
+    round: int
+    phase: str
+
+    def __post_init__(self):
+        if self.phase not in FAULT_PHASES:
+            raise ValueError(
+                f"unknown fault phase {self.phase!r} "
+                f"(want one of {FAULT_PHASES})")
+
+
+@dataclass
+class FaultSchedule:
+    """Scripted process crashes for the elastic-resume harness. The
+    servers call :meth:`check` at each phase boundary of every round; a
+    scheduled event raises :class:`SimulatedCrash` there. The schedule is
+    stateless — a resumed run that re-executes the crash round must be
+    constructed WITHOUT it (a real restarted process would not
+    re-crash)."""
+    events: Tuple[FaultEvent, ...] = ()
+    _at: set = field(default_factory=set, repr=False)
+
+    def __post_init__(self):
+        for e in self.events:
+            self._at.add((e.round, e.phase))
+
+    def fires(self, t: int, phase: str) -> bool:
+        return (t, phase) in self._at
+
+    def check(self, t: int, phase: str) -> None:
+        if self.fires(t, phase):
+            raise SimulatedCrash(
+                f"scripted crash at round {t} ({phase})")
 
 
 def random_churn(rounds: int, n_initial: int, seed: int = 0,

@@ -12,6 +12,7 @@ A :class:`RoundExecutor` turns one host-built
                      speculative plan (pipelined executors only)
     readback()    -> wait for the eval matrices, return RoundResult
     collect(pref) -> the round's preferred-model test/val accuracies
+    quiesce()     -> the checkpoint barrier: drop in-flight speculation
 
 **Pipelined execution** (``pipeline=True`` on the fused executors):
 training is a pure read of the parameter bank (``make_pair_train``), so
@@ -238,6 +239,12 @@ class RoundExecutor:
 
     def on_clones(self, cloned: List[Tuple[int, int]]) -> None:
         pass
+
+    def quiesce(self) -> None:
+        """Snapshot barrier: drop any in-flight speculation so that a
+        checkpoint reads settled state. Safe because speculative batches
+        are repairable — the next launch simply trains synchronously.
+        No-op for the synchronous engines."""
 
     def collect(self, preferred: np.ndarray
                 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -642,6 +649,13 @@ class FusedExecutor(RoundExecutor):
         if self._spec is not None:
             self._discard_spec(invalidated=False)
 
+    def quiesce(self) -> None:
+        """Snapshot barrier: discard the in-flight speculative batch (the
+        resumed round trains synchronously and computes identical
+        params). The reference also frees its graveyard and retired bank
+        trees here; the port keeps neither (class docstring)."""
+        self._drop_speculation()
+
     def _take_speculation(self, plan: RoundPlan
                           ) -> Optional[Tuple[Params, TrainMeta]]:
         """Consume the pending speculative train batch if it still covers
@@ -801,6 +815,9 @@ class FedAvgHostExecutor:
         self.params = {k: torch.as_tensor(v).to(device)
                        for k, v in value.items()}
 
+    def quiesce(self) -> None:
+        pass                             # snapshot barrier: synchronous
+
     def launch(self, plan: RoundPlan) -> None:
         xs, ys = self.databank.splits["train"]
         if self.batched:
@@ -869,6 +886,11 @@ class FedAvgFusedExecutor:
         for k, v in self._stacked.items():
             v[0].copy_(torch.as_tensor(value[k]))
         self._park_spec()                # the bank was rewritten
+
+    def quiesce(self) -> None:
+        """Snapshot barrier: drop any speculative round before the bank is
+        read."""
+        self._park_spec()
 
     def _park_spec(self) -> None:
         """Drop a pending speculation (no parking place is needed: see

@@ -713,3 +713,117 @@ def test_churn_row_write_is_read_by_the_next_train_dispatch_on_card(cuda):
         np.testing.assert_array_equal(xs, joined.train[0])
     for k, v in out["cpu"].items():
         np.testing.assert_allclose(out["cuda"][k], v, atol=1e-5, rtol=0)
+
+
+# -- checkpoint/resume on the card --------------------------------------------
+
+@pytest.mark.cuda
+def test_bank_restores_write_into_the_existing_tensors_on_card(cuda):
+    """``StackedParamBank.restore`` and ``DeviceDataBank.restore`` write
+    each row in place (same ``data_ptr``), through pinned memory, and move
+    ``version`` on; the rows read back exactly."""
+    from repro_torch.core.registry import ModelRegistry
+    from repro_torch.data.bank import DeviceDataBank
+    from repro_torch.data.partition import hierarchical_devices, stack_devices
+
+    reg = ModelRegistry.create({"w": torch.zeros(64, 32, device=cuda),
+                                "b": torch.zeros(32, device=cuda)},
+                               m_cap=4, stacked=True)
+    pb = reg.params
+    ptrs, v0 = {k: v.data_ptr() for k, v in pb.tree.items()}, pb.version
+    rng = np.random.default_rng(0)
+    rows = {m: {"w": rng.normal(size=(64, 32)).astype(np.float32),
+                "b": rng.normal(size=32).astype(np.float32)} for m in (0, 2)}
+    pb.restore(rows, row_of={0: 0, 1: 1, 2: 2}, used_rows={0, 1, 2})
+    assert {k: v.data_ptr() for k, v in pb.tree.items()} == ptrs
+    assert pb.version == v0 + 1 and pb._present == {0, 2}
+    for m, row in rows.items():
+        for k, a in row.items():
+            np.testing.assert_array_equal(pb[m][k].cpu().numpy(), a)
+
+    data = stack_devices(hierarchical_devices(
+        seed=0, devices_per_archetype=1, n_train=16, n_val=8, n_test=8))
+    bank = DeviceDataBank(data, cuda, n_cap=12, id_cap=14)
+    ptrs = [t.data_ptr() for pair in bank.splits.values() for t in pair]
+    v0 = bank.version
+    devices = {d: {k: (rng.normal(size=data[k][0].shape[1:]).astype(
+        np.float32), rng.integers(0, 10, data[k][1].shape[1]).astype(
+        np.int32)) for k in ("train", "val", "test")} for d in (3, 12)}
+    bank.restore(devices, next_id=13, row_of={3: 3, 12: 11})
+    assert [t.data_ptr() for pair in bank.splits.values()
+            for t in pair] == ptrs
+    assert bank.version == v0 + 1 and bank.present_ids() == [3, 12]
+    for d, r in ((3, 3), (12, 11)):
+        for k, (x, y) in devices[d].items():
+            np.testing.assert_array_equal(bank.splits[k][0][r].cpu().numpy(),
+                                          x)
+            np.testing.assert_array_equal(bank.splits[k][1][r].cpu().numpy(),
+                                          y)
+
+
+@pytest.mark.cuda
+def test_stale_updates_restore_bit_for_bit_on_card(cuda, tmp_path):
+    """A semi-sync run's buffered straggler rows (on the card) go to the
+    checkpoint and come back to the card bit for bit; the resumed run
+    equals the uninterrupted one."""
+    from repro_torch.core.spec import EngineSpec
+    from repro_torch.data.scenarios import StragglerModel
+
+    straggler = StragglerModel(distribution="lognormal", sigma=2.0,
+                               quorum=0.6, dropout_rate=0.05, seed=0)
+    root = str(tmp_path / "ck")
+    runs = _mlp_servers(cuda, {
+        "full": EngineSpec(straggler=straggler),
+        "saver": EngineSpec(straggler=straggler, save_every=4,
+                            checkpoint_dir=root)}, rounds=0)
+    runs["full"].run(8)
+    saver = runs["saver"]
+    saver.run(4)
+    assert saver.executor._stale_updates
+    res = _mlp_servers(cuda, {"res": EngineSpec(straggler=straggler,
+                                                resume_from=root)},
+                       rounds=0)["res"]
+    ex, ex0 = res.executor, saver.executor
+    assert sorted(ex._stale_updates) == sorted(ex0._stale_updates)
+    for key, tree in ex0._stale_updates.items():
+        for k, v in tree.items():
+            got = ex._stale_updates[key][k]
+            assert got.device.type == "cuda" and torch.equal(got, v), key
+    res.run(8)
+    full = runs["full"]
+    assert res.semisync_stats.as_dict() == full.semisync_stats.as_dict()
+    np.testing.assert_array_equal(res.state.history, full.state.history)
+    for m in full.registry.live_ids():
+        for k, v in full.registry.params[m].items():
+            assert torch.equal(res.registry.params[m][k], v), (m, k)
+
+
+@pytest.mark.cuda
+def test_card_checkpoint_resumes_on_cpu(cuda, tmp_path):
+    """A checkpoint written by a card run restores into a CPU server: the
+    restored state equals the card's exactly, and the CPU run continues
+    as the card run does (discrete state equal, params to 1e-5)."""
+    from repro_torch.checkpoint import verify_checkpoint
+
+    root = str(tmp_path / "ck")
+    card = _mlp_servers(cuda, {"card": "fused"}, rounds=4)["card"]
+    path = card.save(root)
+    manifest, _ = verify_checkpoint(path)
+    assert manifest["round"] == 4
+    cpu = _mlp_servers(torch.device("cpu"), ["fused"], rounds=0)["fused"]
+    assert cpu.restore(path) == 4
+    assert cpu.registry.live_ids() == card.registry.live_ids()
+    np.testing.assert_array_equal(cpu.state.history, card.state.history)
+    for m in card.registry.live_ids():
+        for k, v in card.registry.params[m].items():
+            assert torch.equal(cpu.registry.params[m][k], v.cpu()), (m, k)
+    card.run(6)
+    cpu.run(6)
+    assert cpu.registry.live_ids() == card.registry.live_ids()
+    np.testing.assert_array_equal(cpu.state.active, card.state.active)
+    for a, b in zip(card.metrics, cpu.metrics):
+        np.testing.assert_array_equal(a.preferred, b.preferred)
+    for m in card.registry.live_ids():
+        for k, v in card.registry.params[m].items():
+            np.testing.assert_allclose(cpu.registry.params[m][k],
+                                       v.cpu(), atol=1e-5, rtol=0)

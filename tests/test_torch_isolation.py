@@ -45,11 +45,15 @@ def test_port_files_found():
     assert (ROOT / "src" / "repro_torch" / "csrc" / "quantize.cu").exists()
     # the port's own copy of the numpy-only scenario module
     assert ROOT / "src" / "repro_torch" / "data" / "scenarios.py" in PORT_FILES
+    # and of the checkpoint package, whose format it shares
+    for name in ("__init__.py", "io.py", "state.py"):
+        assert ROOT / "src" / "repro_torch" / "checkpoint" / name in PORT_FILES
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.core.fedcd, repro_torch.core.fedavg, "
-            "repro_torch.data.scenarios, repro_torch.kernels.build; "
+            "repro_torch.data.scenarios, repro_torch.kernels.build, "
+            "repro_torch.checkpoint; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")

@@ -3,27 +3,34 @@ grammar, the same canonical strings, the same ``ValueError``s (the
 servers refuse ``engine="llm"`` with the reference's), the reference's
 default straggler model behind ``+semisync``, and
 ``NotImplementedError`` — at construction, naming its ROADMAP item — for
-every field whose slice has not landed (a launch mesh, checkpoints and
-fault injection). Semi-synchronous and churn specs construct and run.
+every field whose slice has not landed (a launch mesh). Semi-synchronous
+and churn specs construct and run; the checkpoint fields and ``faults``
+construct and act as in the reference (paths under ``tmp_path``).
 
 Cases are those of ``tests/test_spec.py`` (presets, bad presets, invalid
 combinations), each run through both packages.
 """
 import dataclasses
+import os
 import warnings
 
+import jax
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.core.fedcd import FedCDServer as JFedCD  # noqa: E402
 from repro.core.spec import EngineSpec as JSpec  # noqa: E402
 from repro.data.scenarios import StragglerModel as JStraggler  # noqa: E402
+from repro.models import mlp as jmlp  # noqa: E402
+from repro_torch.checkpoint import CheckpointError  # noqa: E402
 from repro_torch.core.fedavg import FedAvgServer as TFedAvg  # noqa: E402
 from repro_torch.core.fedcd import FedCDServer as TFedCD  # noqa: E402
 from repro_torch.core.spec import EngineSpec, resolve_spec  # noqa: E402
 from repro_torch.data.scenarios import (  # noqa: E402
-    ChurnSchedule, DeviceJoin, DeviceLeave, StragglerModel)
+    ChurnSchedule, DeviceJoin, DeviceLeave, FaultEvent, FaultSchedule,
+    StragglerModel)
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from test_torch_slice import _small_setup, _tcfg  # noqa: E402
 
@@ -212,19 +219,10 @@ def test_deprecated_kwargs_build_the_equivalent_spec():
     (dict(spec="sharded@2"), NotImplementedError, "item 12"),
     (dict(spec="sharded@2x2+pipeline"), NotImplementedError, "item 12"),
     (dict(spec="sharded@2+migrate:1.5"), NotImplementedError, "item 12"),
-    # semi-sync and churn are ported: what stops these specs is the field
-    # of a later item beside them
-    (dict(spec=EngineSpec(straggler=StragglerModel(),
-                          checkpoint_dir="ckpt")), NotImplementedError,
-     "item 10"),
+    # churn is ported: what stops this spec is the field of a later item
+    # beside it
     (dict(spec=EngineSpec(scenario=ChurnSchedule(), model_shards=2)),
      NotImplementedError, "item 12"),
-    (dict(spec=EngineSpec(checkpoint_dir="ckpt", save_every=2)),
-     NotImplementedError, "item 10"),
-    (dict(spec=EngineSpec(resume_from="ckpt")), NotImplementedError,
-     "item 10"),
-    (dict(spec=EngineSpec(faults=STAND_IN)), NotImplementedError,
-     "item 10"),
     # the LM plane is another trainer's spec: the reference's ValueError
     (dict(spec="llm"), ValueError, "mode-B LM plane"),
     (dict(mesh=object()), NotImplementedError, "item 12"),
@@ -240,9 +238,6 @@ def test_fedcd_rejects_unported_fields_at_construction(kw, exc, match):
 
 @pytest.mark.parametrize("spec,exc", [
     ("sharded@2", NotImplementedError),
-    (EngineSpec(straggler=StragglerModel(), faults=STAND_IN),
-     NotImplementedError),
-    (EngineSpec(checkpoint_dir="ckpt"), NotImplementedError),
     ("llm", ValueError),                 # as in the reference
     # FedCD-only capabilities: ValueError, as in the reference
     ("fused+sparse:0.5", ValueError),
@@ -286,3 +281,62 @@ def test_servers_run_semisync_and_churn_specs(server, spec):
         assert srv.semisync_stats is None
         assert not srv.present[0] and srv.present[cfg.n_devices]
         assert srv.executor.databank.row_of[cfg.n_devices] == 0
+
+
+# -- the checkpoint fields (item 10): live, as in the reference ------------
+
+def _server(server, spec):
+    cfg, data = _small_setup()
+    cls = TFedCD if server == "fedcd" else TFedAvg
+    return cls(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy, data,
+               batch_size=16, spec=spec, device="cpu")
+
+
+@pytest.mark.parametrize("server", ["fedcd", "fedavg"])
+@pytest.mark.parametrize("extra", [{}, dict(straggler=StragglerModel())])
+def test_checkpoint_dir_and_save_every_construct_and_save(tmp_path, server,
+                                                          extra):
+    root = tmp_path / "ckpt"
+    srv = _server(server, EngineSpec(checkpoint_dir=str(root), save_every=2,
+                                     **extra))
+    srv.run(3)
+    assert sorted(os.listdir(root)) == ["LATEST", "step_000002"]
+    # checkpoint_dir alone saves nothing on its own; save() still works
+    srv = _server(server, EngineSpec(checkpoint_dir=str(tmp_path / "b")))
+    srv.run(1)
+    assert not (tmp_path / "b").exists()
+    assert os.path.exists(srv.save(str(tmp_path / "snap")))
+
+
+@pytest.mark.parametrize("server", ["fedcd", "fedavg"])
+def test_resume_from_an_empty_root_raises_checkpoint_error(tmp_path,
+                                                           server):
+    with pytest.raises(CheckpointError, match="no valid"):
+        _server(server, EngineSpec(resume_from=str(tmp_path)))
+
+
+@pytest.mark.parametrize("server", ["fedcd", "fedavg"])
+def test_a_fault_schedule_constructs(server):
+    faults = FaultSchedule((FaultEvent(3, "post-plan"),))
+    srv = _server(server, EngineSpec(faults=faults))
+    srv.run(2)
+    assert srv.spec.faults is faults and len(srv.metrics) == 2
+
+
+def test_a_faults_stand_in_acts_as_in_the_reference():
+    """Neither package checks the type of ``faults``: a stand-in that is
+    not a schedule constructs, and the first phase hook of a round raises
+    ``AttributeError`` (semi-sync too: FedAvg's case of the old list)."""
+    cfg, data = _small_setup()
+    ref = JFedCD(cfg, jmlp.init_mlp_classifier(jax.random.PRNGKey(0),
+                                               hidden=32),
+                 jmlp.mlp_loss, jmlp.mlp_accuracy, data, batch_size=16,
+                 spec=JSpec(faults=STAND_IN))
+    with pytest.raises(AttributeError):
+        ref.run_round(1)
+    for server, spec in (("fedcd", EngineSpec(faults=STAND_IN)),
+                         ("fedavg", EngineSpec(straggler=StragglerModel(),
+                                               faults=STAND_IN))):
+        srv = _server(server, spec)
+        with pytest.raises(AttributeError):
+            srv.run_round(1)
