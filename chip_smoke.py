@@ -16,7 +16,11 @@ round's speculative training was still running on the card. Last, the
 overlap check runs 3 pipelined rounds of FedCD and of FedAvg with a
 fixed device spin enqueued after each speculation: a readback that
 waited on the stream would return after the spin in every round, and
-the run fails then.
+the run fails then. Phases 10-12 run semi-synchronous rounds, device
+churn and crash-and-resume; phase 13 runs the sharded planes
+(``sharded@1``, ``@4``, ``@2x2``, ``@2x2+pipeline``, ``@4`` with a forced
+row migration; FedAvg ``@4`` and ``@2x2``), every cell of a mesh on the
+one card, each against a ``fused`` run with its launch counts predicted.
 
     python3 chip_smoke.py
 
@@ -90,6 +94,39 @@ RESUME_PATHS = (
     ("fedavg fused+pipeline", "fedavg", "fused+pipeline",
      ((5, "post-plan"),)),
 )
+# the sharded planes (phase 13): (name, server, (model, data) shards,
+# variant), every cell of a mesh on the one card; "migrate" moves the
+# newest live model to the next shard after round MIGRATE_AFTER
+SHARDED_PATHS = (
+    ("fedcd sharded@1", "fedcd", (1, 1), None),
+    ("fedcd sharded@4", "fedcd", (4, 1), None),
+    ("fedcd sharded@2x2", "fedcd", (2, 2), None),
+    ("fedcd sharded@2x2+pipeline", "fedcd", (2, 2), "pipeline"),
+    ("fedcd sharded@4 migrate", "fedcd", (4, 1), "migrate"),
+    ("fedavg sharded@4", "fedavg", (4, 1), None),
+    ("fedavg sharded@2x2", "fedavg", (2, 2), None),
+)
+MIGRATE_AFTER = 3
+# predicted launches of (multi_weighted_agg, quantize, dequantize) on each
+# path (PERF.md, written before the first run): model 0 aggregates alone
+# in rounds 1-5 and its milestone-5 clone, placed on another model shard,
+# beside it in round 6. On a 1-D mesh eq 1 is one kernel launch per model
+# shard with aggregation work (5 + 2 on four shards); with a data axis
+# eq 1 is the plain data-axis sum and makes none. The transport is one
+# roundtrip per model shard with work, plus the clone's.
+SHARDED_LAUNCHES = {
+    "fedcd sharded@1": (6, 7, 7),
+    "fedcd sharded@4": (7, 8, 8),
+    "fedcd sharded@2x2": (0, 8, 8),
+    "fedcd sharded@2x2+pipeline": (0, 8, 8),
+    "fedcd sharded@4 migrate": (7, 8, 8),
+    "fedavg sharded@4": (0, 0, 0),
+    "fedavg sharded@2x2": (0, 0, 0),
+}
+# the CPU tiers' bars against the fused run: params within two int8 steps
+# (FedCD's int8 transport), float32 allclose at 1e-5 (FedAvg)
+SHARDED_INT8_TOL = 2 / 127
+SHARDED_F32_TOL = 1e-5
 MIXED_LEAVES = [10, 2303, 4096, 129, 5, 1027, 589_824, 1, 128]
 BACK_TO_BACK = 20                   # calls captured in one graph
 # the paper config's lr (0.08) sends this CNN to NaN within a round on
@@ -1283,6 +1320,210 @@ def resume_phase(run_path, crash_path, clock, device):
     return report
 
 
+def param_gap(ref, other):
+    """(largest |a - b|, largest |a - b| - SHARDED_F32_TOL * |a|) over two
+    param dicts (host or card)."""
+    gap = beyond = 0.0
+    for k, a in ref.items():
+        a = a.detach().cpu()
+        d = (a - other[k].detach().cpu()).abs()
+        gap = max(gap, float(d.max()))
+        beyond = max(beyond, float((d - SHARDED_F32_TOL * a.abs()).max()))
+    return gap, beyond
+
+
+def sharded_err(ref, other, tag):
+    """Fail unless a sharded run kept the fused run's discrete state:
+    per round ``comm_bytes`` (both servers), FedCD's live ids, genealogy,
+    active matrix, preferred models and live/active counts. Returns the
+    largest param difference, the largest beyond ``SHARDED_F32_TOL``
+    relative, and the largest accuracy difference."""
+    acc = 0.0
+    for a, b in zip(ref.metrics, other.metrics, strict=True):
+        if a.comm_bytes != b.comm_bytes:
+            fail(f"{tag}: round {a.round} comm_bytes {b.comm_bytes} != "
+                 f"fused {a.comm_bytes}")
+        acc = max(acc, float(np.abs(a.test_acc - b.test_acc).max()),
+                  float(np.abs(a.val_acc - b.val_acc).max()))
+    if not hasattr(ref, "registry"):
+        return param_gap(ref.params, other.params) + (acc,)
+    if (ref.registry.live_ids() != other.registry.live_ids()
+            or ref.registry.genealogy() != other.registry.genealogy()
+            or not np.array_equal(ref.state.active, other.state.active)
+            or not all(np.array_equal(a.preferred, b.preferred)
+                       and a.live_models == b.live_models
+                       and a.active_models == b.active_models
+                       for a, b in zip(ref.metrics, other.metrics))):
+        fail(f"{tag}: discrete state differs from the fused run")
+    gaps = [param_gap(ref.registry.params[m], other.registry.params[m])
+            for m in ref.registry.live_ids()]
+    return (max(g for g, _ in gaps), max(b for _, b in gaps), acc)
+
+
+def round_hook(after):
+    """A ``run_cell`` watch: ``after(srv, t)`` runs after each round."""
+    def watch(srv):
+        inner = srv.run_round
+
+        def run_round(t):
+            m = inner(t)
+            after(srv, t)
+            return m
+        srv.run_round = run_round
+    return watch
+
+
+def migrate_after(moved):
+    """After round MIGRATE_AFTER, move the newest live model's bank row
+    to the next model shard (recorded in ``moved``)."""
+    def after(srv, t):
+        if t == MIGRATE_AFTER:
+            bank = srv.registry.params
+            mid = max(srv.registry.live_ids())
+            src = bank.shard_of(mid)
+            dest = (src + 1) % bank.n_shards
+            bank.migrate(mid, dest)
+            moved.append((mid, src, dest))
+    return after
+
+
+def lockstep_watch(snaps, gaps):
+    """A FedAvg ``run_cell`` watch holding each round to the fused run's
+    from the same start: before round t the global model is set to the
+    fused run's after round t-1 (``snaps[t - 2]``); after it, its gap to
+    the fused run's after round t goes to ``gaps``."""
+    def watch(srv):
+        inner = srv.run_round
+
+        def run_round(t):
+            if t > 1:
+                srv.params = snaps[t - 2]
+            m = inner(t)
+            gaps.append(param_gap(snaps[t - 1], srv.params))
+            return m
+        srv.run_round = run_round
+    return watch
+
+
+def width_drift(device):
+    """The CNN cell's first 16 pairs trained one round (32 SGD steps) in
+    one 16-wide call and in four 4-wide calls, from the same params:
+    the largest difference (cuDNN's result for a pair depends on the
+    batch's width), and the largest after permuting the 16-wide call's
+    pairs (it does not depend on their order)."""
+    import torch
+
+    from repro_torch.data.bank import DeviceDataBank
+    from repro_torch.federated.simulation import make_pair_train
+
+    cfg, params, data, loss_fn, _ = cnn_cell()
+    xs, ys = DeviceDataBank(data, device).splits["train"]
+    train = make_pair_train(loss_fn, cfg.lr)
+    stacked = {k: v.to(device)[None] for k, v in params.items()}
+    rng = np.random.default_rng(0)
+    perms = rng.integers(0, xs.shape[1], (16, 32, 32)).astype(np.int32)
+    m_idx, d_idx = np.zeros(16, np.int32), np.arange(16, dtype=np.int32)
+    order = rng.permutation(16)
+    with torch.no_grad():
+        whole = train(stacked, m_idx, xs, ys, d_idx, perms)
+        quarters = [train(stacked, m_idx[i:i + 4], xs, ys, d_idx[i:i + 4],
+                          perms[i:i + 4]) for i in range(0, 16, 4)]
+        shuffled = train(stacked, m_idx[order], xs, ys, d_idx[order],
+                         perms[order])
+    back = torch.as_tensor(np.argsort(order), device=device)
+    split = max(float((whole[k][i:i + 4] - q[k]).abs().max())
+                for k in whole for i, q in zip(range(0, 16, 4), quarters))
+    permuted = max(float((whole[k] - shuffled[k][back]).abs().max())
+                   for k in whole)
+    return split, permuted
+
+
+def sharded_phase(run_path, device):
+    """Phase 13: the sharded planes at full width (phase 5's CNN cell,
+    deterministic cuDNN), every cell of a mesh on the one card. Runs the
+    ``fused`` FedCD and FedAvg paths, then each of SHARDED_PATHS on its
+    injected launch mesh, with its launches held to SHARDED_LAUNCHES
+    (``run_path``'s ``expect``) and its discrete state to the fused
+    run's. FedCD's params are held to the fused run's within
+    SHARDED_INT8_TOL. FedAvg's eq 1 is the reference's plain sum over
+    the cells, so its params leave the kernel's by float rounding, which
+    the CNN's training amplifies from round to round; each FedAvg path
+    therefore also runs in lockstep (every round from the fused run's
+    params of the round before), and each of those rounds is held to
+    the fused run's at ``SHARDED_F32_TOL`` absolute + relative."""
+    import torch
+
+    from repro_torch.core.spec import EngineSpec
+    from repro_torch.launch.mesh import make_launch_mesh
+
+    t0 = time.perf_counter()
+    split, permuted = width_drift(device)
+    print(f"[sharded width drift] 16 pairs, one round: 16-wide vs four "
+          f"4-wide calls max_abs_diff={split}, 16-wide vs its permutation "
+          f"{permuted}", flush=True)
+    if permuted:
+        fail("the pairs' order changed their training")
+    snaps = []
+    refs = {
+        "fedcd": run_path("fedcd fused (phase 13)", "fedcd", "fused")[0],
+        "fedavg": run_path(
+            "fedavg fused (phase 13)", "fedavg", "fused",
+            watch=round_hook(lambda srv, t: snaps.append(
+                {k: v.detach().cpu().clone()
+                 for k, v in srv.params.items()})))[0]}
+    placements = {}
+    for name, server, (sm, sd), variant in SHARDED_PATHS:
+        mesh = make_launch_mesh(sm, sd, devices=[device] * (sm * sd))
+        spec = EngineSpec(model_shards=sm, data_shards=sd, mesh=mesh,
+                          pipeline=variant == "pipeline")
+        expect = dict(zip(("multi_weighted_agg", "quantize", "dequantize"),
+                          SHARDED_LAUNCHES[name]))
+        moved = []
+        srv, walls = run_path(
+            name, server, spec, expect=expect,
+            watch=(round_hook(migrate_after(moved))
+                   if variant == "migrate" else None))
+        err, beyond, acc = sharded_err(refs[server], srv, name)
+        extra = ""
+        if server == "fedcd":
+            bank = srv.registry.params
+            placements[name] = dict(bank.row_of)
+            extra = (f" row_of={bank.row_of} clone_shard="
+                     f"{bank.shard_of(1)} owner_shard={bank.shard_of(0)}"
+                     f" load_ewma={[round(float(v), 4) for v in bank.load_ewma]}")
+            if srv.pipeline:
+                extra += f" pipeline_stats={srv.pipeline_stats.as_dict()}"
+            if moved:
+                extra += f" migrated={moved}"
+            if sm > 1 and bank.shard_of(1) == bank.shard_of(0):
+                fail(f"{name}: the milestone clone landed on its parent's "
+                     f"shard {bank.shard_of(0)}")
+        print(f"[sharded {name}] vs fused: discrete state equal, params "
+              f"max_abs_err={err} (beyond rel bar {beyond}), accuracy "
+              f"max_diff={acc}, walls={[round(w, 4) for w in walls]}"
+              f"{extra}", flush=True)
+        if server == "fedcd" and err > SHARDED_INT8_TOL:
+            fail(f"{name}: params max_abs_err={err} > {SHARDED_INT8_TOL}")
+        if variant == "migrate" and (
+                not moved
+                or placements[name] == placements["fedcd sharded@4"]):
+            fail(f"{name}: the forced migration did not move a row")
+        if server == "fedavg":
+            gaps = []
+            run_path(f"{name} lockstep", server, spec, expect=expect,
+                     watch=lockstep_watch(snaps, gaps))
+            print(f"[sharded {name} lockstep] per-round params max_abs_err="
+                  f"{[g for g, _ in gaps]} beyond rel bar "
+                  f"{[b for _, b in gaps]}", flush=True)
+            if max(b for _, b in gaps) > SHARDED_F32_TOL:
+                fail(f"{name}: a lockstep round left the fused one beyond "
+                     f"{SHARDED_F32_TOL}")
+    torch.cuda.synchronize()
+    print(f"[phase 13] {len(SHARDED_PATHS)} sharded paths (FedAvg's twice) "
+          f"and 2 fused references in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1473,18 +1714,21 @@ def main() -> int:
     if consumed and not probe.overlapped:
         fail("overlap: every readback waited for the speculative training")
 
-    # phases 10-12 run under the no-sync probe; every path has its own
-    # launch counts. They hold runs to each other bit for bit, and the
+    # phases 10-13 run under the no-sync probe; every path has its own
+    # launch counts. They hold runs to each other, and the
     # CNN's training is not run-to-run deterministic on cuDNN's default
     # convolution algorithms (phase 5 and phase 8 read different round-1
     # accuracies on one seed), so cuDNN takes deterministic ones here
     torch.backends.cudnn.deterministic = True
-    print(f"[determinism] phases 10-12: torch.backends.cudnn.deterministic="
+    print(f"[determinism] phases 10-13: torch.backends.cudnn.deterministic="
           f"{torch.backends.cudnn.deterministic}")
     nosync = NoSyncProbe()
     later = {}                       # path -> launch counts, phases 10-12
 
-    def run_path(name, server, spec, rounds=SMOKE_ROUNDS, watch=None):
+    def run_path(name, server, spec, rounds=SMOKE_ROUNDS, watch=None,
+                 expect=None):
+        """One counted path. ``expect``: the exact launch counts the path
+        must make (phase 13), in place of 'kernel 1 launched'."""
         (srv, walls, drain), counts = drive(
             lambda: run_cell(device, name, server, spec, rounds, watch))
         later[name] = counts
@@ -1495,7 +1739,13 @@ def main() -> int:
               f"{np.mean(walls[1:]):.4f} total_s={sum(walls):.4f} "
               f"drain_s={drain:.4f} walls={[round(w, 4) for w in walls]}"
               f" launches={counts}{transport}", flush=True)
-        if counts["multi_weighted_agg"] <= 0:
+        if expect is not None:
+            got = {k: counts[k] for k in expect}
+            print(f"[{name} launches] predicted={expect} measured={got}",
+                  flush=True)
+            if got != expect:
+                fail(f"{name}: launches {got} != predicted {expect}")
+        elif counts["multi_weighted_agg"] <= 0:
             fail(f"kernel multi_weighted_agg was not launched on {name}")
         if server == "fedcd":
             check_transport_launches(name, counts)
@@ -1526,6 +1776,8 @@ def main() -> int:
         # phase 12: crash and resume at full width
         clock = CheckpointClock()
         resume_phase(run_path, crash_path, clock, device)
+        # phase 13: the sharded planes at full width
+        sharded_phase(run_path, device)
     finally:
         if clock is not None:
             clock.remove()

@@ -31,6 +31,13 @@ matching manifest does not exist; a crash mid-save therefore leaves the
 previous step intact and the torn step invisible to
 :func:`latest_checkpoint`.
 
+**Resharding-on-resume**: restore targets whatever mesh shape the NEW
+server was built with. When the shard layout matches the checkpoint's,
+placement (``row_of``, used rows, load EWMA) restores verbatim and the
+resumed run is bit-identical to the uninterrupted one; otherwise ids
+re-place through the banks' least-loaded allocators and the runs agree
+in discrete state with params equal to reduction order.
+
 **Device state.** A snapshot is a barrier: it copies the banks, the
 stale updates and (under churn) the data rows to the host, waiting for
 the card. Restore writes every row IN PLACE into the server's existing
@@ -122,7 +129,7 @@ def _param_template(server: Any) -> Template:
     if _kind(server) == "fedavg":
         src = server.executor.get_params()
     elif isinstance(server.registry.params, StackedParamBank):
-        src = {k: v[0] for k, v in server.registry.params.tree.items()}
+        src = {k: v[0] for k, v in server.registry.params.block(0).items()}
     else:
         src = server.registry.params[server.registry.live_ids()[0]]
     return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
@@ -156,8 +163,7 @@ def _snapshot_params(arrays: dict, scalars: dict, registry: Any) -> None:
             "rows_per_shard": pb.rows_per_shard,
             "row_of": {str(m): r for m, r in pb.row_of.items()},
             "used_rows": sorted(pb._used_rows),
-            # one shard: no placement choice, so no observed load
-            "load_ewma": [0.0] * pb.n_shards,
+            "load_ewma": [float(v) for v in pb.load_ewma],
         }
 
 
@@ -171,9 +177,10 @@ def _snapshot_databank(arrays: dict, scalars: dict, bank: Any,
         scalars["databank"] = None
         return
     if include_rows:
+        splits = bank.splits
         for d in bank.present_ids():
             r = bank.row_of[d]
-            for k, (xs, ys) in bank.splits.items():
+            for k, (xs, ys) in splits.items():
                 arrays[f"data/{d}/{k}/x"] = _host_array(xs[r])
                 arrays[f"data/{d}/{k}/y"] = _host_array(ys[r]).astype(
                     np.int32)
@@ -445,7 +452,8 @@ def _restore_params(server: Any, manifest: dict, arrays: dict) -> None:
                        used_rows=set(saved["used_rows"]),
                        load_ewma=np.asarray(saved["load_ewma"]))
         else:
-            # a checkpoint of another shard layout: ids re-place
+            # a checkpoint of another shard layout: ids re-place through
+            # least-loaded placement on the NEW layout, from a cold EWMA
             pb.restore(rows)
     elif isinstance(reg.params, StackedParamBank):
         # dict-mode checkpoint (legacy engine) into a stacked registry:

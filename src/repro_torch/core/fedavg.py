@@ -1,12 +1,15 @@
 """FedAvg baseline (McMahan et al. 2017), the paper's comparison system
-(port of ``repro/core/fedavg.py``, the meshless engines).
+(port of ``repro/core/fedavg.py``).
 
 Identical client loop and data plumbing as FedCDServer so the comparison
 isolates the algorithm: one global model, uniform averaging over the
 participating devices' updates. Engines mirror FedCDServer: ``"fused"``
 (default) keeps the global model as row 0 of a device bank and runs the
 round as one call; ``"batched"`` / ``"legacy"`` keep it as a param dict
-on the device. ``"fused+pipeline"`` splits train and finish and
+on the device. On a launch mesh (``"sharded@S"``) the work-PAIR axis
+shards over the ``model`` axis (partial sums, one sum over the shards);
+``"sharded@SxD"`` also shards the device data over ``data``.
+``"fused+pipeline"`` splits train and finish and
 enqueues round t+1's training (its sample prefetched) before round t's
 readback. ``+semisync`` makes rounds semi-synchronous through the same
 coordinator as FedCD's planner (one model, id 0). It draws the same
@@ -29,14 +32,16 @@ from repro_torch.checkpoint.state import (CheckpointManager,
                                           restore_server_state,
                                           save_server_state)
 from repro_torch.config import FedCDConfig
-from repro_torch.core.fedcd import to_device
+from repro_torch.core.fedcd import _server_device, to_device
 from repro_torch.core.plan import RoundPlan, SemiSyncCoordinator
-from repro_torch.core.spec import reject_unported, resolve_spec
+from repro_torch.core.spec import resolve_spec
 from repro_torch.data.bank import DeviceDataBank
-from repro_torch.device import resolve_device
 from repro_torch.federated.executors import (FedAvgFusedExecutor,
-                                             FedAvgHostExecutor)
+                                             FedAvgHostExecutor,
+                                             FedAvgSharded2DExecutor,
+                                             FedAvgShardedExecutor)
 from repro_torch.federated.simulation import draw_round_sample
+from repro_torch.launch.mesh import data_axis_size
 
 
 @dataclass
@@ -57,18 +62,19 @@ class FedAvgServer:
                  straggler: Any = None,
                  device: Optional[Union[str, torch.device]] = None):
         """``spec``: an :class:`~repro_torch.core.spec.EngineSpec` or
-        preset string — ``"fused"`` (optionally ``+pipeline`` and/or
-        ``+semisync``), ``"batched"`` or ``"legacy"``, each with the
-        checkpoint fields. ``engine="llm"`` and the FedCD-only
-        capabilities (``scenario``, ``sparse_eval``,
-        ``migrate_threshold``, ``use_agg_kernel``) raise ``ValueError``
-        as in the reference; the sharded planes, which the port does not
-        run yet, raise ``NotImplementedError``. ``engine=``/``mesh=``/``pipeline=``/
-        ``straggler=`` are the deprecated spellings.
+        preset string — ``"fused"`` or ``"sharded@S[xD]"`` (optionally
+        ``+pipeline`` and/or ``+semisync``; or an injected ``mesh``),
+        ``"batched"`` or ``"legacy"``, each with the checkpoint fields.
+        ``engine="llm"`` and the FedCD-only capabilities (``scenario``,
+        ``sparse_eval``, ``migrate_threshold``, ``use_agg_kernel``) raise
+        ``ValueError`` as in the reference. ``engine=``/``mesh=``/
+        ``pipeline=``/``straggler=`` are the deprecated spellings.
 
         ``device=None`` means ``"cuda"``; without a GPU this raises —
-        pass ``device="cpu"`` to run on the CPU. The fused engine updates
-        the global model in place each round."""
+        pass ``device="cpu"`` to run on the CPU (a sharded preset then
+        puts every cell on the CPU; on a mesh the server's device is
+        cell (0, 0)'s). The fused engine updates the global model in
+        place each round."""
         spec = resolve_spec(
             spec, dict(engine=engine, mesh=mesh, pipeline=pipeline,
                        straggler=straggler), "FedAvgServer")
@@ -84,19 +90,24 @@ class FedAvgServer:
             if on:
                 raise ValueError(
                     f"FedAvgServer does not support {name} (FedCD only)")
-        reject_unported(spec, "FedAvgServer")
+        self.mesh = mesh = spec.resolve_mesh(device)
         self.spec = spec
         self.engine = spec.engine
         self.pipeline = spec.pipeline
-        self.device = resolve_device(device)
+        self.device = _server_device(device, mesh)
         self.cfg = cfg
         self.rng = np.random.default_rng(cfg.seed)
         self.data = data
         self.batch_size = batch_size
         self.n_devices = data["train"][0].shape[0]
         params = to_device(init_params, self.device)
-        databank = DeviceDataBank(data, self.device)
-        if self.engine == "fused":
+        databank = DeviceDataBank(data, self.device, mesh=mesh)
+        if self.engine == "fused" and mesh is not None:
+            cls = (FedAvgSharded2DExecutor if data_axis_size(mesh) > 1
+                   else FedAvgShardedExecutor)
+            self.executor = cls(cfg, databank, params, loss_fn, acc_fn,
+                                mesh, pipeline=self.pipeline)
+        elif self.engine == "fused":
             self.executor = FedAvgFusedExecutor(cfg, databank, params,
                                                 loss_fn, acc_fn,
                                                 pipeline=self.pipeline)

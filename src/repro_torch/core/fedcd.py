@@ -1,5 +1,5 @@
 """FedCD server orchestration — paper Algorithm 1, mode A (port of
-``repro/core/fedcd.py``: the meshless engines; on ``fused`` also
+``repro/core/fedcd.py``: every mode-A engine, meshless and sharded;
 pipelined, semi-synchronous and churning populations).
 
 One ``FedCDServer.run_round`` = one pass of Algorithm 1: sample K
@@ -17,9 +17,14 @@ EngineSpec`, which runs the round on the server's device:
 * ``"batched"``: one call over the gathered pairs, then per-model
   transport (:class:`~repro_torch.federated.executors.BatchedExecutor`);
 * ``"legacy"``: the per-model loop, every model trained on every device
-  (:class:`~repro_torch.federated.executors.LegacyExecutor`).
+  (:class:`~repro_torch.federated.executors.LegacyExecutor`);
+* ``"sharded@S"`` / ``"sharded@SxD"`` (or an injected ``mesh``): the
+  fused plane on a launch mesh — bank rows and work pairs bucket per
+  owning shard or cell (:class:`~repro_torch.federated.executors.
+  ShardedExecutor`, :class:`~repro_torch.federated.executors.
+  Sharded2DExecutor`); ``+migrate:<x>`` moves a row off a hot shard.
 
-On ``fused``, ``+pipeline`` splits the round into train and finish and
+On ``fused`` and ``sharded``, ``+pipeline`` splits the round into train and finish and
 enqueues round t+1's training before round t's readback (cross-round
 speculation), and ``+sparse:<x>`` scores only holders' validation
 splits on rounds whose stale rows are sparser than ``x``; both keep the
@@ -62,17 +67,35 @@ from repro_torch.core.plan import RoundPlanner
 from repro_torch.core.registry import ModelRegistry
 from repro_torch.core.scores import (init_scores, normalized_scores,
                                      push_accuracies)
-from repro_torch.core.spec import reject_unported, resolve_spec
+from repro_torch.core.spec import resolve_spec
 from repro_torch.data.bank import DeviceDataBank
 from repro_torch.device import resolve_device
 from repro_torch.federated.executors import (BatchedExecutor, FusedExecutor,
-                                             LegacyExecutor)
+                                             LegacyExecutor,
+                                             Sharded2DExecutor,
+                                             ShardedExecutor)
 from repro_torch.federated.simulation import draw_round_sample
+from repro_torch.launch.mesh import data_axis_size, model_axis_size
+from repro_torch.launch.sharding import bank_devices, bank_rows_per_shard
 
 # the meshless engines the port runs (tests iterate this tuple)
 ENGINES = ("fused", "batched", "legacy")
 
 LIFECYCLE_STREAM = 0xFEDCD   # keys the clone-noise RNG off the sampling one
+
+
+def _server_device(device: Optional[Union[str, torch.device]],
+                   mesh: Any) -> torch.device:
+    """The server's home device: ``device`` (``None`` means CUDA), or on
+    a launch mesh cell (0, 0)'s, where ``device``, if given, must be of
+    the cells' type."""
+    if mesh is None:
+        return resolve_device(device)
+    home = mesh.device(0, 0)
+    if device is not None and torch.device(device).type != home.type:
+        raise ValueError(f"device={device!r} but the launch mesh's cells "
+                         f"lie on {home.type} devices: {mesh}")
+    return resolve_device(home)
 
 
 def to_device(params: Dict[str, Any], device: torch.device
@@ -115,20 +138,23 @@ class FedCDServer:
 
         ``spec``: an :class:`~repro_torch.core.spec.EngineSpec` or preset
         string (``"fused"``, ``"batched"``, ``"legacy"``, each optionally
-        ``+kernel``; ``fused`` also with ``+pipeline``, ``+semisync``
-        and/or ``+sparse:<x>``, and an ``EngineSpec`` with a
-        ``scenario``; the checkpoint fields on every engine). The other
-        engine kwargs are the reference's deprecated spellings and
+        ``+kernel``; ``fused`` and ``sharded@S[xD]`` also with
+        ``+pipeline``, ``+semisync`` and/or ``+sparse:<x>``, and an
+        ``EngineSpec`` with a ``scenario``; ``sharded`` with
+        ``+migrate:<x>``; the checkpoint fields on every engine). The
+        other engine kwargs are the reference's deprecated spellings and
         translate through ``resolve_spec``. Invalid combinations (and
-        ``engine="llm"``, the LM plane) raise ``ValueError`` and fields
-        the port does not run yet (the sharded planes)
-        ``NotImplementedError``, here at construction.
+        ``engine="llm"``, the LM plane) raise ``ValueError``, here at
+        construction.
 
         ``device=None`` means ``"cuda"``; without a GPU this raises —
-        pass ``device="cpu"`` to run on the CPU. The fused engine updates
-        its param bank in place each round (the reference donates it);
-        the legacy and batched engines keep a dict of params per model
-        on the same device."""
+        pass ``device="cpu"`` to run on the CPU. On a launch mesh the
+        server's device is cell (0, 0)'s and ``device``, if given, must
+        be of the cells' type; a sharded preset with ``device="cpu"``
+        puts every cell on the CPU. The fused engine updates its param
+        bank in place each round (the reference donates it); the legacy
+        and batched engines keep a dict of params per model on the same
+        device."""
         spec = resolve_spec(
             spec, dict(engine=engine, mesh=mesh, pipeline=pipeline,
                        sparse_eval=sparse_eval, scenario=scenario,
@@ -139,11 +165,15 @@ class FedCDServer:
             raise ValueError(
                 "engine='llm' is the mode-B LM plane — construct "
                 "federated.llm.FedLLMTrainer with this spec instead")
-        reject_unported(spec, "FedCDServer")
+        self.mesh = mesh = spec.resolve_mesh(device)
         self.spec = spec
         self.engine = spec.engine
         self.pipeline = spec.pipeline
-        self.device = resolve_device(device)
+        self.device = _server_device(device, mesh)
+        self.migrate_threshold = spec.migrate_threshold
+        self._n_shards = model_axis_size(mesh) if mesh is not None else 0
+        self._rows_per_shard = (bank_rows_per_shard(cfg.max_models, mesh)
+                                if mesh is not None else 0)
         self.cfg = cfg
         self.rng = np.random.default_rng(cfg.seed)
         self.life_rng = np.random.default_rng([cfg.seed, LIFECYCLE_STREAM])
@@ -168,11 +198,14 @@ class FedCDServer:
             data, self.device,
             n_cap=(scenario.row_capacity(n_initial)
                    if scenario is not None else None),
-            id_cap=self.n_devices)
+            id_cap=self.n_devices, mesh=mesh)
         params = to_device(init_params, self.device)
-        # only the fused engine stacks its params into one bank
+        # only the fused engine stacks its params into one bank, split
+        # over the model shards of a launch mesh
         self.registry = ModelRegistry.create(
-            params, cfg.max_models, stacked=(self.engine == "fused"))
+            params, cfg.max_models, stacked=(self.engine == "fused"),
+            n_shards=max(self._n_shards, 1),
+            devices=bank_devices(mesh) if mesh is not None else None)
         self.state = init_scores(self.n_devices, cfg.max_models,
                                  cfg.score_window)
         # ids beyond the initial population haven't joined yet
@@ -206,6 +239,12 @@ class FedCDServer:
 
     def _make_executor(self, loss_fn: Callable, acc_fn: Callable):
         if self.engine == "fused":
+            if self.mesh is not None:
+                cls = (Sharded2DExecutor if data_axis_size(self.mesh) > 1
+                       else ShardedExecutor)
+                return cls(self.cfg, self.registry, self.databank, loss_fn,
+                           acc_fn, self.mesh, pipeline=self.pipeline,
+                           migrate_threshold=self.migrate_threshold)
             return FusedExecutor(self.cfg, self.registry, self.databank,
                                  loss_fn, acc_fn, pipeline=self.pipeline)
         cls = (BatchedExecutor if self.engine == "batched"

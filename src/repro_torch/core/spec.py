@@ -15,44 +15,46 @@ String grammar (``EngineSpec.parse``)::
     flag      := "pipeline" | "semisync" | "kernel"
                | "sparse" ":" FLOAT | "migrate" ":" FLOAT
 
-What the port runs so far: the meshless engines ``fused``, ``batched``
-and ``legacy``, with or without ``+kernel``, and on ``fused`` the
-pipelined dispatch (``+pipeline``), holder-only validation scoring
+``"sharded"`` is the fused data plane on a launch mesh (``sharded@4`` =
+4 model shards; ``sharded@2x2`` = the 2-D model × data mesh; see
+:mod:`repro_torch.launch.mesh`). The port runs every spec the reference
+runs outside the LM plane: the engines ``fused``, ``batched`` and
+``legacy``, with or without ``+kernel``; on ``fused`` and ``sharded``
+the pipelined dispatch (``+pipeline``), holder-only validation scoring
 (``+sparse:<x>``), semi-synchronous rounds (``+semisync``, which
 attaches a default :class:`~repro_torch.data.scenarios.StragglerModel`;
 construct the spec directly to tune it) and, for FedCD, device churn
-(``scenario=``, a :class:`~repro_torch.data.scenarios.ChurnSchedule`).
-On every meshless engine, elastic checkpoint/resume (``save_every``,
-``checkpoint_dir``, ``resume_from``) and scripted crashes (``faults``, a
-:class:`~repro_torch.data.scenarios.FaultSchedule`).
-``+kernel`` is accepted and changes nothing: on CUDA tensors the port's
-hand-written kernels are always the aggregation path, and their plain
-versions serve CPU tensors only. ``engine="llm"`` parses as in the
-reference, and the servers refuse it with the reference's
-``ValueError`` (it is the LM trainer's spec). The sharded planes and row
-migration parse and validate as in the reference and are then rejected
-by the servers at construction (``reject_unported``). An injected
-``mesh`` cannot even be built yet: it raises ``NotImplementedError``
-naming its ROADMAP item.
+(``scenario=``, a :class:`~repro_torch.data.scenarios.ChurnSchedule`)
+and row migration (``+migrate:<x>``, sharded only); on every engine,
+elastic checkpoint/resume (``save_every``, ``checkpoint_dir``,
+``resume_from``) and scripted crashes (``faults``, a
+:class:`~repro_torch.data.scenarios.FaultSchedule`). ``+kernel`` is
+accepted and changes nothing: on CUDA tensors the port's hand-written
+kernels are always the aggregation path, and their plain versions serve
+CPU tensors only. ``engine="llm"`` parses as in the reference, and the
+servers refuse it with the reference's ``ValueError`` (it is the LM
+trainer's spec).
+
+A sharded spec's mesh is the injected ``mesh`` (a
+:class:`~repro_torch.launch.mesh.LaunchMesh`), else
+``make_launch_mesh(model_shards, data_shards)`` over that many CUDA
+devices — which raises where there are fewer, unless the server was
+asked for the CPU: its cells then all lie on the CPU.
 """
 from __future__ import annotations
 
 import warnings
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Optional
 
+import torch
+
 from repro_torch.data.scenarios import StragglerModel
+from repro_torch.launch.mesh import (data_axis_size, make_launch_mesh,
+                                     model_axis_size)
 
 MESHLESS_ENGINES = ("fused", "batched", "legacy")
 ENGINES = MESHLESS_ENGINES + ("llm",)
-
-# the ROADMAP Queue 1 item that ports each capability
-MESH_ITEM = "ROADMAP Queue 1 item 12 (sharded engines)"
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet ({item})")
 
 
 @dataclass(frozen=True)
@@ -61,7 +63,10 @@ class EngineSpec:
 
     ``engine`` is one of the meshless engines; sharding is expressed by
     ``model_shards``/``data_shards`` (>1 selects the sharded planes and
-    requires ``engine="fused"``)."""
+    requires ``engine="fused"``). ``mesh`` optionally injects a prebuilt
+    :class:`~repro_torch.launch.mesh.LaunchMesh` (tests sharing one mesh
+    across servers, cells placed on chosen devices); otherwise
+    :meth:`resolve_mesh` builds it from the shard counts."""
     engine: str = "fused"
     model_shards: int = 1
     data_shards: int = 1
@@ -139,22 +144,26 @@ class EngineSpec:
                     use_agg_kernel: bool = False,
                     straggler: Any = None) -> "EngineSpec":
         """The deprecation shim's translation of the per-capability
-        kwargs (including the ``engine="sharded"`` spelling)."""
+        kwargs (including the ``engine="sharded"``/``engine="fused",
+        mesh=`` double spelling)."""
         if engine == "sharded" and mesh is None:
             raise ValueError("engine='sharded' requires mesh=")
-        if mesh is not None:
-            raise _unported("a launch mesh", MESH_ITEM)
+        if engine == "sharded":
+            engine = "fused"
         spec = cls(
-            engine=engine, pipeline=pipeline, sparse_eval=sparse_eval,
+            engine=engine,
+            model_shards=model_axis_size(mesh) if mesh is not None else 1,
+            data_shards=data_axis_size(mesh) if mesh is not None else 1,
+            pipeline=pipeline, sparse_eval=sparse_eval,
             scenario=scenario, migrate_threshold=migrate_threshold,
-            use_agg_kernel=use_agg_kernel, straggler=straggler)
+            use_agg_kernel=use_agg_kernel, straggler=straggler,
+            mesh=mesh)
         return spec.validate()
 
     # -- validation --------------------------------------------------------
     def validate(self) -> "EngineSpec":
         """Every cross-field rule of the reference, checked up front, with
-        its ``ValueError``. Returns self (chainable). An injected mesh
-        raises ``NotImplementedError`` after those checks."""
+        its ``ValueError``, in its order. Returns self (chainable)."""
         if self.engine not in ENGINES:
             raise ValueError(
                 f"engine must be one of {ENGINES}: "
@@ -190,7 +199,11 @@ class EngineSpec:
             raise ValueError(
                 "save_every requires checkpoint_dir (nowhere to save)")
         if self.mesh is not None:
-            raise _unported("an injected launch mesh", MESH_ITEM)
+            if (model_axis_size(self.mesh) != self.model_shards
+                    or data_axis_size(self.mesh) != self.data_shards):
+                raise ValueError(
+                    f"mesh shape {dict(self.mesh.shape)} does not match "
+                    f"spec {self.model_shards}x{self.data_shards}")
         return self
 
     # -- derived views -----------------------------------------------------
@@ -198,13 +211,28 @@ class EngineSpec:
     def sharded(self) -> bool:
         return self.model_shards > 1 or self.data_shards > 1
 
-    def resolve_mesh(self) -> Any:
-        """``None`` for the meshless engines; a sharded spec needs the
-        launch mesh, which is not ported yet."""
-        if not self.sharded:
-            return None
-        raise _unported(f"the {self.model_shards}x{self.data_shards} "
-                        "launch mesh", MESH_ITEM)
+    @property
+    def semisync(self) -> bool:
+        return self.straggler is not None
+
+    def resolve_mesh(self, device: Any = None) -> Any:
+        """The launch mesh this spec runs on (``None`` for the meshless
+        engines without an injected mesh): the injected one, or a fresh
+        ``make_launch_mesh(model_shards, data_shards)`` over the first
+        CUDA devices (raising where there are fewer). ``device``: the
+        server's requested device; a CPU request puts every cell on
+        it."""
+        if not self.sharded or self.mesh is not None:
+            return self.mesh
+        n = self.model_shards * self.data_shards
+        devices = None
+        if device is not None and torch.device(device).type == "cpu":
+            devices = [torch.device(device)] * n
+        return make_launch_mesh(self.model_shards, self.data_shards,
+                                devices=devices)
+
+    def with_mesh(self, mesh: Any) -> "EngineSpec":
+        return replace(self, mesh=mesh)
 
     @property
     def canonical(self) -> str:
@@ -255,17 +283,3 @@ def resolve_spec(spec: "EngineSpec | str | None", legacy: dict,
     kw = {**defaults, **used}
     return EngineSpec.from_legacy(**kw)
 
-
-def reject_unported(spec: EngineSpec, owner: str) -> None:
-    """Raise ``NotImplementedError`` at construction, naming the first
-    field of a validated ``spec`` that the port cannot run yet and the
-    ROADMAP item that ports it."""
-    checks = [
-        ("mesh sharding", spec.sharded or spec.mesh is not None, MESH_ITEM),
-        ("migrate_threshold", spec.migrate_threshold is not None, MESH_ITEM),
-    ]
-    for name, on, item in checks:
-        if on:
-            raise NotImplementedError(
-                f"{owner}: {name} is not ported to PyTorch yet ({item}); "
-                f"spec {spec.canonical!r}")

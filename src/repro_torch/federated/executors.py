@@ -1,7 +1,8 @@
 """Device-side round executors: the data-plane half of a federated round
-(port of the meshless legacy, batched and fused executors of
-``repro/federated/executors.py``: synchronous, pipelined and
-semi-synchronous rounds, and device churn on the fused ones).
+(port of the mode-A executors of ``repro/federated/executors.py``:
+legacy, batched, fused and mesh-sharded; synchronous, pipelined and
+semi-synchronous rounds, and device churn on the fused and sharded
+ones).
 
 A :class:`RoundExecutor` turns one host-built
 :class:`~repro_torch.core.plan.RoundPlan` into device work. The contract:
@@ -44,7 +45,16 @@ the host.
 
 **Device churn**: plans name devices by id; the data bank's ``row_of``
 resolves data rows at dispatch (``_drows``) and eval-matrix columns map
-back to ids (``_to_id_row``).
+back to ids (``_to_id_row``); plans name models by id too, and the param
+bank's ``row_of`` places them (``_rows``).
+
+**Meshes**: the sharded executors override only bucketing, the
+aggregation schedule and the eval dispatch (``_dispatch_train``,
+``_dispatch_apply``, ``_finish_round``, ``_dispatch_dense``,
+``_dispatch_sparse_val``, ``_note_load``, ``eval_rows``); launch,
+speculation, repair, harvest, fold, readback and the eval-row caches
+are the fused executor's. A trained batch on a mesh is a list of
+per-cell blocks, addressed through ``TrainMeta.positions``.
 """
 from __future__ import annotations
 
@@ -61,16 +71,17 @@ from repro_torch.core.aggregate import (multi_weighted_average,
 from repro_torch.core.plan import EvalHints, RoundPlan
 from repro_torch.core.registry import ModelRegistry
 from repro_torch.data.bank import DeviceDataBank
-from repro_torch.federated.simulation import (bucket_size, make_eval,
-                                              make_fused_apply,
-                                              make_fused_eval,
-                                              make_fused_finish,
-                                              make_group_eval,
-                                              make_local_train,
-                                              make_pair_eval,
-                                              make_pair_train,
-                                              pad_live_rows, pad_work_batch,
-                                              to_device)
+from repro_torch.federated.simulation import (
+    bucket_size, make_eval, make_fused_apply, make_fused_eval,
+    make_fused_finish, make_group_eval, make_local_train, make_pair_eval,
+    make_pair_train, make_sharded2d_apply, make_sharded_apply,
+    make_sharded_eval, make_sharded_fedavg_eval, make_sharded_fedavg_finish,
+    make_sharded_finish, make_sharded_pair_eval, make_sharded_train,
+    pad_live_rows, pad_work_batch, shard_eval_pairs, shard_eval_pairs_2d,
+    shard_pairs_2d, shard_rows, shard_work_batch, to_device)
+from repro_torch.launch.mesh import (LaunchMesh, data_axis_size,
+                                     model_axis_size)
+from repro_torch.launch.sharding import Replicas, bank_rows_per_shard
 from repro_torch.models.common import Params
 
 
@@ -104,10 +115,28 @@ class TrainMeta:
     """Which (model, device) pairs a train batch covers, in bucket-column
     order (the repair contract: aggregation weights are addressed by
     these columns, so a superset batch aggregates identically once dead
-    pairs get zero weight); ``b_pad`` is the padded batch width."""
+    pairs get zero weight); ``b_pad`` is the padded batch width (per
+    cell on a mesh). ``positions[k]`` is pair k's row in the trained
+    batch (the identity when None); on a mesh the batch is a list of
+    per-cell blocks and row ``p`` is row ``p % b_pad`` of block
+    ``p // b_pad``. ``pair_groups`` (a mesh's bucketing) lists each
+    cell's pairs in bucket-column order."""
     pair_model: List[int]
     pair_device: List[int]
     b_pad: int
+    pair_groups: Optional[List[List[int]]] = None
+    positions: Optional[List[int]] = None
+
+
+def _group_positions(groups: List[List[int]], width: int,
+                     n_pairs: int) -> List[int]:
+    """Pair k's trained-batch row under a grouped bucketing: group g's
+    j-th member sits at ``g * width + j``."""
+    pos = [0] * n_pairs
+    for g, members in enumerate(groups):
+        for j, k in enumerate(members):
+            pos[k] = g * width + j
+    return pos
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -142,29 +171,37 @@ StaleKey = Tuple[int, int, int]          # (dispatch round, model, device)
 
 
 def _harvest_rows(stale_updates: Dict[StaleKey, Params], plan: RoundPlan,
-                  trained: Params, meta: TrainMeta) -> None:
+                  trained: "Params | List[Optional[Params]]",
+                  meta: TrainMeta) -> None:
     """Copy the straggler pairs' trained rows out of the batch into the
     carry-over buffer keyed (dispatch round, model, device): one gather
-    per leaf into new tensors, on the batch's device and stream, so the
-    rows never reach the host and no later write to the batch can touch
-    them. Addressed by (model, device) through META's columns — on a
-    repaired speculation the batch is a superset in its own column
-    order, so plan indices must not be used directly."""
-    col = {p: k for k, p in enumerate(zip(meta.pair_model,
-                                          meta.pair_device))}
-    keys, cols = [], []
+    per leaf (per cell block on a mesh) into new tensors, on the batch's
+    device and stream, so the rows never reach the host and no later
+    write to the batch can touch them. Addressed by (model, device)
+    through META's positions — on a repaired speculation the batch is a
+    superset in its own column order, so plan indices must not be used
+    directly."""
+    pos = meta.positions or range(len(meta.pair_model))
+    pos_of = {p: pos[k] for k, p in enumerate(zip(meta.pair_model,
+                                                  meta.pair_device))}
+    picks: Dict[int, List[Tuple[StaleKey, int]]] = {}
     for k in plan.straggler_pairs:
         m, d = plan.pair_model[k], plan.pair_device[k]
-        if (m, d) in col:
-            keys.append((plan.round, m, d))
-            cols.append(col[(m, d)])
-    if not keys:
-        return
-    idx = to_device(np.asarray(cols), np.int64,
-                    next(iter(trained.values())).device)
-    rows = {name: v.index_select(0, idx) for name, v in trained.items()}
-    for j, key in enumerate(keys):
-        stale_updates[key] = {name: v[j] for name, v in rows.items()}
+        p = pos_of.get((m, d))
+        if p is None:
+            continue
+        if isinstance(trained, list):
+            cell, row = divmod(p, meta.b_pad)
+        else:
+            cell, row = 0, p
+        picks.setdefault(cell, []).append(((plan.round, m, d), row))
+    for cell, items in picks.items():
+        block = trained[cell] if isinstance(trained, list) else trained
+        idx = to_device(np.asarray([r for _, r in items]), np.int64,
+                        next(iter(block.values())).device)
+        rows = {name: v.index_select(0, idx) for name, v in block.items()}
+        for j, (key, _) in enumerate(items):
+            stale_updates[key] = {name: v[j] for name, v in rows.items()}
 
 
 def _matured(stale_updates: Dict[StaleKey, Params], plan: RoundPlan
@@ -196,7 +233,8 @@ def _blend_stale(current: Params, mass: float,
     ``acc = w·M``, then ``acc = acc + c̃_j·v_j`` per update, then
     ``acc / total``. Every coefficient is a float32 tensor (one pinned
     copy to the device), so the division is IEEE division, never a
-    multiply by a reciprocal, and the same on the CPU and the card."""
+    multiply by a reciprocal, and the same on the CPU and the card.
+    Updates harvested on another cell's device move to the model's."""
     total = mass + sum(w for w, _ in updates)
     cur0 = next(iter(current.values()))
     coef = to_device(np.array([mass] + [w for w, _ in updates] + [total],
@@ -205,7 +243,7 @@ def _blend_stale(current: Params, mass: float,
     for k, cur in current.items():
         acc = cur.float() * coef[0]
         for j, (_, tree) in enumerate(updates, 1):
-            acc = acc + coef[j] * tree[k].float()
+            acc = acc + coef[j] * tree[k].to(cur.device).float()
         out[k] = (acc / coef[-1]).to(cur.dtype)
     return out
 
@@ -425,7 +463,13 @@ class FusedExecutor(RoundExecutor):
         self._stale_updates: Dict[StaleKey, Params] = {}
         self.stats = PipelineStats() if pipeline else None
 
-    # -- device id -> data row resolution ---------------------------------
+    # -- id -> row resolution ---------------------------------------------
+    def _rows(self, models: List[int]) -> List[int]:
+        """Plans name models by id; the bank's ``row_of`` places them (the
+        identity on one shard, until a restore re-places the ids)."""
+        row_of = self.registry.params.row_of
+        return [row_of[m] for m in models]
+
     def _drows(self, device_ids: List[int]) -> List[int]:
         """Plans name devices by id; the bank's ``row_of`` resolves their
         data rows at dispatch (the identity while there is no churn)."""
@@ -487,7 +531,7 @@ class FusedExecutor(RoundExecutor):
         of the plan's pairs: dead pairs score c=0 and models outside the
         plan's agg set get no weight row, so the superset aggregates
         identically)."""
-        agg_rows = pad_live_rows(plan.agg_models)
+        agg_rows = pad_live_rows(self._rows(plan.agg_models))
         slot = {m: j for j, m in enumerate(plan.agg_models)}
         w = np.zeros((len(agg_rows), meta.b_pad), np.float32)
         for k, (m, d) in enumerate(zip(meta.pair_model, meta.pair_device)):
@@ -497,15 +541,16 @@ class FusedExecutor(RoundExecutor):
         w[len(plan.agg_models):] = w[0]
         return w, agg_rows
 
-    def _dispatch_train(self, tree: Params, pair_model: List[int],
+    def _dispatch_train(self, pair_model: List[int],
                         pair_device: List[int], perms: np.ndarray
                         ) -> Tuple[Params, TrainMeta]:
-        # d_idx holds data ROWS; perms stay indexed by device id
+        # m_idx / d_idx hold bank and data ROWS; perms stay indexed by
+        # device id
         m_idx, d_idx, pperms = pad_work_batch(
-            pair_model, self._drows(pair_device),
+            self._rows(pair_model), self._drows(pair_device),
             [perms[d] for d in pair_device])
-        trained = self._train(tree, m_idx, *self._dev["train"], d_idx,
-                              pperms)
+        trained = self._train(self.registry.params.tree, m_idx,
+                              *self._dev["train"], d_idx, pperms)
         return trained, TrainMeta(list(pair_model), list(pair_device),
                                   len(m_idx))
 
@@ -525,13 +570,16 @@ class FusedExecutor(RoundExecutor):
                     for j, m in enumerate(models)}
         return read
 
-    def _val_reader_sparse(self, vec: torch.Tensor, plan: RoundPlan
+    def _val_reader_sparse(self, vec: torch.Tensor, plan: RoundPlan,
+                           positions: Optional[List[int]] = None
                            ) -> Callable:
         """Merge sparse per-pair accuracies into full cached rows: pair
-        k's value is ``vec[k]``; untouched entries keep their cached value
-        and never-scored rows start at zero (only active entries are ever
-        read)."""
+        k's value sits at ``positions[k]`` of the eval vector (the
+        identity by default, shard-bucket slots on a mesh); untouched
+        entries keep their cached value and never-scored rows start at
+        zero (only active entries are ever read)."""
         read_vec = _host_async(vec)
+        pos = positions or range(len(plan.val_pair_model))
 
         def read() -> Dict[int, np.ndarray]:
             v = read_vec()
@@ -541,19 +589,20 @@ class FusedExecutor(RoundExecutor):
                 if m not in rows:
                     rows[m] = self._val_cache.get(
                         m, np.zeros(self.n_devices)).copy()
-                rows[m][d] = v[k]
+                rows[m][d] = v[pos[k]]
             return rows
         return read
 
     def _dispatch_sparse_val(self, plan: RoundPlan) -> Callable:
         vec = self._pair_eval(self.registry.params.tree,
-                              plan.val_pair_model,
+                              self._rows(plan.val_pair_model),
                               self._drows(plan.val_pair_device),
                               *self._dev["val"])
         return self._val_reader_sparse(vec, plan)
 
     def _dispatch_dense(self, models: List[int], split: str) -> Callable:
-        mat = self._eval(self.registry.params.tree, pad_live_rows(models),
+        mat = self._eval(self.registry.params.tree,
+                         pad_live_rows(self._rows(models)),
                          *self._dev[split])
         return self._val_reader_dense(mat, models)
 
@@ -585,8 +634,8 @@ class FusedExecutor(RoundExecutor):
         w, agg_rows = self._apply_weights(meta, plan)
         val_mat, test_mat = self._finish(
             self.registry.params.tree, trained, w, agg_rows,
-            pad_live_rows(plan.val_stale or plan.live[:1]),
-            pad_live_rows(plan.test_stale or plan.live[:1]),
+            pad_live_rows(self._rows(plan.val_stale or plan.live[:1])),
+            pad_live_rows(self._rows(plan.test_stale or plan.live[:1])),
             *self._dev["val"], *self._dev["test"])
         return self._readers(plan, val_mat, test_mat)
 
@@ -612,13 +661,12 @@ class FusedExecutor(RoundExecutor):
         training."""
         self._last_plan = plan
         self._fold_stale(plan)
-        bank = self.registry.params
+        self._note_load(plan)
         if plan.pair_model and (plan.agg_models or plan.straggler_pairs):
             spec = self._take_speculation(plan)
             if spec is None:
                 trained, meta = self._dispatch_train(
-                    bank.tree, plan.pair_model, plan.pair_device,
-                    plan.perms)
+                    plan.pair_model, plan.pair_device, plan.perms)
             else:
                 trained, meta = spec
             if plan.straggler_pairs:
@@ -633,6 +681,10 @@ class FusedExecutor(RoundExecutor):
             self._drop_speculation()
             pend = self._dispatch_evals(plan)
         self._pending = (plan, pend)
+
+    def _note_load(self, plan: RoundPlan) -> None:
+        """The sharded executors observe each round's per-shard load here,
+        after the fold and before any bucketing."""
 
     # -- speculation ------------------------------------------------------
     def _discard_spec(self, invalidated: bool) -> None:
@@ -700,8 +752,7 @@ class FusedExecutor(RoundExecutor):
         if not plan.pair_model:
             return
         trained, meta = self._dispatch_train(
-            self.registry.params.tree, plan.pair_model, plan.pair_device,
-            plan.perms)
+            plan.pair_model, plan.pair_device, plan.perms)
         self._spec = (plan, trained, meta,
                       (self.registry.params.version,
                        self.databank.version))
@@ -727,8 +778,8 @@ class FusedExecutor(RoundExecutor):
 
     def eval_rows(self, rows: List[int], split: str) -> np.ndarray:
         """(len(rows), N) accuracy of the given models on one split."""
-        mat = self._eval(self.registry.params.tree, pad_live_rows(rows),
-                         *self._dev[split])
+        mat = self._eval(self.registry.params.tree,
+                         pad_live_rows(self._rows(rows)), *self._dev[split])
         return np.stack([self._to_id_row(r)
                          for r in _host(mat)[:len(rows)]])
 
@@ -773,6 +824,254 @@ class FusedExecutor(RoundExecutor):
         # predict next round's test rows: what devices prefer now
         self._pred_rows = sorted({m for m in usable if m is not None})
         return test_acc, val_acc
+
+
+class ShardedExecutor(FusedExecutor):
+    """The fused data plane over a 1-D ``model``-axis launch mesh (port of
+    ``repro/federated/executors.py:877-1096``): bank rows and work pairs
+    bucket per owning shard, each shard trains, aggregates (eq 1 through
+    the kernel, one grouped launch per shard with work), round-trips and
+    scatters only its resident rows, and only the small row-sharded eval
+    matrices cross back. Feeds the observed per-shard pair load into the
+    bank's work-aware row placement every round and, with
+    ``migrate_threshold``, migrates a row off a hot shard before the
+    round's bucketing. Launch, speculation, repair, harvest, fold,
+    readback and the eval-row caches are the fused executor's.
+
+    Row schedules pad with ``minimum=1``: the reference's pipelined
+    ``_row_floor`` (4) exists to stop its programs retracing, which the
+    port's do not; it changes padding widths only, never results."""
+
+    def __init__(self, cfg, registry, databank, loss_fn, acc_fn,
+                 mesh: LaunchMesh, pipeline: bool = False,
+                 migrate_threshold: Optional[float] = None):
+        super().__init__(cfg, registry, databank, loss_fn, acc_fn,
+                         pipeline=pipeline)
+        self.mesh = mesh
+        self._n_shards = model_axis_size(mesh)
+        self._rows_per_shard = bank_rows_per_shard(cfg.max_models, mesh)
+        self.migrate_threshold = migrate_threshold
+        self.migrations = 0
+        self._train = make_sharded_train(loss_fn, cfg.lr, mesh)
+        self._apply = (make_sharded_apply if data_axis_size(mesh) == 1
+                       else make_sharded2d_apply)(mesh, cfg.quantize_bits)
+        self._finish = make_sharded_finish(acc_fn, mesh, cfg.quantize_bits)
+        self._eval = make_sharded_eval(acc_fn, mesh)
+        self._pair_eval = make_sharded_pair_eval(acc_fn, mesh)
+
+    def _note_load(self, plan: RoundPlan) -> None:
+        counts = np.zeros(self._n_shards)
+        for r in self._rows(plan.pair_model):
+            counts[r // self._rows_per_shard] += 1
+        self.registry.params.note_pair_load(counts)
+        if self.migrate_threshold is not None:
+            # rebalance BEFORE this round's bucketing so the moved row's
+            # pairs land on its new shard; the bank version bump
+            # invalidates any speculation built on the old placement
+            self.migrations += len(
+                self.registry.params.rebalance(self.migrate_threshold))
+
+    def _shard_row_slots(self, models: List[int]
+                         ) -> Tuple[np.ndarray, Dict[int, int], List[bool]]:
+        """LOCAL row buckets for ``models``, each model's slot in the
+        (S*L, N) output, and which shards hold any of them."""
+        row_of = self.registry.params.row_of
+        idx, groups, width = shard_rows(self._rows(models),
+                                        self._rows_per_shard,
+                                        self._n_shards)
+        slot = {r: s * width + j
+                for s, g in enumerate(groups) for j, r in enumerate(g)}
+        return idx, {m: slot[row_of[m]] for m in models}, \
+            [bool(g) for g in groups]
+
+    def _bucket(self, pair_model: List[int], pair_device: List[int],
+                perms: np.ndarray):
+        # the per-shard bucket floor scales down with the shard count:
+        # the global work splits S ways
+        return shard_work_batch(
+            self._rows(pair_model), self._drows(pair_device),
+            [perms[d] for d in pair_device], self._rows_per_shard,
+            self._n_shards, minimum=max(8 // self._n_shards, 2))
+
+    def _dispatch_train(self, pair_model: List[int],
+                        pair_device: List[int], perms: np.ndarray
+                        ) -> Tuple[List[Optional[Params]], TrainMeta]:
+        m_idx, d_idx, pperms, groups, width = self._bucket(
+            pair_model, pair_device, perms)
+        trained = self._train(self.registry.params, self.databank, m_idx,
+                              d_idx, pperms, [len(g) for g in groups])
+        return trained, TrainMeta(
+            list(pair_model), list(pair_device), width, groups,
+            _group_positions(groups, width, len(pair_model)))
+
+    def _shard_agg_plan(self, agg_models: List[int], meta: TrainMeta,
+                        c: np.ndarray
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Per-shard aggregation schedule: LOCAL agg row indices (S*A,),
+        the (S*A, B) weight blocks and the keep mask guarding the
+        scatter. Pairs are addressed by META's bucket columns; a repaired
+        speculation's dead pairs find no slot (their model left the agg
+        set) or score c=0. Padding rows repeat the shard's first row and
+        its weight row, so duplicate scatter indices carry equal
+        values."""
+        S = self._n_shards
+        row_of = self.registry.params.row_of
+        agg_idx, agg_groups, a_pad = shard_rows(
+            self._rows(agg_models), self._rows_per_shard, S)
+        keep = np.zeros(S * a_pad, bool)
+        w = np.zeros((S * a_pad, meta.b_pad), np.float32)
+        for s, group in enumerate(agg_groups):
+            if not group:
+                continue
+            base = s * a_pad
+            keep[base:base + a_pad] = True
+            slot = {r: j for j, r in enumerate(group)}
+            for col, k in enumerate(meta.pair_groups[s]):
+                m, d = meta.pair_model[k], meta.pair_device[k]
+                j = slot.get(row_of[m])
+                if j is not None:
+                    w[base + j, col] = c[d, m]
+            w[base + len(group):base + a_pad] = w[base]
+        return agg_idx, keep, w
+
+    def _dispatch_apply(self, trained: List[Optional[Params]],
+                        meta: TrainMeta, plan: RoundPlan) -> None:
+        agg_idx, keep, w = self._shard_agg_plan(plan.agg_models, meta,
+                                                plan.scores)
+        self._apply(self.registry.params, trained, w, agg_idx, keep)
+
+    def _sharded_reader(self, mat: torch.Tensor, slots: Dict[int, int]
+                        ) -> Callable:
+        read_mat = _host_async(mat)
+
+        def read() -> Dict[int, np.ndarray]:
+            rows = read_mat()
+            return {m: self._to_id_row(rows[j]) for m, j in slots.items()}
+        return read
+
+    def _finish_round(self, trained: List[Optional[Params]],
+                      meta: TrainMeta, plan: RoundPlan
+                      ) -> Dict[str, Callable]:
+        agg_idx, keep, w = self._shard_agg_plan(plan.agg_models, meta,
+                                                plan.scores)
+        vidx, vslot, vrun = self._shard_row_slots(plan.val_stale)
+        tidx, tslot, trun = self._shard_row_slots(plan.test_stale)
+        val_mat, test_mat = self._finish(
+            self.registry.params, self.databank, trained, w, agg_idx, keep,
+            vidx, vrun, tidx, trun)
+        pend: Dict[str, Callable] = {}
+        if plan.val_stale:
+            pend["val"] = self._sharded_reader(val_mat, vslot)
+        if plan.test_stale:
+            pend["test"] = self._sharded_reader(test_mat, tslot)
+        return pend
+
+    def _dispatch_dense(self, models: List[int], split: str) -> Callable:
+        idx, slots, run = self._shard_row_slots(models)
+        mat = self._eval(self.registry.params, self.databank, idx, split,
+                         run)
+        return self._sharded_reader(mat, slots)
+
+    def _pair_buckets(self, plan: RoundPlan):
+        return shard_eval_pairs(
+            self._rows(plan.val_pair_model),
+            self._drows(plan.val_pair_device), self._rows_per_shard,
+            self._n_shards, minimum=max(8 // self._n_shards, 2))
+
+    def _dispatch_sparse_val(self, plan: RoundPlan) -> Callable:
+        m_idx, d_idx, groups, width = self._pair_buckets(plan)
+        vec = self._pair_eval(self.registry.params, self.databank, m_idx,
+                              d_idx, "val", [len(g) for g in groups])
+        return self._val_reader_sparse(
+            vec, plan, _group_positions(groups, width,
+                                        len(plan.val_pair_model)))
+
+    def eval_rows(self, rows: List[int], split: str) -> np.ndarray:
+        idx, slots, run = self._shard_row_slots(rows)
+        mat = _host(self._eval(self.registry.params, self.databank, idx,
+                               split, run))
+        return np.stack([self._to_id_row(mat[slots[m]]) for m in rows])
+
+
+class Sharded2DExecutor(ShardedExecutor):
+    """The data plane on the full 2-D ``(model × data)`` launch mesh (port
+    of ``repro/federated/executors.py:1099-1217``): the param bank's rows
+    shard over ``model`` as in :class:`ShardedExecutor`, the data bank's
+    rows over ``data``, and work pairs bucket by owning CELL (model shard
+    of the pair's bank row × data shard of its data row). The one new
+    cross-cell step is the data-axis sum completing eq 1 (a model's
+    holders may live on several data shards), plain PyTorch as in the
+    reference; the transport round trip stays the kernels', per model
+    shard. Discrete state matches the 1-data-shard plane exactly, params
+    to reduction order."""
+
+    def __init__(self, cfg, registry, databank, loss_fn, acc_fn,
+                 mesh: LaunchMesh, pipeline: bool = False,
+                 migrate_threshold: Optional[float] = None):
+        self._n_dshards = data_axis_size(mesh)
+        super().__init__(cfg, registry, databank, loss_fn, acc_fn, mesh,
+                         pipeline=pipeline,
+                         migrate_threshold=migrate_threshold)
+
+    @property
+    def _n_cells(self) -> int:
+        return self._n_shards * self._n_dshards
+
+    def _note_load(self, plan: RoundPlan) -> None:
+        # model-axis load -> param bank (inherited), plus the data-axis
+        # twin: per-data-shard pair counts feed the data bank's placement
+        super()._note_load(plan)
+        counts = np.zeros(self._n_dshards)
+        for d in plan.pair_device:
+            counts[self.databank.shard_of(d)] += 1
+        self.databank.note_pair_load(counts)
+
+    def _bucket(self, pair_model: List[int], pair_device: List[int],
+                perms: np.ndarray):
+        # the global work splits Sm*Sd ways: the floor scales with cells
+        return shard_pairs_2d(
+            self._rows(pair_model), self._drows(pair_device),
+            [perms[d] for d in pair_device], self._rows_per_shard,
+            self._n_shards, self.databank.rows_per_shard,
+            self._n_dshards, minimum=max(8 // self._n_cells, 2))
+
+    def _shard_agg_plan(self, agg_models: List[int], meta: TrainMeta,
+                        c: np.ndarray
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The 2-D schedule: LOCAL agg row indices (Sm*A,), the
+        (Sm*A, Sd*B) weight grid — block (sm, sd) pairs model shard sm's
+        agg rows with cell (sm, sd)'s bucket columns — and the keep
+        mask. Padding agg rows repeat the shard's first row's FULL weight
+        row (every data block), so duplicate scatter indices carry equal
+        post-sum values; empty model shards keep their rows."""
+        S_m, S_d = self._n_shards, self._n_dshards
+        row_of = self.registry.params.row_of
+        agg_idx, agg_groups, a_pad = shard_rows(
+            self._rows(agg_models), self._rows_per_shard, S_m)
+        keep = np.zeros(S_m * a_pad, bool)
+        w = np.zeros((S_m * a_pad, S_d * meta.b_pad), np.float32)
+        for sm, group in enumerate(agg_groups):
+            if not group:
+                continue
+            base = sm * a_pad
+            keep[base:base + a_pad] = True
+            slot = {r: j for j, r in enumerate(group)}
+            for sd in range(S_d):
+                cbase = sd * meta.b_pad
+                for col, k in enumerate(meta.pair_groups[sm * S_d + sd]):
+                    m, d = meta.pair_model[k], meta.pair_device[k]
+                    j = slot.get(row_of[m])
+                    if j is not None:
+                        w[base + j, cbase + col] = c[d, m]
+            w[base + len(group):base + a_pad] = w[base]
+        return agg_idx, keep, w
+
+    def _pair_buckets(self, plan: RoundPlan):
+        return shard_eval_pairs_2d(
+            self._rows(plan.val_pair_model),
+            self._drows(plan.val_pair_device), self._rows_per_shard,
+            self._n_shards, self.databank.rows_per_shard,
+            self._n_dshards, minimum=max(8 // self._n_cells, 2))
 
 
 # -- FedAvg executor ----------------------------------------------------------
@@ -848,6 +1147,27 @@ class FedAvgHostExecutor:
         return result
 
 
+class _GlobalModel:
+    """FedAvg's global model as a ``(1, ...)`` bank (``stacked``, also
+    ``tree``: one row, which every model shard holds) on its owner
+    device; a cell on another device reads a copy refreshed after each
+    write (``mark_written``)."""
+
+    rows_per_shard = 0
+
+    def __init__(self, stacked: Params):
+        self.stacked = self.tree = stacked
+        self._stamp = 0
+        self._replicas = Replicas()
+
+    def resident(self, sm: int, device: torch.device) -> Params:
+        return self._replicas.get(0, self._stamp, self.stacked,
+                                  torch.device(device))
+
+    def mark_written(self) -> None:
+        self._stamp += 1
+
+
 class FedAvgFusedExecutor:
     """Device-resident FedAvg: the global model is row 0 of a (1, ...)
     bank; a round trains the participants (``make_pair_train``) and
@@ -865,7 +1185,8 @@ class FedAvgFusedExecutor:
         self.databank = databank
         self.n_devices = databank.id_cap
         self.pipeline = pipeline
-        self._stacked = {k: v[None].clone() for k, v in init_params.items()}
+        self._model = _GlobalModel({k: v[None].clone()
+                                    for k, v in init_params.items()})
         self._train = make_pair_train(loss_fn, cfg.lr)
         self._finish = make_fused_finish(acc_fn)
         self._evalp = make_fused_eval(acc_fn)
@@ -879,12 +1200,17 @@ class FedAvgFusedExecutor:
     def _dev(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
         return self.databank.splits
 
+    @property
+    def _stacked(self) -> Params:
+        return self._model.stacked
+
     def get_params(self) -> Dict[str, torch.Tensor]:
         return {k: v[0] for k, v in self._stacked.items()}
 
     def set_params(self, value: Dict[str, torch.Tensor]) -> None:
         for k, v in self._stacked.items():
             v[0].copy_(torch.as_tensor(value[k]))
+        self._model.mark_written()
         self._park_spec()                # the bank was rewritten
 
     def quiesce(self) -> None:
@@ -968,3 +1294,111 @@ class FedAvgFusedExecutor:
         read_val, read_test = self._pending
         self._pending = None
         return FedAvgResult(val_acc=read_val()[0], test_acc=read_test()[0])
+
+
+class FedAvgShardedExecutor(FedAvgFusedExecutor):
+    """FedAvg's fused round with the work-PAIR axis sharded over the
+    mesh's ``model`` axis (port of ``repro/federated/executors.py:
+    1482-1559``): one global model, replicated; participating devices
+    deal round-robin over the shards, each shard trains its block and
+    reduces a partial weighted sum, and one sum over the shards
+    completes eq 1 (plain PyTorch, as in the reference)."""
+
+    def __init__(self, cfg, databank, init_params, loss_fn, acc_fn,
+                 mesh: LaunchMesh, pipeline: bool = False):
+        super().__init__(cfg, databank, init_params, loss_fn, acc_fn,
+                         pipeline=pipeline)
+        self.mesh = mesh
+        self._n_shards = model_axis_size(mesh)
+        self._train = make_sharded_train(loss_fn, cfg.lr, mesh)
+        self._finish = make_sharded_fedavg_finish(acc_fn, mesh)
+        self._evalp = make_sharded_fedavg_eval(acc_fn, mesh)
+
+    def _shard_batch(self, plan: RoundPlan):
+        """Deal the participating devices round-robin over the shards and
+        pad each shard's block to one shared bucket (zero-weight padding
+        pairs). Pair weights come from ``plan.scores`` (1 on time, 0
+        weight-zeroed). Returns (m_idx, d_idx, perms, w, groups, width);
+        ``groups[s]`` lists shard s's pair positions."""
+        S = self._n_shards
+        d_ids = np.asarray(plan.pair_device, np.int64)
+        groups = [list(range(s, len(d_ids), S)) for s in range(S)]
+        width = bucket_size(max(len(g) for g in groups),
+                            minimum=max(8 // S, 2))
+        return self._fill(plan, groups, width, d_ids)
+
+    def _fill(self, plan: RoundPlan, groups: List[List[int]], width: int,
+              rows: np.ndarray):
+        n = len(groups) * width
+        m_idx = np.zeros(n, np.int32)
+        d_idx = np.zeros(n, np.int32)
+        pp = np.zeros((n,) + plan.perms[0].shape, np.int32)
+        w = np.zeros(n, np.float32)
+        for c, g in enumerate(groups):
+            base = c * width
+            for j, k in enumerate(g):
+                d = plan.pair_device[k]
+                d_idx[base + j] = rows[k]
+                pp[base + j] = plan.perms[d]
+                w[base + j] = plan.scores[d, 0]
+        return m_idx, d_idx, pp, w, groups, width
+
+    def _dispatch_train(self, plan: RoundPlan
+                        ) -> Tuple[List[Optional[Params]], TrainMeta]:
+        m_idx, d_idx, pp, _, groups, width = self._shard_batch(plan)
+        trained = self._train(self._model, self.databank, m_idx, d_idx, pp,
+                              [len(g) for g in groups])
+        b = len(plan.pair_device)
+        return trained, TrainMeta([0] * b, list(plan.pair_device), width,
+                                  groups, _group_positions(groups, width, b))
+
+    def _dispatch_finish(self, trained: List[Optional[Params]],
+                         meta: TrainMeta, plan: RoundPlan
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        # weights come from the TRUE plan (1 per on-time pair)
+        w = np.zeros(len(trained) * meta.b_pad, np.float32)
+        for d, p in zip(meta.pair_device, meta.positions):
+            w[p] = plan.scores[d, 0]
+        return self._finish(self._model, self.databank, trained, w)
+
+    def _dispatch_eval_only(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (self._evalp(self._model.resident, self.databank, "val"),
+                self._evalp(self._model.resident, self.databank, "test"))
+
+
+class FedAvgSharded2DExecutor(FedAvgShardedExecutor):
+    """FedAvg on the full 2-D ``(model × data)`` launch mesh (port of
+    ``repro/federated/executors.py:1562-1657``): the device data's rows
+    shard over ``data``, each participating device's pair runs on a cell
+    of its owning data slice (dealt round-robin over the ``model`` axis
+    within the slice), one sum over BOTH axes completes eq 1, and each
+    data slice scores the global model on its own devices."""
+
+    def __init__(self, cfg, databank, init_params, loss_fn, acc_fn,
+                 mesh: LaunchMesh, pipeline: bool = False):
+        self._n_dshards = data_axis_size(mesh)
+        n = databank.n_present          # FedAvg's population is static
+        if n % self._n_dshards:
+            raise ValueError(
+                f"n_devices={n} must divide evenly over the data axis "
+                f"({self._n_dshards} shards)")
+        self._rows_per_dshard = n // self._n_dshards
+        super().__init__(cfg, databank, init_params, loss_fn, acc_fn, mesh,
+                         pipeline=pipeline)
+
+    def _shard_batch(self, plan: RoundPlan):
+        """Bucket pairs per owning mesh cell: device d lives in data shard
+        ``d // rows_per_dshard``; within the slice pairs deal round-robin
+        over the model axis. Cells are model-major (``cell = sm * Sd +
+        sd``); padding pairs carry zero weight."""
+        Sm, Sd = self._n_shards, self._n_dshards
+        groups: List[List[int]] = [[] for _ in range(Sm * Sd)]
+        dealt = [0] * Sd
+        for k, d in enumerate(plan.pair_device):
+            sd = d // self._rows_per_dshard
+            groups[(dealt[sd] % Sm) * Sd + sd].append(k)
+            dealt[sd] += 1
+        width = bucket_size(max((len(g) for g in groups), default=0),
+                            minimum=2)
+        rows = np.asarray(plan.pair_device, np.int64) % self._rows_per_dshard
+        return self._fill(plan, groups, width, rows)

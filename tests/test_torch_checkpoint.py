@@ -284,11 +284,21 @@ def test_param_bank_restore_writes_in_place():
     assert torch.equal(pb[1]["b"], torch.full((2,), -1.0))
     assert torch.equal(pb.tree["w"][5], torch.full((3, 2), 7.0))
     assert pb.row_of == {0: 0, 1: 1, 2: 2, 3: 3}
-    # another layout's checkpoint (no placement): ids keep their rows
-    pb.restore(_host_rows([2]))
-    assert pb._present == {2} and pb._used_rows == {2}
-    with pytest.raises(ValueError, match="model ids"):
-        pb.restore(_host_rows([1]), row_of={1: 4})
+    # another layout's checkpoint (no placement): ids re-place through
+    # the least-loaded allocator, as the reference's bank places them;
+    # a saved placement restores verbatim, whatever its rows
+    rb = JRegistry.create({"w": np.zeros((3, 2), np.float32),
+                           "b": np.zeros(2, np.float32)},
+                          m_cap=6, stacked=True).params
+    for kw in (dict(), dict(row_of={1: 4})):
+        rows = _host_rows([2] if not kw else [1])
+        pb.restore(rows, **kw)
+        rb.restore(rows, **kw)
+        assert (pb.row_of, pb._used_rows, pb._present) == \
+            (rb.row_of, rb._used_rows, rb._present)
+        for m in rows:
+            assert torch.equal(pb[m]["w"], torch.from_numpy(rows[m]["w"]))
+    assert pb.row_of == {1: 4} and pb.tree["w"][4][0, 0] == 2.0
 
 
 def _devices(d_ids, fill):

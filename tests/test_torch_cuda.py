@@ -827,3 +827,143 @@ def test_card_checkpoint_resumes_on_cpu(cuda, tmp_path):
         for k, v in card.registry.params[m].items():
             np.testing.assert_allclose(cpu.registry.params[m][k],
                                        v.cpu(), atol=1e-5, rtol=0)
+
+
+# -- the sharded planes on the card -------------------------------------------
+
+def _mesh_spec(cuda, sm, sd, **kw):
+    from repro_torch.core.spec import EngineSpec
+    from repro_torch.launch.mesh import make_launch_mesh
+    return EngineSpec(model_shards=sm, data_shards=sd,
+                      mesh=make_launch_mesh(sm, sd, devices=[cuda] * (sm * sd)),
+                      **kw)
+
+
+@pytest.mark.cuda
+def test_string_mesh_beyond_the_cards_raises(cuda):
+    """``sharded@S`` takes S CUDA devices: beyond the cards present it
+    raises, never shrinking and never moving to the CPU."""
+    from repro_torch.core.spec import EngineSpec
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="CUDA devices"):
+        EngineSpec.parse(f"sharded@{n + 1}").resolve_mesh()
+    mesh = EngineSpec.parse(f"sharded@{n}").resolve_mesh() if n > 1 else None
+    if mesh is not None:
+        assert all(d.type == "cuda" for d in mesh.devices)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (4, 1), (2, 2)],
+                         ids=["1x1", "4x1", "2x2"])
+def test_sharded_fedcd_on_card_matches_cpu(cuda, shape):
+    """The sharded plane with every cell on the card against the same
+    plane on the CPU: discrete state equal, params to 1e-5. On a 1-D
+    mesh eq 1 launches kernel 1 once per shard with work; with a data
+    axis it launches none (the plain data-axis sum)."""
+    cpu = torch.device("cpu")
+    before = twops.multi_weighted_agg.launches
+    card = _mlp_servers(cuda, {"s": _mesh_spec(cuda, *shape)})["s"]
+    launched = twops.multi_weighted_agg.launches - before
+    host = _mlp_servers(cpu, {"s": _mesh_spec(cpu, *shape)})["s"]
+    assert (launched > 0) == (shape[1] == 1)
+    assert card.registry.live_ids() == host.registry.live_ids()
+    np.testing.assert_array_equal(card.state.active, host.state.active)
+    for a, b in zip(card.metrics, host.metrics):
+        np.testing.assert_array_equal(a.preferred, b.preferred)
+    for m in host.registry.live_ids():
+        for k, v in host.registry.params[m].items():
+            np.testing.assert_allclose(card.registry.params[m][k].cpu(), v,
+                                       atol=1e-5, rtol=0)
+    assert card.registry.params.row_of == host.registry.params.row_of
+
+
+@pytest.mark.cuda
+def test_sharded_rounds_make_no_host_sync(cuda):
+    """A sharded round's launch path (bucketing, per-cell train, eq 1,
+    transport, scatter, eval) enqueues without waiting for the card: run
+    under ``set_sync_debug_mode("error")`` up to readback."""
+    srv = _mlp_servers(cuda, {"s": _mesh_spec(cuda, 2, 2,
+                                              pipeline=True)},
+                       rounds=1, quantize_bits=8)["s"]
+    ex = srv.executor
+    inner = ex.launch
+
+    def launch(plan):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            inner(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    ex.launch = launch
+    srv.run(4)
+    assert len(srv.metrics) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)], ids=["4x1", "2x2"])
+def test_sharded_fedavg_on_card_matches_fused(cuda, shape):
+    runs = _mlp_servers(cuda, {"fused": "fused",
+                               "s": _mesh_spec(cuda, *shape)},
+                        fedavg=True, rounds=4)
+    for a, b in zip(runs["fused"].metrics, runs["s"].metrics):
+        np.testing.assert_allclose(a.test_acc, b.test_acc, atol=1e-6)
+    for k, v in runs["fused"].params.items():
+        np.testing.assert_allclose(runs["s"].params[k].cpu(), v.cpu(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["plain", "pipeline+semisync", "churn"])
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)], ids=["4x1", "2x2"])
+def test_cells_on_distinct_cards_match_one_card(cuda, shape, variant):
+    """A mesh with every cell on its own card (the first four) against
+    the same mesh with every cell on one card: each bank block on its
+    owner's card, the other cells reading copies refreshed after every
+    write (the scatter, clones, folds, churn's row writes), the
+    data-axis sum and the readback crossing cards. Discrete state equal,
+    params to 1e-5. Needs four cards; skips with fewer."""
+    from repro_torch.core.spec import EngineSpec
+    from repro_torch.data.scenarios import StragglerModel, random_churn
+    from repro_torch.launch.mesh import make_launch_mesh
+
+    sm, sd = shape
+    if torch.cuda.device_count() < sm * sd:
+        pytest.skip(f"needs {sm * sd} CUDA devices")
+    extra = {"plain": {},
+             "pipeline+semisync": dict(
+                 pipeline=True,
+                 straggler=StragglerModel(distribution="lognormal",
+                                          sigma=2.0, quorum=0.6, seed=0)),
+             "churn": dict(scenario=random_churn(
+                 8, 8, seed=3, join_rate=0.5, leave_rate=0.4,
+                 drift_rate=0.3, min_devices=3, n_train=64, n_val=32,
+                 n_test=32))}[variant]
+    apart = EngineSpec(model_shards=sm, data_shards=sd,
+                       mesh=make_launch_mesh(sm, sd), **extra)
+    runs = _mlp_servers(cuda, {"one": _mesh_spec(cuda, sm, sd, **extra),
+                               "apart": apart})
+    one, srv = runs["one"], runs["apart"]
+    assert len(set(srv.mesh.devices)) == sm * sd
+    assert (srv.registry.params._tree is None
+            or srv.executor.databank._splits is None)
+    assert srv.registry.live_ids() == one.registry.live_ids()
+    np.testing.assert_array_equal(srv.state.active, one.state.active)
+    np.testing.assert_array_equal(srv.state.history, one.state.history)
+    for a, b in zip(one.metrics, srv.metrics):
+        np.testing.assert_array_equal(a.preferred, b.preferred)
+        assert a.comm_bytes == b.comm_bytes
+    for m in one.registry.live_ids():
+        for k, v in one.registry.params[m].items():
+            got = srv.registry.params[m][k]
+            assert got.device == srv.registry.params.devices[
+                srv.registry.params.shard_of(m)]
+            np.testing.assert_allclose(got.cpu(), v.cpu(), atol=1e-5,
+                                       rtol=0)
+    fed = _mlp_servers(cuda, {"one": _mesh_spec(cuda, sm, sd),
+                              "apart": EngineSpec(
+                                  model_shards=sm, data_shards=sd,
+                                  mesh=make_launch_mesh(sm, sd))},
+                       fedavg=True, rounds=4)
+    for k, v in fed["one"].params.items():
+        np.testing.assert_allclose(fed["apart"].params[k].cpu(), v.cpu(),
+                                   atol=1e-5, rtol=1e-5)

@@ -48,12 +48,16 @@ def test_port_files_found():
     # and of the checkpoint package, whose format it shares
     for name in ("__init__.py", "io.py", "state.py"):
         assert ROOT / "src" / "repro_torch" / "checkpoint" / name in PORT_FILES
+    # the launch mesh and the banks' placement on it
+    for name in ("__init__.py", "mesh.py", "sharding.py"):
+        assert ROOT / "src" / "repro_torch" / "launch" / name in PORT_FILES
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.core.fedcd, repro_torch.core.fedavg, "
             "repro_torch.data.scenarios, repro_torch.kernels.build, "
-            "repro_torch.checkpoint; "
+            "repro_torch.checkpoint, repro_torch.launch.mesh, "
+            "repro_torch.launch.sharding; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")

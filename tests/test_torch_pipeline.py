@@ -360,3 +360,85 @@ def test_pipelined_rounds_route_through_the_kernel_wrappers(monkeypatch):
     assert seen["fused"]["agg"] == 3
     assert seen["fused+pipeline"] == seen["fused"]
     assert seen["fused+pipeline+sparse:1.1"] == seen["fused"]
+
+
+# -- the mesh tiers (``tests/test_pipelined_equivalence.py:104, 222``) ------
+
+MESH_SHAPES = [(1, 1), (2, 1), (4, 1)]
+
+
+def _mesh_spec(shape, **kw):
+    from repro_torch.launch.mesh import make_launch_mesh
+    sm, sd = shape
+    return dict(model_shards=sm, data_shards=sd,
+                mesh=make_launch_mesh(sm, sd, devices=["cpu"] * (sm * sd)),
+                **kw)
+
+
+def _port_spec_run(spec_kw, rounds=ROUNDS, cfg=None, bits=0):
+    from repro_torch.core.spec import EngineSpec
+    base, data = _small_setup(quantize_bits=bits)
+    srv = _port(cfg or base, data, EngineSpec(**spec_kw), _init()[1])
+    srv.run(rounds)
+    return srv
+
+
+@pytest.mark.parametrize("shape", MESH_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_pipelined_sharded_matches_sync(runs, shape):
+    """``sharded@SxD+pipeline`` walks the reference's synchronous fused
+    trajectory, with the reference's speculation accounting: the
+    sharded executors inherit launch, speculation and repair."""
+    from test_torch_semisync import same_state
+    pip = _port_spec_run(_mesh_spec(shape, pipeline=True))
+    ref = runs[("ref", "fused")]
+    same_state(ref, pip, acc_atol=1e-6)
+    _params_close(ref, pip, atol=1e-5)
+    assert pip.pipeline_stats.as_dict() == STATS_8 == \
+        runs[("ref", "fused+pipeline")].pipeline_stats.as_dict()
+
+
+@pytest.mark.parametrize("shape,x", [((2, 1), 1.1), ((2, 2), 0.9)],
+                         ids=["2x1-1.1", "2x2-0.9"])
+def test_sparse_eval_matches_dense_sharded(runs, shape, x):
+    """Holder-only scoring on the mesh (pairs bucket per owning cell)
+    reproduces the reference's dense run, on the same rounds as the
+    reference's sparse one."""
+    from test_torch_semisync import same_state
+    sp = _port_spec_run(_mesh_spec(shape, sparse_eval=x))
+    same_state(runs[("ref", "fused")], sp, acc_atol=1e-6)
+    _params_close(runs[("ref", "fused")], sp, atol=1e-5)
+    assert sp.planner.sparse_rounds == SPARSE_ROUNDS[x]
+
+
+def test_forced_invalidation_on_a_mesh_matches_reference():
+    """A clone written between rounds lands on another shard under a
+    pending speculation: the bank version moves and the speculation is
+    retrained, as in the reference's fused run."""
+    cfg, data = _small_setup()
+    cfg = dataclasses.replace(cfg, milestones=())
+    jp, tp = _init()
+    ref = _invalidation_script(lambda: _ref(cfg, data, "fused+pipeline", jp))
+
+    def port():
+        from repro_torch.core.spec import EngineSpec
+        return _port(cfg, data, EngineSpec(**_mesh_spec((2, 1),
+                                                        pipeline=True)), tp)
+    srv = _invalidation_script(port)
+    from test_torch_semisync import same_state
+    same_state(ref, srv, acc_atol=1e-6)
+    _params_close(ref, srv, atol=1e-5)
+    assert srv.pipeline_stats.as_dict() == ref.pipeline_stats.as_dict()
+    assert srv.pipeline_stats.invalidated >= 1
+    assert srv.registry.params.shard_of(1) == 1    # the clone's shard
+
+
+@pytest.mark.parametrize("shape", [(2, 2)], ids=["2x2"])
+def test_pipelined_sharded_fedavg_matches_reference(shape):
+    from test_torch_semisync import fedavg_same, make
+    ref = make("ref", dict(pipeline=True), server="fedavg")
+    ref.run(4)
+    port = make("port", _mesh_spec(shape, pipeline=True), server="fedavg")
+    port.run(4)
+    fedavg_same(ref, port, atol=1e-6)
+    assert port.pipeline_stats.as_dict() == STATS_FEDAVG

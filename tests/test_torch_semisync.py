@@ -426,3 +426,40 @@ def test_folds_route_through_the_transport(monkeypatch):
     assert folds > 0
     assert counts["agg"] == aggs
     assert counts["roundtrip"] == aggs + folds + clones
+
+
+# -- the mesh tiers (``tests/test_semisync_equivalence.py:135-151, 203``) ---
+
+def _mesh(sm, sd):
+    from repro_torch.launch.mesh import make_launch_mesh
+    return dict(model_shards=sm, data_shards=sd,
+                mesh=lambda pkg: make_launch_mesh(
+                    sm, sd, devices=["cpu"] * (sm * sd)))
+
+
+@pytest.mark.parametrize("shape,pipeline", [((2, 1), False),
+                                            ((2, 2), True)],
+                         ids=["2x1", "2x2-pipeline"])
+def test_straggler_trajectory_engine_independent_sharded(straggled, shape,
+                                                         pipeline):
+    """The semi-sync trajectory on a mesh — harvests read out of per-cell
+    blocks, folds written into their model's shard — is the reference's
+    fused one, stats included."""
+    port = make("port", dict(_mesh(*shape), pipeline=pipeline,
+                             straggler=lambda p: straggler(p, **STRAGGLER)))
+    port.run(ROUNDS)
+    ref = straggled[("ref", False)]
+    same_state(ref, port, acc_atol=1e-6)
+    _params_close(ref, port, atol=1e-5)
+    assert port.semisync_stats.folded > 0
+
+
+@pytest.mark.parametrize("shape", [(2, 2)], ids=["2x2"])
+def test_fedavg_straggler_engine_independent_sharded(shape):
+    kw = dict(straggler=lambda p: straggler(p, **STRAGGLER))
+    ref = make("ref", kw, server="fedavg")
+    ref.run(6)
+    port = make("port", dict(_mesh(*shape), **kw), server="fedavg")
+    port.run(6)
+    assert port.semisync_stats.folded > 0
+    fedavg_same(ref, port, atol=1e-5)

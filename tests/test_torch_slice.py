@@ -173,13 +173,22 @@ def test_fedcd_above_fedavg_shares_sampling_stream():
     assert all(torch.equal(p[k], fedavg.params[k]) for k in p)
 
 
-def test_unported_options_and_missing_gpu_raise():
+def test_unported_options_and_missing_gpu_raise(monkeypatch):
+    """The sharded planes are ported (ROADMAP item 12): with
+    ``device="cpu"`` a sharded spec runs with its cells on the CPU; left
+    to the card, a mesh needs that many CUDA devices and raises without
+    them, as ``jax.make_mesh`` does beyond the device count."""
     cfg, data = _small_setup()
     p = tmlp.init_mlp_classifier(torch.Generator().manual_seed(0),
                                  hidden=32)
-    with pytest.raises(NotImplementedError):
-        TFedCD(_tcfg(cfg), p, tmlp.mlp_loss, tmlp.mlp_accuracy, data,
-               device="cpu", spec="sharded@2+pipeline")
-    with pytest.raises(NotImplementedError):
-        TFedAvg(_tcfg(cfg), p, tmlp.mlp_loss, tmlp.mlp_accuracy, data,
-                device="cpu", spec="sharded@2+pipeline")
+    for cls, name in ((TFedCD, "ShardedExecutor"),
+                      (TFedAvg, "FedAvgShardedExecutor")):
+        srv = cls(_tcfg(cfg), p, tmlp.mlp_loss, tmlp.mlp_accuracy, data,
+                  device="cpu", spec="sharded@2+pipeline")
+        assert type(srv.executor).__name__ == name
+        srv.run(1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (TFedCD, TFedAvg):
+        with pytest.raises(ValueError, match="CUDA devices"):
+            cls(_tcfg(cfg), p, tmlp.mlp_loss, tmlp.mlp_accuracy, data,
+                spec="sharded@2+pipeline")

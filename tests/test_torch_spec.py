@@ -1,11 +1,12 @@
 """The port's EngineSpec against the reference's: the same preset
 grammar, the same canonical strings, the same ``ValueError``s (the
 servers refuse ``engine="llm"`` with the reference's), the reference's
-default straggler model behind ``+semisync``, and
-``NotImplementedError`` — at construction, naming its ROADMAP item — for
-every field whose slice has not landed (a launch mesh). Semi-synchronous
-and churn specs construct and run; the checkpoint fields and ``faults``
-construct and act as in the reference (paths under ``tmp_path``).
+default straggler model behind ``+semisync``. Semi-synchronous and
+churn specs construct and run, and so do the sharded planes (ROADMAP
+item 12: ``sharded@S[xD]``, an injected launch mesh, ``+migrate``; a
+sharded preset with ``device="cpu"`` puts its cells on the CPU); the
+checkpoint fields and ``faults`` construct and act as in the reference
+(paths under ``tmp_path``).
 
 Cases are those of ``tests/test_spec.py`` (presets, bad presets, invalid
 combinations), each run through both packages.
@@ -107,16 +108,41 @@ def test_invalid_combination_rejected_like_reference(bad):
         EngineSpec(**bad).validate()
 
 
-def test_mesh_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+def test_mesh_raises_not_implemented(monkeypatch):
+    """The launch mesh is ported (ROADMAP item 12): what raised
+    ``NotImplementedError`` here now acts as in the reference. A sharded
+    preset's mesh takes that many CUDA devices and raises where there
+    are fewer (as ``jax.make_mesh`` does beyond the device count); a
+    stand-in without a ``shape`` fails both packages' shape check with
+    ``AttributeError``; an injected mesh of another shape than the spec
+    is the reference's ``ValueError``; ``engine="sharded"`` takes its
+    shard counts from the mesh and needs one."""
+    from repro.launch.mesh import make_model_mesh as j_model_mesh
+    from repro_torch.launch.mesh import make_launch_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="CUDA devices"):
         EngineSpec.parse("sharded@4").resolve_mesh()
     assert EngineSpec.parse("legacy").resolve_mesh() is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        EngineSpec(mesh=object()).validate()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        EngineSpec.from_legacy(engine="sharded", mesh=object())
-    with pytest.raises(ValueError):
-        EngineSpec.from_legacy(engine="sharded")      # mesh required
+    for cls in (EngineSpec, JSpec):
+        with pytest.raises(AttributeError):
+            cls(mesh=object()).validate()
+        with pytest.raises(AttributeError):
+            cls.from_legacy(engine="sharded", mesh=object())
+        with pytest.raises(ValueError):
+            cls.from_legacy(engine="sharded")         # mesh required
+    with pytest.raises(ValueError, match="does not match"):
+        JSpec(model_shards=2, mesh=j_model_mesh(1)).validate()
+    one = make_launch_mesh(1, 1, devices=["cpu"])
+    with pytest.raises(ValueError, match="does not match"):
+        EngineSpec(model_shards=2, mesh=one).validate()
+    mesh = make_launch_mesh(2, 2, devices=["cpu"] * 4)
+    spec = EngineSpec.from_legacy(engine="sharded", mesh=mesh)
+    assert (spec.engine, spec.model_shards, spec.data_shards) == \
+        ("fused", 2, 2)
+    assert spec.resolve_mesh() is mesh
+    assert spec.canonical == "sharded@2x2"
+    assert EngineSpec.parse("sharded@2").with_mesh(mesh).mesh is mesh
 
 
 def test_coerce_and_resolve_spec_follow_reference():
@@ -215,29 +241,40 @@ def test_deprecated_kwargs_build_the_equivalent_spec():
                 spec="fused", engine="fused", device="cpu")
 
 
+# item 12 is ported: the sharded specs construct and run, on the
+# executor the reference picks for them (``exc`` None, ``match`` the
+# executor's class); the rest raise the reference's errors
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(spec="sharded@2"), NotImplementedError, "item 12"),
-    (dict(spec="sharded@2x2+pipeline"), NotImplementedError, "item 12"),
-    (dict(spec="sharded@2+migrate:1.5"), NotImplementedError, "item 12"),
-    # churn is ported: what stops this spec is the field of a later item
-    # beside it
+    (dict(spec="sharded@2"), None, "ShardedExecutor"),
+    (dict(spec="sharded@2x2+pipeline"), None, "Sharded2DExecutor"),
+    (dict(spec="sharded@2+migrate:1.5"), None, "ShardedExecutor"),
     (dict(spec=EngineSpec(scenario=ChurnSchedule(), model_shards=2)),
-     NotImplementedError, "item 12"),
+     None, "ShardedExecutor"),
     # the LM plane is another trainer's spec: the reference's ValueError
     (dict(spec="llm"), ValueError, "mode-B LM plane"),
-    (dict(mesh=object()), NotImplementedError, "item 12"),
+    # a mesh stand-in without a shape: the reference's AttributeError
+    (dict(mesh=object()), AttributeError, "shape"),
 ])
 def test_fedcd_rejects_unported_fields_at_construction(kw, exc, match):
     cfg, data = _small_setup()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        with pytest.raises(exc, match=match):
-            TFedCD(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy,
-                   data, batch_size=16, device="cpu", **kw)
+        if exc is not None:
+            with pytest.raises(exc, match=match):
+                TFedCD(_tcfg(cfg), _mlp(), tmlp.mlp_loss,
+                       tmlp.mlp_accuracy, data, batch_size=16,
+                       device="cpu", **kw)
+            return
+        srv = TFedCD(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy,
+                     data, batch_size=16, device="cpu", **kw)
+    assert type(srv.executor).__name__ == match
+    assert srv.registry.params.n_shards == srv.spec.model_shards
+    srv.run(1)
+    assert len(srv.metrics) == 1
 
 
 @pytest.mark.parametrize("spec,exc", [
-    ("sharded@2", NotImplementedError),
+    ("sharded@2", None),                 # item 12: constructs and runs
     ("llm", ValueError),                 # as in the reference
     # FedCD-only capabilities: ValueError, as in the reference
     ("fused+sparse:0.5", ValueError),
@@ -248,6 +285,12 @@ def test_fedcd_rejects_unported_fields_at_construction(kw, exc, match):
 ])
 def test_fedavg_rejects_at_construction(spec, exc):
     cfg, data = _small_setup()
+    if exc is None:
+        srv = TFedAvg(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy,
+                      data, batch_size=16, spec=spec, device="cpu")
+        assert type(srv.executor).__name__ == "FedAvgShardedExecutor"
+        srv.run(1)
+        return
     with pytest.raises(exc):
         TFedAvg(_tcfg(cfg), _mlp(), tmlp.mlp_loss, tmlp.mlp_accuracy, data,
                 batch_size=16, spec=spec, device="cpu")
