@@ -21,13 +21,23 @@ churn and crash-and-resume; phase 13 runs the sharded planes
 (``sharded@1``, ``@4``, ``@2x2``, ``@2x2+pipeline``, ``@4`` with a forced
 row migration; FedAvg ``@4`` and ``@2x2``), every cell of a mesh on the
 one card, each against a ``fused`` run with its launch counts predicted.
+Phase 14 drives the mode-B LM trainer (``FedLLMTrainer``, the dense GQA
+family): reduced Qwen3-4B on the card against the CPU, the ``legacy``
+and ``llm+pipeline`` engines and a crash-and-resume against ``llm`` on
+the card, one train step with int8 gradient transport through the
+transport kernels against their plain versions (one launch of each per
+step), then Qwen3-4B at full width (bf16, 36 layers, d_model 2560, vocab
+151936) for 4 rounds on ``llm`` and on ``legacy``, with per-round walls,
+tokens/s, the train/eval split and the peak memory.
 
     python3 chip_smoke.py
 
 Needs one CUDA GPU and ``nvcc``; exits non-zero without a result line
 otherwise, and on any failed check. Phases print one line each; the last
 line is a JSON object with ``"ok": true``. Float32 throughout with TF32
-off for matrix products and convolutions.
+off for matrix products and convolutions, except phase 14's full-width
+model, which is bf16 as registered (its float32 products still without
+TF32).
 """
 from __future__ import annotations
 
@@ -132,6 +142,21 @@ BACK_TO_BACK = 20                   # calls captured in one graph
 # the paper config's lr (0.08) sends this CNN to NaN within a round on
 # the synthetic data, in the JAX reference as well; 0.01 stays finite
 CNN_LR = 0.01
+# the mode-B LM trainer (phase 14): card against CPU, the engines and the
+# gradient transport at reduced width on the FedCD configuration of
+# tests/test_llm_equivalence.py; then Qwen3-4B at full width, bf16
+LM_ARCH = "qwen3-4b"
+LM_CLIENTS, LM_PER, LM_SEQ, LM_ROUNDS = 4, 2, 16, 8
+LM_FED = dict(n_devices=4, devices_per_round=3, score_window=2,
+              milestones=(2, 5), late_delete_round=6, max_models=6,
+              lr=0.05, seed=0)
+LM_HIST_TOL = 1e-6                  # score history, card against CPU
+LM_PARAM_TOL = 1e-4                 # params, card against CPU (float32)
+LM_CKPT_EVERY, LM_CRASH = 2, (4, "mid-dispatch")
+LM_TRANSPORT = (8, 2, 128)          # clients, per client, seq (phase 14.3)
+FULL_LM_FED = dict(n_devices=8, devices_per_round=4, milestones=(2,),
+                   max_models=4, lr=0.01, late_delete_round=8)
+FULL_LM_CLIENTS, FULL_LM_PER, FULL_LM_SEQ, FULL_LM_ROUNDS = 8, 2, 128, 4
 
 
 def fail(msg: str) -> None:
@@ -1524,6 +1549,334 @@ def sharded_phase(run_path, device):
           flush=True)
 
 
+# -- phase 14: the mode-B LM trainer ------------------------------------------
+
+def lm_trainer(arch, fed, dims, spec, device, init, seed=0):
+    from repro_torch.config import FedCDConfig
+    from repro_torch.federated.llm import FedLLMTrainer
+    return FedLLMTrainer(arch, FedCDConfig(**fed), *dims, seed=seed,
+                         spec=spec, device=device, init_params=init)
+
+
+def lm_snapshot(tr):
+    """A trainer's discrete state, score history, losses and live params
+    (on the host)."""
+    return {
+        "active": tr.state.active.copy(), "alive": tr.state.alive.copy(),
+        "live": tr.registry.live_ids(),
+        "genealogy": {m: (e.parent, e.birth_round, e.alive)
+                      for m, e in tr.registry.entries.items()},
+        "trained": [m.trained_models for m in tr.metrics],
+        "live_per_round": [m.live_models for m in tr.metrics],
+        "history": tr.state.history.copy(),
+        "losses": [m.mean_loss for m in tr.metrics],
+        "params": {m: {k: v.detach().cpu()
+                       for k, v in tr.registry.params[m].items()}
+                   for m in tr.registry.live_ids()},
+    }
+
+
+def lm_compare(a, b, tag):
+    """Fail unless two snapshots' discrete state is equal; return the
+    score history's and the params' max abs errors."""
+    for key in ("active", "alive"):
+        if not np.array_equal(a[key], b[key]):
+            fail(f"{tag}: {key} masks differ")
+    for key in ("live", "genealogy", "trained", "live_per_round"):
+        if a[key] != b[key]:
+            fail(f"{tag}: {key} differs: {a[key]} != {b[key]}")
+    ha, hb = a["history"], b["history"]
+    if not np.array_equal(np.isnan(ha), np.isnan(hb)):
+        fail(f"{tag}: score histories differ in their empty slots")
+    hist = float(np.nanmax(np.abs(ha - hb), initial=0.0))
+    perr = max(float((a["params"][m][k].float()
+                      - b["params"][m][k].float()).abs().max())
+               for m in a["params"] for k in a["params"][m])
+    return hist, perr
+
+
+def lm_card_vs_cpu(device, arch, init):
+    """Phase 14.1: the reduced LM on ``llm``, on the card and on the CPU
+    from the same params (float32, TF32 off)."""
+    dims = (LM_CLIENTS, LM_PER, LM_SEQ)
+    snaps = {}
+    for dev in (device, "cpu"):
+        tr = lm_trainer(arch, LM_FED, dims, "llm", dev, init)
+        tr.run(LM_ROUNDS)
+        snaps[str(dev)] = lm_snapshot(tr)
+    card, host = snaps[str(device)], snaps["cpu"]
+    hist, perr = lm_compare(card, host, "LM card vs CPU")
+    if len(card["genealogy"]) < 2 or all(g[2] for g in
+                                         card["genealogy"].values()):
+        fail("LM card vs CPU: the schedule made no clone or no deletion")
+    print(f"[lm card-vs-cpu] {arch.name} reduced (d_model={arch.d_model}, "
+          f"{arch.n_layers} layers, vocab {arch.vocab_size}) {LM_ROUNDS} "
+          f"rounds on llm: discrete state equal, live={card['live']}, "
+          f"models created={len(card['genealogy'])}, trained per round="
+          f"{card['trained']}, history max_abs_err={hist}, params "
+          f"max_abs_err={perr}", flush=True)
+    if not (hist <= LM_HIST_TOL and perr <= LM_PARAM_TOL):
+        fail(f"LM card vs CPU: history {hist} > {LM_HIST_TOL} or params "
+             f"{perr} > {LM_PARAM_TOL}")
+    return card
+
+
+def lm_engines(device, arch, init, llm):
+    """Phase 14.2: legacy and llm+pipeline against llm on the card, and a
+    crash at LM_CRASH resumed from the last checkpoint."""
+    import tempfile
+
+    from repro_torch.core.spec import EngineSpec
+    from repro_torch.data.scenarios import (FaultEvent, FaultSchedule,
+                                            SimulatedCrash)
+    dims = (LM_CLIENTS, LM_PER, LM_SEQ)
+
+    def run(spec):
+        tr = lm_trainer(arch, LM_FED, dims, spec, device, init)
+        tr.run(LM_ROUNDS)
+        return lm_snapshot(tr)
+
+    _, legacy_err = lm_compare(llm, run("legacy"), "LM legacy vs llm")
+    _, pipe_err = lm_compare(llm, run("llm+pipeline"),
+                             "LM llm+pipeline vs llm")
+    with tempfile.TemporaryDirectory() as tmp:
+        crash = EngineSpec(engine="llm", save_every=LM_CKPT_EVERY,
+                           checkpoint_dir=tmp,
+                           faults=FaultSchedule((FaultEvent(*LM_CRASH),)))
+        try:
+            run(crash)
+            fail(f"LM crash: no crash at {LM_CRASH}")
+        except SimulatedCrash:
+            pass
+        tr = lm_trainer(arch, LM_FED, dims,
+                        EngineSpec(engine="llm", resume_from=tmp), device,
+                        init)
+        resumed_from = len(tr.metrics)
+        tr.run(LM_ROUNDS)
+        _, resume_err = lm_compare(llm, lm_snapshot(tr), "LM resume")
+    print(f"[lm engines] legacy == llm == llm+pipeline on the card over "
+          f"{LM_ROUNDS} rounds: discrete state equal, legacy params "
+          f"max_abs_err={legacy_err}, llm+pipeline max_abs_err={pipe_err}; "
+          f"crash at {LM_CRASH[1]}@{LM_CRASH[0]}, resumed from round "
+          f"{resumed_from}: params max_abs_err={resume_err}", flush=True)
+    if pipe_err != 0.0 or resume_err != 0.0:
+        fail(f"LM: llm+pipeline ({pipe_err}) or the resumed run "
+             f"({resume_err}) is not bit-equal to llm")
+    # the crash comes before its round's save: the last save is earlier
+    if resumed_from != (LM_CRASH[0] - 1) // LM_CKPT_EVERY * LM_CKPT_EVERY:
+        fail(f"LM resume: resumed from round {resumed_from}")
+
+
+def lm_transport(device, arch, init, counters):
+    """Phase 14.3: one ``make_train_step(grad_transport_bits=8)`` step at
+    reduced width on the card, with the transport kernels and then with
+    their plain versions; returns the kernels' launch counts."""
+    import torch
+
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.quantize import ref as qref
+    from repro_torch.launch import steps
+
+    n, per, seq = LM_TRANSPORT
+    tokens, labels = lm_batch(np.random.default_rng(0), n, per, seq,
+                              arch.vocab_size)
+    tok, lab = (torch.from_numpy(a.astype(np.int64)).to(device)
+                for a in (tokens, labels))
+    scores = torch.rand(n, generator=torch.Generator().manual_seed(1)
+                        ).to(device)
+    step = steps.make_train_step(arch, lr=0.05, remat=False,
+                                 grad_transport_bits=8)
+    kernel_q, kernel_dq = qops.quantize_group, qops.dequantize_group
+    seen = {}
+
+    def recording(tag, q_fn):
+        def q(xs, bits=8):
+            qs, ss = q_fn(xs, bits)
+            seen[tag] = ([t.clone() for t in qs], [t.clone() for t in ss])
+            return qs, ss
+        return q
+
+    def plain_q(xs, bits=8):
+        out = [qref.quantize_ref(x, bits) for x in xs]
+        return [q for q, _ in out], [s for _, s in out]
+
+    def plain_dq(qs, ss, ns):
+        return [qref.dequantize_ref(q, s, (q.shape[0], n), torch.float32)
+                for q, s, n in zip(qs, ss, ns)]
+
+    outs = {}
+    try:
+        for tag, (q_fn, dq_fn) in (("kernel", (kernel_q, kernel_dq)),
+                                   ("plain", (plain_q, plain_dq))):
+            qops.quantize_group = recording(tag, q_fn)
+            qops.dequantize_group = dq_fn
+            params = {k: v.to(device, copy=True) for k, v in init.items()}
+            for fn in counters:
+                fn.launches = 0
+            outs[tag], _ = step(params, tok, lab, scores)
+            torch.cuda.synchronize()
+            if tag == "kernel":
+                counts = {fn.__name__: fn.launches for fn in counters}
+    finally:
+        qops.quantize_group, qops.dequantize_group = kernel_q, kernel_dq
+    (kq, ks), (pq, ps) = seen["kernel"], seen["plain"]
+    off = max(int((a.int() - b.int()).abs().max()) for a, b in zip(kq, pq))
+    frac = (sum(int((a != b).sum()) for a, b in zip(kq, pq))
+            / sum(a.numel() for a in kq))
+    srel = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+               for a, b in zip(ks, ps))
+    perr = max(float((outs["kernel"][k] - outs["plain"][k]).abs().max())
+               for k in outs["kernel"])
+    print(f"[lm grad transport] {arch.name} reduced, one step of "
+          f"{n}x{per}x{seq} tokens, {len(kq)} leaves through the "
+          f"transport: codes max_off={off} code_mismatch_share={frac} "
+          f"scale_rel_err={srel} params max_abs_err={perr} "
+          f"launches={counts}", flush=True)
+    if off > 1 or frac >= 1e-3 or srel > 1e-6:
+        fail("LM grad transport: kernels disagree with the plain versions")
+    if counts["quantize"] != 1 or counts["dequantize"] != 1:
+        fail(f"LM grad transport: {counts} launches, expected one "
+             "quantize and one dequantize per step")
+    return counts
+
+
+class LMTimer:
+    """Phase 14.4: device time of a trainer's train and eval steps (CUDA
+    events around each call). It swaps in steps built exactly as the
+    trainer builds its own."""
+
+    def __init__(self, tr):
+        import torch
+
+        from repro_torch.federated import simulation as sim
+        from repro_torch.federated.llm import make_acc_step
+        from repro_torch.launch import steps
+        self.events = {"train": [], "eval": []}
+
+        def timed(fn, kind):
+            def call(*args, **kw):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                out = fn(*args, **kw)
+                end.record()
+                self.events[kind].append((start, end))
+                return out
+            return call
+
+        train = timed(steps.make_train_step(tr.arch, lr=tr.fed.lr,
+                                            remat=False), "train")
+        acc = timed(make_acc_step(tr.arch, tr.n_clients,
+                                  batch_size=tr.n_clients * tr.per_client),
+                    "eval")
+        ex = tr.executor
+        if hasattr(ex, "_round"):
+            ex._round = sim.make_llm_round(train, acc)
+            ex._eval = sim.make_llm_eval(acc)
+        else:
+            ex._train, ex._acc = train, acc
+
+    def take(self):
+        import torch
+        torch.cuda.synchronize()
+        out = {k: sum(s.elapsed_time(e) for s, e in v)
+               for k, v in self.events.items()}
+        for v in self.events.values():
+            v.clear()
+        return out
+
+
+def lm_full_width(device, card_line):
+    """Phase 14.4: Qwen3-4B at full width (as registered: bf16, 36 layers,
+    d_model 2560, vocab 151936), 4 rounds with a milestone clone, on llm
+    and then on legacy from the same random params."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    arch = get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+    init = tf.init_lm(arch, torch.Generator(device=device).manual_seed(0),
+                      device=device)
+    n_params = sum(v.numel() for v in init.values())
+    init = {k: v.cpu() for k, v in init.items()}
+    torch.cuda.empty_cache()
+    print(f"[lm full init] {arch.name}: {n_params} params "
+          f"({n_params * 2 / 1e9:.3f} GB bf16) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    dims = (FULL_LM_CLIENTS, FULL_LM_PER, FULL_LM_SEQ)
+    tokens_per_model = FULL_LM_CLIENTS * FULL_LM_PER * FULL_LM_SEQ
+    snaps = {}
+    for spec in ("llm", "legacy"):
+        torch.cuda.reset_peak_memory_stats()
+        tr = lm_trainer(arch, FULL_LM_FED, dims, spec, device, init)
+        timer = LMTimer(tr)
+        rows = []
+        for t in range(1, FULL_LM_ROUNDS + 1):
+            t1 = time.perf_counter()
+            m = tr.run_round(t)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            split = timer.take()
+            tokens = m.trained_models * tokens_per_model
+            rows.append((wall, split, tokens))
+            print(f"[lm full {spec} round {t}] wall_s={wall:.4f} "
+                  f"train_ms={split['train']:.3f} "
+                  f"eval_ms={split['eval']:.3f} trained_models="
+                  f"{m.trained_models} live={m.live_models} "
+                  f"loss={m.mean_loss} tokens={tokens} ({card_line})",
+                  flush=True)
+            if m.trained_models and not np.isfinite(m.mean_loss):
+                fail(f"LM full width {spec}: round {t} loss {m.mean_loss}")
+        peak = torch.cuda.max_memory_allocated()
+        later = rows[1:]
+        wall = float(np.mean([r[0] for r in later]))
+        tok = sum(r[2] for r in later)
+        train_ms = sum(r[1]["train"] for r in later)
+        eval_ms = sum(r[1]["eval"] for r in later)
+        print(f"[lm full {spec}] {arch.name} {arch.n_layers}x"
+              f"{arch.d_model} vocab {arch.vocab_size} {arch.param_dtype}, "
+              f"{FULL_LM_CLIENTS} clients x {FULL_LM_PER} x {FULL_LM_SEQ} "
+              f"tokens, max_models={FULL_LM_FED['max_models']}: mean wall_s "
+              f"rounds 2-{FULL_LM_ROUNDS}={wall:.4f} walls="
+              f"{[round(r[0], 4) for r in rows]} training tokens/s (wall)="
+              f"{tok / sum(r[0] for r in later):.1f} training tokens/s "
+              f"(train device time)={tok / (train_ms / 1e3):.1f} "
+              f"train_ms={train_ms:.3f} eval_ms={eval_ms:.3f} "
+              f"max_memory_allocated={peak} ({peak / 2**30:.2f} GiB) "
+              f"({card_line})", flush=True)
+        if not any(r[2] for r in rows):
+            fail(f"LM full width {spec}: no model trained")
+        snaps[spec] = lm_snapshot(tr)
+        del tr, timer
+        gc.collect()
+        torch.cuda.empty_cache()
+    hist, perr = lm_compare(snaps["llm"], snaps["legacy"],
+                            "LM full width legacy vs llm")
+    print(f"[lm full engines] llm == legacy: discrete state equal, live="
+          f"{snaps['llm']['live']}, history max_abs_err={hist}, params "
+          f"max_abs_err={perr}", flush=True)
+
+
+def lm_phase(device, card_line, counters):
+    """Phase 14 (module docstring); returns the launch counts of the
+    gradient transport's path."""
+    import torch
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import transformer as tf
+    arch = reduced(get_arch(LM_ARCH))
+    init = tf.init_lm(arch, torch.Generator().manual_seed(0))
+    llm = lm_card_vs_cpu(device, arch, init)
+    lm_engines(device, arch, init, llm)
+    counts = lm_transport(device, arch, init, counters)
+    lm_full_width(device, card_line)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1783,6 +2136,10 @@ def main() -> int:
             clock.remove()
         nosync.remove()
         torch.backends.cudnn.deterministic = False
+
+    # phase 14: the mode-B LM trainer (card against CPU, engines, the
+    # gradient transport's kernels, Qwen3-4B at full width)
+    later["lm grad transport"] = lm_phase(device, card_line, counters)
 
     # launches: kernels 1-3 on the fused main path, weighted_agg on the
     # legacy path; dequant_agg is on no path, so its count stays 0. Each

@@ -1,5 +1,7 @@
 """Elastic checkpoint/resume: the complete logical round state (port of
-``repro/checkpoint/state.py``, the ``fedcd`` and ``fedavg`` kinds).
+``repro/checkpoint/state.py``: the ``fedcd``, ``fedavg`` and ``fedllm``
+kinds; the ``fedllm`` kind's draft rows are the serving plane's, ROADMAP
+item 14).
 
 ``checkpoint/io.py`` snapshots one tree; this module snapshots a RUNNING
 SERVER — everything the next round depends on, keyed by the control
@@ -117,10 +119,17 @@ def _set_rng(gen: np.random.Generator, state: dict) -> None:
 
 
 def _kind(server: Any) -> str:
-    """Duck-typed dispatch, as in the reference: FedCDServer carries a
-    planner, FedAvgServer none. (The reference's third kind, ``fedllm``,
-    is its LM trainer's; such a manifest fails the kind check.)"""
+    """Duck-typed dispatch, as in the reference: FedLLMTrainer carries a
+    client count (checked FIRST — it carries a planner too), FedCDServer
+    a planner, FedAvgServer neither."""
+    if hasattr(server, "n_clients"):
+        return "fedllm"
     return "fedcd" if hasattr(server, "planner") else "fedavg"
+
+
+def _config(server: Any) -> dict:
+    return to_dict(server.cfg) if hasattr(server, "cfg") else \
+        to_dict(server.fed)
 
 
 def _param_template(server: Any) -> Template:
@@ -285,6 +294,38 @@ def _snapshot_fedavg(server: Any) -> Tuple[dict, dict]:
     return arrays, scalars
 
 
+def _snapshot_fedllm(server: Any) -> Tuple[dict, dict]:
+    arrays: Dict[str, np.ndarray] = {}
+    scalars: Dict[str, Any] = {}
+    _snapshot_scores(arrays, server.state)
+    _snapshot_params(arrays, scalars, server.registry)
+    scalars["registry"] = server.registry.to_json()
+    scalars["rng"] = {"rng": _rng_state(server.rng)}
+    # the pipelined trainer's saved RNG stream is PAST round t+1's
+    # draws — the prefetched inputs themselves must ride along or the
+    # resumed round t+1 would re-draw from the wrong stream position
+    pf = server._prefetch
+    if pf is None:
+        scalars["prefetch_round"] = None
+    else:
+        scalars["prefetch_round"] = int(pf[0])
+        for name, a in zip(("participating", "tokens", "labels", "vt",
+                            "vl"), pf[1:]):
+            arrays[f"prefetch/{name}"] = np.asarray(a)
+    if server.metrics:
+        arrays["metrics/client_acc"] = np.stack(
+            [m.client_acc for m in server.metrics])
+    scalars["metrics"] = [
+        {"round": m.round, "mean_loss": m.mean_loss,
+         "live_models": m.live_models, "active_models": m.active_models,
+         "score_std": m.score_std, "wall_s": m.wall_s,
+         "trained_models": m.trained_models}
+        for m in server.metrics]
+    scalars["n_devices"] = int(server.n_clients)
+    scalars["draft"] = None          # draft rows: ROADMAP item 14
+    return arrays, scalars
+
+
 # -- save --------------------------------------------------------------------
 
 def save_server_state(server: Any, path: str,
@@ -304,14 +345,15 @@ def save_server_state(server: Any, path: str,
         ex.quiesce()
     kind = _kind(server)
     arrays, scalars = {"fedcd": _snapshot_fedcd,
-                       "fedavg": _snapshot_fedavg}[kind](server)
+                       "fedavg": _snapshot_fedavg,
+                       "fedllm": _snapshot_fedllm}[kind](server)
     last_round = server.metrics[-1].round if server.metrics else 0
     manifest = {
         "schema": SCHEMA,
         "kind": kind,
         "round": last_round,
         "engine": server.spec.canonical,
-        "config": to_dict(server.cfg),
+        "config": _config(server),
         "arrays": {k: {"crc32": _crc(v), "dtype": str(v.dtype),
                        "shape": list(v.shape)}
                    for k, v in arrays.items()},
@@ -393,7 +435,7 @@ def latest_checkpoint(root: str) -> Optional[str]:
 
 
 def _check_config(server: Any, manifest: dict) -> None:
-    cfg = to_dict(server.cfg)
+    cfg = _config(server)
     saved = manifest["config"]
     diff = sorted(k for k in set(cfg) | set(saved)
                   if _jsonish(cfg.get(k)) != saved.get(k))
@@ -407,11 +449,12 @@ def _check_config(server: Any, manifest: dict) -> None:
         raise CheckpointError(
             f"checkpoint kind {manifest['kind']!r} cannot restore into "
             f"a {kind!r} server")
-    if manifest["state"]["n_devices"] != server.n_devices:
+    n = server.n_clients if kind == "fedllm" else server.n_devices
+    if manifest["state"]["n_devices"] != n:
         raise CheckpointError(
             f"device-id space mismatch: checkpoint "
-            f"{manifest['state']['n_devices']} != server "
-            f"{server.n_devices} (same scenario required)")
+            f"{manifest['state']['n_devices']} != server {n} "
+            "(same scenario required)")
 
 
 def _jsonish(v: Any) -> Any:
@@ -535,6 +578,10 @@ def restore_server_state(server: Any, path: str) -> int:
     _check_config(server, manifest)
     kind = _kind(server)
     scalars = manifest["state"]
+    if kind == "fedllm" and scalars.get("draft"):
+        raise NotImplementedError(
+            "checkpoint carries draft rows (speculative serving): not "
+            "ported yet (ROADMAP item 14)")
     _set_rng(server.rng, scalars["rng"]["rng"])
 
     if kind == "fedcd":
@@ -564,7 +611,7 @@ def restore_server_state(server: Any, path: str) -> int:
                          comm_bytes=s["comm_bytes"], wall_s=s["wall_s"],
                          preferred=arrays["metrics/preferred"][i])
             for i, s in enumerate(scalars["metrics"])]
-    else:                                # fedavg
+    elif kind == "fedavg":
         template = _param_template(server)
         server.executor.set_params(_to_server(
             _unflatten(template, arrays, "params/0"), template,
@@ -578,6 +625,29 @@ def restore_server_state(server: Any, path: str) -> int:
                         test_acc=arrays["metrics/test_acc"][i],
                         val_acc=arrays["metrics/val_acc"][i],
                         comm_bytes=s["comm_bytes"], wall_s=s["wall_s"])
+            for i, s in enumerate(scalars["metrics"])]
+    else:                                # fedllm
+        _restore_scores(server, arrays)
+        _restore_params(server, manifest, arrays)
+        pr = scalars.get("prefetch_round")
+        if pr is not None and "prefetch/tokens" in arrays:
+            server._prefetch = (
+                int(pr),
+                np.asarray(arrays["prefetch/participating"], bool),
+                np.asarray(arrays["prefetch/tokens"]),
+                np.asarray(arrays["prefetch/labels"]),
+                np.asarray(arrays["prefetch/vt"]),
+                np.asarray(arrays["prefetch/vl"]))
+        else:
+            server._prefetch = None
+        from repro_torch.federated.llm import LLMRoundMetrics
+        server.metrics = [
+            LLMRoundMetrics(round=s["round"], mean_loss=s["mean_loss"],
+                            client_acc=arrays["metrics/client_acc"][i],
+                            live_models=s["live_models"],
+                            active_models=s["active_models"],
+                            score_std=s["score_std"], wall_s=s["wall_s"],
+                            trained_models=s.get("trained_models", 0))
             for i, s in enumerate(scalars["metrics"])]
     return manifest["round"]
 

@@ -6,6 +6,10 @@ a flat ``{name: tensor}`` dict in the reference's leaf order: dict keys
 sorted, list items in order, names joined with ``.`` (``conv.3`` is
 ``tree["conv"][3]``). Layouts are unchanged — the port keeps the
 reference's HWIO conv kernels and ``(in, out)`` dense weights.
+
+bfloat16 leaves cross in both directions: the reference's (ml_dtypes)
+bfloat16 arrays widen to float32 and cast to ``torch.bfloat16``, and a
+bfloat16 tensor leaves as a float32 array. Both widenings are exact.
 """
 from __future__ import annotations
 
@@ -32,7 +36,12 @@ def params_from_jax(tree: Any, device: Optional[Union[str, torch.device]]
                 walk(f"{prefix}{i}.", v)
         else:
             arr = np.array(node)
-            flat[prefix[:-1]] = torch.from_numpy(arr).to(device)
+            if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
+                t = torch.from_numpy(arr.astype(np.float32)).to(
+                    torch.bfloat16)
+            else:
+                t = torch.from_numpy(arr)
+            flat[prefix[:-1]] = t.to(device)
 
     walk("", tree)
     return flat
@@ -47,7 +56,10 @@ def params_to_numpy(params: Params) -> Any:
         parts = name.split(".")
         for part in parts[:-1]:
             node = node.setdefault(part, {})
-        node[parts[-1]] = t.detach().cpu().numpy()
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        node[parts[-1]] = t.cpu().numpy()
 
     def listify(node: Any) -> Any:
         if not isinstance(node, dict):

@@ -1,8 +1,9 @@
 """Device-side round executors: the data-plane half of a federated round
-(port of the mode-A executors of ``repro/federated/executors.py``:
+(port of ``repro/federated/executors.py``: the mode-A executors —
 legacy, batched, fused and mesh-sharded; synchronous, pipelined and
 semi-synchronous rounds, and device churn on the fused and sharded
-ones).
+ones — and the mode-B LM executors, ``LLMLegacyExecutor`` and
+``FedLLMExecutor``).
 
 A :class:`RoundExecutor` turns one host-built
 :class:`~repro_torch.core.plan.RoundPlan` into device work. The contract:
@@ -76,8 +77,8 @@ from repro_torch.federated.simulation import (
     make_fused_finish, make_group_eval, make_local_train, make_pair_eval,
     make_pair_train, make_sharded2d_apply, make_sharded_apply,
     make_sharded_eval, make_sharded_fedavg_eval, make_sharded_fedavg_finish,
-    make_sharded_finish, make_sharded_pair_eval, make_sharded_train,
-    pad_live_rows, pad_work_batch, shard_eval_pairs, shard_eval_pairs_2d,
+    make_llm_eval, make_llm_round, make_sharded_finish,
+    make_sharded_pair_eval, make_sharded_train, pad_live_rows, pad_work_batch, shard_eval_pairs, shard_eval_pairs_2d,
     shard_pairs_2d, shard_rows, shard_work_batch, to_device)
 from repro_torch.launch.mesh import (LaunchMesh, data_axis_size,
                                      model_axis_size)
@@ -1402,3 +1403,136 @@ class FedAvgSharded2DExecutor(FedAvgShardedExecutor):
                             minimum=2)
         rows = np.asarray(plan.pair_device, np.int64) % self._rows_per_dshard
         return self._fill(plan, groups, width, rows)
+
+
+# -- mode-B LM executors (DESIGN.md §14) ----------------------------------
+
+class LLMExecutorBase(RoundExecutor):
+    """Shared scaffolding for the mode-B LM executors driven by
+    ``federated.llm.FedLLMTrainer``. Unlike the mode-A executors the
+    round's token batches are drawn host-side by the trainer (the LM data
+    plane has no data bank), so the trainer hands them over through
+    :meth:`set_batches` before ``launch``. Train and accuracy steps come
+    from ``launch.steps.make_train_step`` / ``llm.make_acc_step``; the
+    train step updates its params in place."""
+
+    def __init__(self, fed: FedCDConfig, registry: ModelRegistry,
+                 n_clients: int, device: torch.device):
+        # deliberately NOT RoundExecutor.__init__ — there is no mode-A
+        # data plane to adopt
+        self.cfg = fed
+        self.registry = registry
+        self.databank = None
+        self.n_devices = n_clients
+        self.device = torch.device(device)
+        self._result: Optional[RoundResult] = None
+        self._batches = None
+        self._pending: Optional[RoundPlan] = None
+        self.round_losses: List[float] = []
+
+    def set_batches(self, tokens: np.ndarray, labels: np.ndarray,
+                    vt: np.ndarray, vl: np.ndarray) -> None:
+        """Hand this round's (train, val) token batches to the executor
+        (host arrays, uploaded once per round through pinned memory)."""
+        self._batches = tuple(to_device(a, np.int64, self.device)
+                              for a in (tokens, labels, vt, vl))
+
+    def _train_sets(self, plan: RoundPlan
+                    ) -> Tuple[List[int], List[np.ndarray]]:
+        """Models that actually train this round + their per-client
+        weight rows: the plan's agg set minus models whose weight mass
+        is zero (scores can underflow to 0 for every holder — the
+        legacy loop's ``w.sum() <= 0`` skip, kept so both engines train
+        the identical set)."""
+        models, weights = [], []
+        for m in plan.agg_models:
+            w = self._holder_weights(plan, m)
+            if w.sum() <= 0:
+                continue
+            models.append(m)
+            weights.append(w)
+        return models, weights
+
+    def readback(self) -> RoundResult:
+        self._pending = None
+        result, self._result = self._result, None
+        return result
+
+    def collect(self, preferred: np.ndarray
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        raise NotImplementedError(
+            "the LM path has no test split / preferred-model collection")
+
+
+class LLMLegacyExecutor(LLMExecutorBase):
+    """The per-model loop over dict-mode registry storage — the LM
+    plane's equivalence oracle: every model trains and evaluates on its
+    own, and the host reads each loss and accuracy row as it comes."""
+
+    def __init__(self, fed, registry, n_clients, train_fn, acc_fn,
+                 device: torch.device):
+        super().__init__(fed, registry, n_clients, device)
+        self._train = train_fn
+        self._acc = acc_fn
+
+    def launch(self, plan: RoundPlan) -> None:
+        tokens, labels, vt, vl = self._batches
+        losses = []
+        for m, w in zip(*self._train_sets(plan)):
+            _, met = self._train(self.registry.params[m], tokens, labels,
+                                 to_device(w, np.float32, self.device),
+                                 None)
+            losses.append(float(met["loss"]))
+        self.round_losses = losses
+        accs = np.zeros((self.n_devices, self.cfg.max_models))
+        for m in plan.live:
+            accs[:, m] = _host(self._acc(self.registry.params[m], vt, vl))
+        self._result = RoundResult(accs)
+        self._pending = plan
+
+
+class FedLLMExecutor(LLMExecutorBase):
+    """The stacked LM engine: params live in a per-layer-stacked
+    ``StackedParamBank`` and the round trains each training row of the
+    bank in place, then scores every live row (``simulation.
+    make_llm_round``), all enqueued without waiting for the card; the
+    losses and the accuracy matrix come back through pinned copies that
+    :meth:`readback` waits on. The model-row axis is a pure batch axis,
+    so the trajectory is the per-model loop's exactly."""
+
+    def __init__(self, fed, registry, n_clients, train_fn, acc_fn,
+                 device: torch.device):
+        super().__init__(fed, registry, n_clients, device)
+        self._round = make_llm_round(train_fn, acc_fn)
+        self._eval = make_llm_eval(acc_fn)
+        self._readers: Optional[Tuple[Callable, Optional[Callable]]] = None
+
+    def launch(self, plan: RoundPlan) -> None:
+        tokens, labels, vt, vl = self._batches
+        bank = self.registry.params
+        models, weights = self._train_sets(plan)
+        eval_rows = [bank.row_of[m] for m in plan.live]
+        if models:
+            rows = [bank.row_of[m] for m in models]
+            w = to_device(np.stack(weights), np.float32, self.device)
+            losses, mat = self._round(bank.tree, rows, w, tokens, labels,
+                                      vt, vl, eval_rows)
+            loss_reader: Optional[Callable] = _host_async(losses)
+        else:
+            mat = self._eval(bank.tree, eval_rows, vt, vl)
+            loss_reader = None
+        self._readers = (_host_async(mat), loss_reader)
+        self._pending = plan
+
+    def readback(self) -> RoundResult:
+        plan = self._pending
+        mat_reader, loss_reader = self._readers
+        self._readers = None
+        mat = mat_reader()
+        self.round_losses = ([float(x) for x in loss_reader()]
+                             if loss_reader is not None else [])
+        accs = np.zeros((self.n_devices, self.cfg.max_models))
+        for j, m in enumerate(plan.live):
+            accs[:, m] = mat[j]
+        self._result = RoundResult(accs)
+        return super().readback()

@@ -1,6 +1,6 @@
-"""Mode-A federated simulation: local SGD on the devices' data (port of
+"""Federated simulation: local SGD on the devices' data (port of
 ``repro/federated/simulation.py``: the legacy, batched, fused and
-mesh-sharded engines' building blocks).
+mesh-sharded engines' building blocks, and the mode-B LM round).
 
 Every ``(model, device)`` pair trains a copy of its model on the
 device's data for E epochs of minibatch SGD, all pairs at once
@@ -20,7 +20,10 @@ device's data for E epochs of minibatch SGD, all pairs at once
 * the sharded planes on a launch mesh: the reference's host bucketing
   (``shard_rows``, ``shard_work_batch``, ``shard_pairs_2d``, ...) and
   per-cell builders (``make_sharded_train``, ``make_sharded_finish``,
-  ...), each cell's block run on its own device.
+  ...), each cell's block run on its own device;
+* the mode-B LM plane: ``make_llm_round`` / ``make_llm_eval``, which
+  train and score the rows of a per-layer-stacked transformer bank in
+  place.
 
 Index, permutation and weight arguments are host numpy arrays; params
 and data are tensors on the server's device. A host array reaches the
@@ -876,3 +879,59 @@ def draw_round_sample(rng: np.random.Generator, n_devices: int,
     participating[chosen] = True
     perms = make_perms(rng, n_devices, n_examples, batch_size, epochs)
     return participating, perms
+
+
+# -- mode-B LM round programs (DESIGN.md §14) -----------------------------
+
+def _bank_row(bank: Params, r: int) -> Params:
+    """Bank row ``r`` as views: in-place writes land in the bank."""
+    return {k: v[r] for k, v in bank.items()}
+
+
+def _eval_rows(acc_fn: Callable, bank: Params, eval_rows: "list[int]",
+               vt: torch.Tensor, vl: torch.Tensor) -> torch.Tensor:
+    if not len(eval_rows):
+        return torch.zeros((0, vt.shape[0]), device=vt.device)
+    return torch.stack([acc_fn(_bank_row(bank, int(r)), vt, vl)
+                        for r in eval_rows])                 # (L, N)
+
+
+def make_llm_round(train_fn: Callable, acc_fn: Callable) -> Callable:
+    """A mode-B LM round over a per-layer-stacked bank: train each of the
+    listed rows IN PLACE with its per-client weight row, then evaluate
+    per-client accuracy on each eval row. Returns (losses (T,), accs
+    (L, N)), both on the bank's device, without waiting for the card.
+
+    The reference gathers the training rows into a copy of the bank,
+    scans the step over it, scatters the rows back, then gathers the
+    eval rows into another copy (and pads both row lists to stable
+    shapes against retraces). The rows are independent — every
+    contraction stays within one model — so training each row where it
+    lies computes the same values without the copies (at full width a
+    copy of a row is a whole model), and there is nothing to retrace.
+
+    ``train_fn``/``acc_fn`` are the single-model steps of
+    ``launch.steps.make_train_step`` (which updates its params in place)
+    and ``llm.make_acc_step``."""
+
+    def round_step(bank: Params, train_rows, w: torch.Tensor, tokens,
+                   labels, vt, vl, eval_rows):
+        losses = []
+        for r, wm in zip(train_rows, w):
+            _, met = train_fn(_bank_row(bank, int(r)), tokens, labels, wm,
+                              None)
+            losses.append(met["loss"])
+        return torch.stack(losses), _eval_rows(acc_fn, bank, eval_rows,
+                                               vt, vl)
+
+    return round_step
+
+
+def make_llm_eval(acc_fn: Callable) -> Callable:
+    """Eval-only LM round (no model trains): per-client accuracy of each
+    eval row of the bank, which it only reads."""
+
+    def eval_step(bank: Params, eval_rows, vt, vl):
+        return _eval_rows(acc_fn, bank, eval_rows, vt, vl)
+
+    return eval_step

@@ -1,0 +1,206 @@
+"""Step builders for the FedCD mode-B round (port of
+``repro/launch/steps.py:25-151``: ``client_weights_per_row``,
+``_lm_loss``, ``quantize_grads``, ``make_train_step`` and
+``make_eval_step``; the prefill and serve steps are the serving plane's,
+ROADMAP item 14).
+
+``make_train_step`` is the cluster-scale FedCD round (DESIGN.md §3):
+clients are contiguous row-groups of the global batch; eq 1's
+score-weighted aggregation of per-client gradients is realized as a
+score-weighted loss — identical for E=1 because aggregation is linear in
+client gradients. Multiple global models are a host-level loop over this
+same step.
+
+The port's step trains IN PLACE: ``step(params, ...)`` writes the
+updated values into ``params``' own tensors and returns that dict (the
+LM trainer's bank rows are trained where they lie; pass a copy to keep
+the input). It takes one gradient per LAYER of each stacked segment leaf
+(``segments.*`` leaves split along their layer axis into views), so no
+stacked gradient is ever assembled; the values are the reference's,
+since every layer's slice of a stacked gradient is that layer's gradient.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.config import ArchConfig
+from repro_torch.kernels.quantize import ops as q_ops
+from repro_torch.models import transformer as tf
+from repro_torch.models.common import Params
+from repro_torch.optim import sgd_update_
+
+GradTree = Dict[str, Union[torch.Tensor, List[torch.Tensor]]]
+
+
+def client_weights_per_row(client_scores: torch.Tensor, batch: int
+                           ) -> torch.Tensor:
+    """Expand per-client FedCD scores c_i to per-row loss weights that sum
+    to 1 (eq 1 numerator/denominator in one step)."""
+    n_clients = client_scores.shape[0]
+    per = batch // n_clients
+    w = torch.repeat_interleave(client_scores, per)            # (B,)
+    return w / torch.clamp(torch.sum(w), min=1e-12)
+
+
+def _not_ported(cfg: ArchConfig, frames) -> None:
+    if frames is not None or cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: the audio (encoder-decoder) loss is not ported "
+            "yet (ROADMAP item 13b)")
+    if cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.name}: the MTP loss is not ported yet (ROADMAP item 13b)")
+
+
+def _lm_loss(cfg: ArchConfig, params, tokens, labels, row_w, mesh=None,
+             dp_axes=("data",), frames=None, remat=True):
+    """Score-weighted next-token loss (the reference's without its audio
+    and MTP branches). Returns (loss + aux, (loss, aux))."""
+    _not_ported(cfg, frames)
+    logits, _hidden, aux = tf.lm_forward(cfg, params, tokens, mesh=mesh,
+                                         dp_axes=dp_axes, remat=remat)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = (logz - gold).mean(dim=-1)                           # (B,)
+    loss = torch.sum(nll * row_w)
+    return loss + aux, (loss, aux)
+
+
+def _parts(g: Union[torch.Tensor, Sequence[torch.Tensor]]
+           ) -> List[torch.Tensor]:
+    return [g] if isinstance(g, torch.Tensor) else list(g)
+
+
+def quantize_grads(grads: GradTree, bits: int = 8) -> GradTree:
+    """Paper §3.4 applied to the aggregation payload: blockwise-int8
+    round-trip of the gradient tree (what crosses the wire in a FedCD
+    round). Each leaf — a stacked leaf given as its per-layer parts too —
+    is flattened to ONE float32 row (exact for bfloat16) in the stacked
+    leaf's memory order; leaves of fewer than 128 values and scalars pass
+    through. Every other leaf goes through one ``quantize_group`` and one
+    ``dequantize_group`` call: on the card one launch of each kernel (per
+    32 leaves), on CPU tensors their plain versions. The result has each
+    part's shape and dtype."""
+    names, rows = [], []
+    for k, g in grads.items():
+        parts = _parts(g)
+        n = sum(p.numel() for p in parts)
+        if (len(parts) == 1 and parts[0].dim() == 0) or n < 128:
+            continue
+        names.append(k)
+        rows.append(torch.cat([p.reshape(-1).float() for p in parts])[None]
+                    if len(parts) > 1 else
+                    parts[0].reshape(1, -1).float().contiguous())
+    qs, ss = q_ops.quantize_group(rows, bits)
+    outs = q_ops.dequantize_group(qs, ss, [r.shape[1] for r in rows])
+    out: GradTree = dict(grads)
+    for k, flat in zip(names, outs):
+        parts, pieces, o = _parts(grads[k]), [], 0
+        for p in parts:
+            pieces.append(flat[0, o:o + p.numel()].reshape(p.shape)
+                          .to(p.dtype))
+            o += p.numel()
+        out[k] = pieces[0] if isinstance(grads[k], torch.Tensor) else pieces
+    return out
+
+
+def _grad_leaves(params: Params) -> GradTree:
+    """Leaves to differentiate: detached views of ``params`` that require
+    grad, a stacked segment leaf as its per-layer views."""
+    out: GradTree = {}
+    for k, v in params.items():
+        if k.startswith("segments."):
+            out[k] = [v[i].detach().requires_grad_()
+                      for i in range(v.shape[0])]
+        else:
+            out[k] = v.detach().requires_grad_()
+    return out
+
+
+def _flat(tree: GradTree) -> List[torch.Tensor]:
+    return [p for g in tree.values() for p in _parts(g)]
+
+
+def _unflat(tree: GradTree, flat: Sequence[torch.Tensor]) -> GradTree:
+    out, i = {}, 0
+    for k, g in tree.items():
+        n = len(_parts(g))
+        out[k] = flat[i] if isinstance(g, torch.Tensor) else \
+            list(flat[i:i + n])
+        i += n
+    return out
+
+
+def make_train_step(cfg: ArchConfig, mesh=None,
+                    dp_axes: Tuple[str, ...] = ("data",),
+                    lr: float = 1e-2, remat: bool = True,
+                    microbatches: int = 1,
+                    grad_transport_bits: int = 0) -> Callable:
+    """FedCD mode-B round step.
+
+    step(params, tokens (B,S), labels (B,S), client_scores (n_clients,)
+         [, frames]) -> (params, metrics)
+
+    ``params`` is updated in place (module docstring). ``remat``
+    recomputes each layer in the backward pass; ``microbatches`` splits
+    the batch and sums the float32 gradients, as the reference's scan;
+    ``grad_transport_bits=8`` compresses the aggregated update before the
+    parameter update (transport-compressed FedCD round, paper §3.4)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "a tensor-parallel mesh is not ported yet (ROADMAP item 13b)")
+
+    def step(params: Params, tokens, labels, client_scores, frames=None):
+        _not_ported(cfg, frames)
+        B = tokens.shape[0]
+        row_w = client_weights_per_row(client_scores, B)
+        leaves = _grad_leaves(params)
+        flat = _flat(leaves)
+        if microbatches == 1:
+            total, (loss, aux) = _lm_loss(cfg, leaves, tokens, labels,
+                                          row_w, remat=remat)
+            grads = list(torch.autograd.grad(total, flat))
+        else:
+            mb = B // microbatches
+            grads = [torch.zeros(p.shape, device=p.device) for p in flat]
+            loss = aux = torch.zeros((), device=tokens.device)
+            for i in range(microbatches):
+                sl = slice(i * mb, (i + 1) * mb)
+                total, (l_mb, a) = _lm_loss(cfg, leaves, tokens[sl],
+                                            labels[sl], row_w[sl],
+                                            remat=remat)
+                gs = torch.autograd.grad(total, flat)
+                grads = [acc + g for acc, g in zip(grads, gs)]
+                loss, aux = loss + l_mb.detach(), aux + a.detach()
+        gtree = _unflat(leaves, grads)
+        if grad_transport_bits:
+            gtree = quantize_grads(gtree, grad_transport_bits)
+        targets = [p for k, v in params.items()
+                   for p in (v.unbind(0) if k.startswith("segments.")
+                             else [v])]
+        sgd_update_(zip(targets, _flat(gtree)), lr)
+        return params, {"loss": loss.detach(), "aux": aux.detach()}
+
+    return step
+
+
+def make_eval_step(cfg: ArchConfig, n_clients: int, mesh=None,
+                   dp_axes: Tuple[str, ...] = ("data",)) -> Callable:
+    """Per-client validation loss — feeds the FedCD score update (eq 2)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "a tensor-parallel mesh is not ported yet (ROADMAP item 13b)")
+
+    @torch.no_grad()
+    def step(params, tokens, labels, frames=None):
+        _not_ported(cfg, frames)
+        logits, _, _ = tf.lm_forward(cfg, params, tokens)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = (logz - gold).mean(dim=-1)                       # (B,)
+        B = tokens.shape[0]
+        return nll.reshape(n_clients, B // n_clients).mean(dim=-1)
+
+    return step

@@ -1,39 +1,199 @@
-"""Shared model pieces (port of the parts of ``repro/models/common.py``
-the mode-A learners use).
+"""Shared building blocks: norms, RoPE, embeddings, SwiGLU MLP, inits,
+losses (port of ``repro/models/common.py``).
 
 Params are flat ``{name: tensor}`` dicts whose keys follow the
 reference's pytree leaf order (``conv.3`` is ``params["conv"][3]``
-there), so that ``convert.params_from_jax`` maps leaf to leaf.
+there, ``attn.q_norm.scale`` is ``params["attn"]["q_norm"]["scale"]``),
+so that ``convert.params_from_jax`` maps leaf to leaf. The ``init_*``
+functions build such dicts; the apply functions are plain functions on
+tensors.
+
+Dtypes follow the reference: norms and RoPE compute in float32 and cast
+back; a product the reference asks for with
+``preferred_element_type=float32`` (the tied unembedding) takes float32
+operands here, since ``torch.matmul`` of bfloat16 operands returns
+bfloat16. Every other product keeps the operands' dtype.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Any, Dict, Optional
 
 import torch
 
 Params = Dict[str, torch.Tensor]
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16, "float64": torch.float64}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def prefixed(prefix: str, params: Params) -> Params:
+    """``params`` with every name under ``prefix.`` (a sub-tree)."""
+    return {f"{prefix}.{k}": v for k, v in params.items()}
+
+
+def subtree(params: Params, prefix: str) -> Params:
+    """The leaves under ``prefix.``, with the prefix taken off."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items()
+            if k.startswith(prefix + ".")}
+
 
 def normal_init(generator: torch.Generator, shape, dtype=torch.float32,
                 stddev: float = 0.02,
                 device: Optional[torch.device] = None) -> torch.Tensor:
-    """N(0, stddev²) draws from ``generator`` (a CPU generator, so a seed
-    gives the same params on every device). Not the reference's
-    ``jax.random`` bits: parity tests load the reference's params."""
-    x = torch.randn(shape, generator=generator, dtype=torch.float32) * stddev
+    """N(0, stddev²) draws from ``generator``, on the generator's device
+    (a CPU generator gives the same params on every device). Not the
+    reference's ``jax.random`` bits: parity tests load the reference's
+    params."""
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device) * stddev
     return x.to(device=device, dtype=dtype)
 
 
-def softmax_cross_entropy(logits: torch.Tensor,
-                          labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE over the batch. logits (B, V) float; labels (B,) int."""
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def init_rmsnorm(dim: int, dtype, device=None) -> Params:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(dt)
+
+
+def init_layernorm(dim: int, dtype, device=None) -> Params:
+    return {"bias": torch.zeros((dim,), dtype=dtype, device=device),
+            "scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (interleaved pairs, as the reference)
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, fraction: float = 1.0,
+                     device=None) -> torch.Tensor:
+    """Inverse frequencies for the rotated sub-dimension (``rot =
+    fraction*hd``, rounded down to even)."""
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    ex = torch.arange(0, rot, 2, dtype=torch.float32, device=device)
+    ex = ex / torch.full((), float(rot), device=device)
+    # the float32 power, correctly rounded (through float64), is the
+    # reference's bit for bit
+    p = torch.pow(torch.full((), theta, dtype=torch.float64, device=device),
+                  ex.double()).float()
+    return 1.0 / p
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               fraction: float = 1.0) -> torch.Tensor:
+    """Rotate the leading ``fraction`` of the last dim: pairs
+    ``(x[..., 2i], x[..., 2i+1])`` turn by ``positions * inv[i]``.
+
+    x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S).
+    """
+    hd = x.shape[-1]
+    inv = rope_frequencies(hd, theta, fraction, device=x.device)
+    rot = inv.shape[0] * 2
+    angles = positions[..., :, None].float() * inv        # (..., S, rot/2)
+    cos = torch.cos(angles)[..., :, None, :]               # (..., S, 1, rot/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., 0::2].float(), xr[..., 1::2].float()
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([yr, xp], dim=-1) if rot < hd else yr
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+def init_embedding(generator: torch.Generator, vocab: int, dim: int, dtype,
+                   device=None) -> Params:
+    return {"table": normal_init(generator, (vocab, dim), dtype,
+                                 device=device)}
+
+
+def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    # F.embedding, not indexing: its CUDA backward sums the gradients of
+    # a repeated token in a fixed order (indexing's accumulates with
+    # atomics), so a step is bit-reproducible on the card
+    return torch.nn.functional.embedding(tokens.long(), params["table"])
+
+
+def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: logits = x @ table.T, float32 (the reference's
+    ``preferred_element_type=float32``)."""
+    return torch.matmul(x.float(), params["table"].float().t())
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype,
+             device=None) -> Params:
+    return {
+        "w_down": normal_init(generator, (d_ff, d_model), dtype,
+                              device=device),
+        "w_gate": normal_init(generator, (d_model, d_ff), dtype,
+                              device=device),
+        "w_up": normal_init(generator, (d_model, d_ff), dtype,
+                            device=device),
+    }
+
+
+def apply_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    g = torch.matmul(x, params["w_gate"])
+    u = torch.matmul(x, params["w_up"])
+    return torch.matmul(torch.nn.functional.silu(g) * u, params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean CE. logits (..., V) float; labels (...) int."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
-    return torch.mean(logz - gold)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Float32 share of argmax hits (ties go to the first index, as
     ``jnp.argmax``)."""
     return torch.mean((torch.argmax(logits, dim=-1) == labels).float())
+
+
+def tree_cast(tree: Params, dtype) -> Params:
+    return {k: v.to(dtype) for k, v in tree.items()}
+
+
+def tree_size(tree: Any) -> int:
+    return sum(math.prod(v.shape) for v in tree.values())

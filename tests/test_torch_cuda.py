@@ -8,7 +8,10 @@ installed (the repository's conftest imports jax; skip it there):
 TF32 is switched off for the plain versions' products. Tolerances:
 aggregation (all three kernels) atol=1e-5 (float32, different summation
 order); quantize and dequantize exact (both sides use IEEE division and
-round half to even).
+round half to even). The mode-B LM trainer: the tiny LM on the card
+against the CPU (discrete state exact, score history 1e-6, params 1e-4),
+and the int8 gradient transport's step (one launch of each kernel, params
+equal to the plain versions' step).
 """
 import numpy as np
 import pytest
@@ -967,3 +970,81 @@ def test_cells_on_distinct_cards_match_one_card(cuda, shape, variant):
     for k, v in fed["one"].params.items():
         np.testing.assert_allclose(fed["apart"].params[k].cpu(), v.cpu(),
                                    atol=1e-5, rtol=1e-5)
+
+
+# -- the mode-B LM trainer on the card ------------------------------------------
+
+LM_KW = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+             d_ff=128, vocab_size=64, param_dtype="float32",
+             compute_dtype="float32")
+LM_FED = dict(n_devices=4, devices_per_round=3, score_window=2,
+              milestones=(2, 5), late_delete_round=6, max_models=6,
+              lr=0.05, seed=0)
+
+
+def _lm_run(device, spec, init, rounds=8):
+    from repro_torch.config import ArchConfig, FedCDConfig
+    from repro_torch.federated.llm import FedLLMTrainer
+    tr = FedLLMTrainer(ArchConfig(**LM_KW), FedCDConfig(**LM_FED), 4, 2, 16,
+                       seed=0, spec=spec, device=device, init_params=init)
+    tr.run(rounds)
+    return tr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["llm", "legacy"])
+def test_lm_trainer_on_card_matches_cpu(cuda, spec):
+    """The tiny LM of tests/test_llm_equivalence.py over its 8 rounds, on
+    the card and on the CPU from the same params: discrete state equal,
+    score history to 1e-6, params to 1e-4 (float32, TF32 off)."""
+    from repro_torch.config import ArchConfig
+    from repro_torch.models import transformer as tf
+    init = tf.init_lm(ArchConfig(**LM_KW), torch.Generator().manual_seed(0))
+    card, host = _lm_run(cuda, spec, init), _lm_run("cpu", spec, init)
+    np.testing.assert_array_equal(card.state.active, host.state.active)
+    np.testing.assert_array_equal(card.state.alive, host.state.alive)
+    assert card.registry.live_ids() == host.registry.live_ids()
+    assert [m.trained_models for m in card.metrics] == \
+        [m.trained_models for m in host.metrics]
+    np.testing.assert_allclose(card.state.history, host.state.history,
+                               atol=1e-6, equal_nan=True)
+    for m in host.registry.live_ids():
+        for k, v in host.registry.params[m].items():
+            np.testing.assert_allclose(card.registry.params[m][k].cpu(), v,
+                                       atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_lm_grad_transport_launches_once_per_step_on_card(cuda):
+    """``make_train_step(grad_transport_bits=8)``: one quantize and one
+    dequantize launch per step, params equal to the step with the plain
+    versions of both (both round half to even and divide in IEEE)."""
+    from repro_torch.config import ArchConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    cfg = ArchConfig(**LM_KW)
+    init = tf.init_lm(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, 64, (8, 17))).to(cuda)
+    scores = torch.tensor([0.4, 0.1, 0.3, 0.2], device=cuda)
+    step = steps.make_train_step(cfg, lr=0.05, remat=False,
+                                 grad_transport_bits=8)
+    before = tqops.quantize.launches, tqops.dequantize.launches
+    pk, _ = step({k: v.to(cuda) for k, v in init.items()}, tok[:, :-1],
+                 tok[:, 1:], scores)
+    torch.cuda.synchronize()
+    assert (tqops.quantize.launches - before[0],
+            tqops.dequantize.launches - before[1]) == (1, 1)
+    real = tqops.quantize_group, tqops.dequantize_group
+    try:
+        tqops.quantize_group = lambda xs, bits=8: tuple(
+            map(list, zip(*[tqref.quantize_ref(x, bits) for x in xs])))
+        tqops.dequantize_group = lambda qs, ss, ns: [
+            tqref.dequantize_ref(q, s, (q.shape[0], n), torch.float32)
+            for q, s, n in zip(qs, ss, ns)]
+        pp, _ = step({k: v.to(cuda) for k, v in init.items()}, tok[:, :-1],
+                     tok[:, 1:], scores)
+    finally:
+        tqops.quantize_group, tqops.dequantize_group = real
+    for k in pk:
+        assert torch.equal(pk[k], pp[k]), k

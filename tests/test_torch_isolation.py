@@ -51,13 +51,21 @@ def test_port_files_found():
     # the launch mesh and the banks' placement on it
     for name in ("__init__.py", "mesh.py", "sharding.py"):
         assert ROOT / "src" / "repro_torch" / "launch" / name in PORT_FILES
+    # the mode-B LM slice, with its own copy of the token pipeline
+    for rel in ("federated/llm.py", "launch/steps.py", "launch/train.py",
+                "models/transformer.py", "models/attention.py",
+                "optim/optimizers.py", "data/tokens.py",
+                "configs/qwen3_4b.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.core.fedcd, repro_torch.core.fedavg, "
             "repro_torch.data.scenarios, repro_torch.kernels.build, "
             "repro_torch.checkpoint, repro_torch.launch.mesh, "
-            "repro_torch.launch.sharding; "
+            "repro_torch.launch.sharding, repro_torch.federated.llm, "
+            "repro_torch.launch.train, repro_torch.launch.steps, "
+            "repro_torch.configs, repro_torch.optim; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -89,6 +97,26 @@ def test_servers_need_cuda_unless_cpu_is_asked(monkeypatch):
             cls(cfg, params, mlp_loss, mlp_accuracy, data, device="cuda")
         srv = cls(cfg, params, mlp_loss, mlp_accuracy, data, device="cpu")
         assert srv.device.type == "cpu"
+
+
+def test_lm_trainer_and_train_cli_need_cuda_unless_cpu_is_asked(
+        monkeypatch, tmp_path):
+    from repro_torch.config import ArchConfig, FedCDConfig
+    from repro_torch.federated.llm import FedLLMTrainer
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arch = ArchConfig(name="t", n_layers=1, d_model=16, n_heads=2,
+                      n_kv_heads=1, d_ff=32, vocab_size=32,
+                      param_dtype="float32", compute_dtype="float32")
+    fed = FedCDConfig(n_devices=2, devices_per_round=1, max_models=2)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            FedLLMTrainer(arch, fed, 2, 1, 4, device=device)
+    tr = FedLLMTrainer(arch, fed, 2, 1, 4, device="cpu")
+    assert tr.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--rounds", "1", "--out", str(tmp_path)])
 
 
 def test_wrappers_compute_the_plain_version_only_on_cpu(monkeypatch,
