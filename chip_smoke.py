@@ -28,16 +28,24 @@ the card, one train step with int8 gradient transport through the
 transport kernels against their plain versions (one launch of each per
 step), then Qwen3-4B at full width (bf16, 36 layers, d_model 2560, vocab
 151936) for 4 rounds on ``llm`` and on ``legacy``, with per-round walls,
-tokens/s, the train/eval split and the peak memory.
+tokens/s, the train/eval split and the peak memory. Phase 15 does the
+same for the MoE and MLA families: reduced Phi-3.5-MoE and reduced
+DeepSeek-V3 (MLA, a shared expert, the MTP head) on the card against the
+CPU, ``legacy`` and ``llm+pipeline`` equal to ``llm`` and a crash resumed
+from its checkpoint, DeepSeek-V3's int8 gradient transport step (46
+leaves: two launches of each kernel), then Phi-3.5-MoE at every
+published width with its depth cut to 4 layers (``llm`` and ``legacy``)
+and DeepSeek-V3 at its widest single-card tier (4 layers, 16 of its 256
+experts; ``llm``).
 
     python3 chip_smoke.py
 
 Needs one CUDA GPU and ``nvcc``; exits non-zero without a result line
 otherwise, and on any failed check. Phases print one line each; the last
 line is a JSON object with ``"ok": true``. Float32 throughout with TF32
-off for matrix products and convolutions, except phase 14's full-width
-model, which is bf16 as registered (its float32 products still without
-TF32).
+off for matrix products and convolutions, except the full-width models
+of phases 14-15, which are bf16 as registered (their float32 products,
+the MoE routers among them, still without TF32).
 """
 from __future__ import annotations
 
@@ -157,6 +165,16 @@ LM_TRANSPORT = (8, 2, 128)          # clients, per client, seq (phase 14.3)
 FULL_LM_FED = dict(n_devices=8, devices_per_round=4, milestones=(2,),
                    max_models=4, lr=0.01, late_delete_round=8)
 FULL_LM_CLIENTS, FULL_LM_PER, FULL_LM_SEQ, FULL_LM_ROUNDS = 8, 2, 128, 4
+# the MoE / MLA / MTP families (phase 15): the reduced configs on phase
+# 14's FedCD configuration and dims; DeepSeek-V3's gradient transport
+# (46 leaves of 128 values or more, 32 a launch: 2 launches of each
+# kernel a step); then each at its widest single-card tier, as (arch,
+# what is cut, engines): every published width kept
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
+MOE_TRANSPORT = ("deepseek-v3-671b", 2)
+FULL_MOE = (("phi3.5-moe-42b-a6.6b", {"n_layers": 4}, ("llm", "legacy")),
+            ("deepseek-v3-671b", {"n_layers": 4, "moe.n_experts": 16},
+             ("llm",)))
 
 
 def fail(msg: str) -> None:
@@ -1654,23 +1672,26 @@ def lm_engines(device, arch, init, llm):
         resumed_from = len(tr.metrics)
         tr.run(LM_ROUNDS)
         _, resume_err = lm_compare(llm, lm_snapshot(tr), "LM resume")
-    print(f"[lm engines] legacy == llm == llm+pipeline on the card over "
+    print(f"[lm engines] {arch.name} reduced: legacy == llm == "
+          f"llm+pipeline on the card over "
           f"{LM_ROUNDS} rounds: discrete state equal, legacy params "
           f"max_abs_err={legacy_err}, llm+pipeline max_abs_err={pipe_err}; "
           f"crash at {LM_CRASH[1]}@{LM_CRASH[0]}, resumed from round "
           f"{resumed_from}: params max_abs_err={resume_err}", flush=True)
-    if pipe_err != 0.0 or resume_err != 0.0:
-        fail(f"LM: llm+pipeline ({pipe_err}) or the resumed run "
-             f"({resume_err}) is not bit-equal to llm")
+    if legacy_err != 0.0 or pipe_err != 0.0 or resume_err != 0.0:
+        fail(f"LM {arch.name}: legacy ({legacy_err}), llm+pipeline "
+             f"({pipe_err}) or the resumed run ({resume_err}) is not "
+             "bit-equal to llm")
     # the crash comes before its round's save: the last save is earlier
     if resumed_from != (LM_CRASH[0] - 1) // LM_CKPT_EVERY * LM_CKPT_EVERY:
         fail(f"LM resume: resumed from round {resumed_from}")
 
 
-def lm_transport(device, arch, init, counters):
-    """Phase 14.3: one ``make_train_step(grad_transport_bits=8)`` step at
-    reduced width on the card, with the transport kernels and then with
-    their plain versions; returns the kernels' launch counts."""
+def lm_transport(device, arch, init, counters, expect=1):
+    """Phase 14.3 (15.3): one ``make_train_step(grad_transport_bits=8)``
+    step at reduced width on the card, with the transport kernels and
+    then with their plain versions; fails unless each kernel launched
+    ``expect`` times. Returns the kernels' launch counts."""
     import torch
 
     from repro_torch.data.tokens import lm_batch
@@ -1732,12 +1753,12 @@ def lm_transport(device, arch, init, counters):
           f"{n}x{per}x{seq} tokens, {len(kq)} leaves through the "
           f"transport: codes max_off={off} code_mismatch_share={frac} "
           f"scale_rel_err={srel} params max_abs_err={perr} "
-          f"launches={counts}", flush=True)
+          f"launches={counts} predicted={expect} each", flush=True)
     if off > 1 or frac >= 1e-3 or srel > 1e-6:
         fail("LM grad transport: kernels disagree with the plain versions")
-    if counts["quantize"] != 1 or counts["dequantize"] != 1:
-        fail(f"LM grad transport: {counts} launches, expected one "
-             "quantize and one dequantize per step")
+    if counts["quantize"] != expect or counts["dequantize"] != expect:
+        fail(f"LM grad transport {arch.name}: {counts} launches, "
+             f"predicted {expect} of quantize and of dequantize per step")
     return counts
 
 
@@ -1787,30 +1808,36 @@ class LMTimer:
         return out
 
 
-def lm_full_width(device, card_line):
-    """Phase 14.4: Qwen3-4B at full width (as registered: bf16, 36 layers,
-    d_model 2560, vocab 151936), 4 rounds with a milestone clone, on llm
-    and then on legacy from the same random params."""
+def lm_full_width(device, card_line, name=LM_ARCH, cut=None,
+                  specs=("llm", "legacy")):
+    """Phase 14.4 (15.4): ``name`` at full width (as registered, bf16,
+    but for ``cut``: config overrides, each printed), 4 rounds with a
+    milestone clone on each engine of ``specs`` in turn from the same
+    random params; the engines' discrete state must agree."""
     import gc
 
     import torch
 
+    from repro_torch.config import override
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tf
-    arch = get_arch(LM_ARCH)
+    full = get_arch(name)
+    arch = override(full, **cut) if cut else full
     t0 = time.perf_counter()
     init = tf.init_lm(arch, torch.Generator(device=device).manual_seed(0),
                       device=device)
     n_params = sum(v.numel() for v in init.values())
     init = {k: v.cpu() for k, v in init.items()}
     torch.cuda.empty_cache()
+    cuts = ", ".join(f"{k} {_field(full, k)} -> {v}"
+                     for k, v in (cut or {}).items()) or "nothing"
     print(f"[lm full init] {arch.name}: {n_params} params "
-          f"({n_params * 2 / 1e9:.3f} GB bf16) in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"({n_params * 2 / 1e9:.3f} GB bf16) in {len(init)} leaves, "
+          f"in {time.perf_counter() - t0:.2f} s; cut: {cuts}", flush=True)
     dims = (FULL_LM_CLIENTS, FULL_LM_PER, FULL_LM_SEQ)
     tokens_per_model = FULL_LM_CLIENTS * FULL_LM_PER * FULL_LM_SEQ
     snaps = {}
-    for spec in ("llm", "legacy"):
+    for spec in specs:
         torch.cuda.reset_peak_memory_stats()
         tr = lm_trainer(arch, FULL_LM_FED, dims, spec, device, init)
         timer = LMTimer(tr)
@@ -1823,42 +1850,54 @@ def lm_full_width(device, card_line):
             split = timer.take()
             tokens = m.trained_models * tokens_per_model
             rows.append((wall, split, tokens))
-            print(f"[lm full {spec} round {t}] wall_s={wall:.4f} "
-                  f"train_ms={split['train']:.3f} "
+            print(f"[lm full {arch.name} {spec} round {t}] wall_s="
+                  f"{wall:.4f} train_ms={split['train']:.3f} "
                   f"eval_ms={split['eval']:.3f} trained_models="
                   f"{m.trained_models} live={m.live_models} "
                   f"loss={m.mean_loss} tokens={tokens} ({card_line})",
                   flush=True)
             if m.trained_models and not np.isfinite(m.mean_loss):
-                fail(f"LM full width {spec}: round {t} loss {m.mean_loss}")
+                fail(f"LM full width {arch.name} {spec}: round {t} loss "
+                     f"{m.mean_loss}")
         peak = torch.cuda.max_memory_allocated()
         later = rows[1:]
         wall = float(np.mean([r[0] for r in later]))
         tok = sum(r[2] for r in later)
         train_ms = sum(r[1]["train"] for r in later)
         eval_ms = sum(r[1]["eval"] for r in later)
-        print(f"[lm full {spec}] {arch.name} {arch.n_layers}x"
+        print(f"[lm full {arch.name} {spec}] {arch.n_layers}x"
               f"{arch.d_model} vocab {arch.vocab_size} {arch.param_dtype}, "
-              f"{FULL_LM_CLIENTS} clients x {FULL_LM_PER} x {FULL_LM_SEQ} "
-              f"tokens, max_models={FULL_LM_FED['max_models']}: mean wall_s "
-              f"rounds 2-{FULL_LM_ROUNDS}={wall:.4f} walls="
+              f"{n_params} params, {FULL_LM_CLIENTS} clients x "
+              f"{FULL_LM_PER} x {FULL_LM_SEQ} tokens, max_models="
+              f"{FULL_LM_FED['max_models']}: mean wall_s rounds "
+              f"2-{FULL_LM_ROUNDS}={wall:.4f} walls="
               f"{[round(r[0], 4) for r in rows]} training tokens/s (wall)="
               f"{tok / sum(r[0] for r in later):.1f} training tokens/s "
-              f"(train device time)={tok / (train_ms / 1e3):.1f} "
+              f"(train device time)={tok / max(train_ms / 1e3, 1e-9):.1f} "
               f"train_ms={train_ms:.3f} eval_ms={eval_ms:.3f} "
               f"max_memory_allocated={peak} ({peak / 2**30:.2f} GiB) "
               f"({card_line})", flush=True)
         if not any(r[2] for r in rows):
-            fail(f"LM full width {spec}: no model trained")
-        snaps[spec] = lm_snapshot(tr)
+            fail(f"LM full width {arch.name} {spec}: no model trained")
+        if len(specs) > 1:
+            snaps[spec] = lm_snapshot(tr)
         del tr, timer
         gc.collect()
         torch.cuda.empty_cache()
-    hist, perr = lm_compare(snaps["llm"], snaps["legacy"],
-                            "LM full width legacy vs llm")
-    print(f"[lm full engines] llm == legacy: discrete state equal, live="
-          f"{snaps['llm']['live']}, history max_abs_err={hist}, params "
-          f"max_abs_err={perr}", flush=True)
+    del init
+    if len(specs) > 1:
+        a, b = specs[0], specs[1]
+        hist, perr = lm_compare(snaps[a], snaps[b],
+                                f"LM full width {arch.name} {b} vs {a}")
+        print(f"[lm full engines] {arch.name}: {a} == {b}: discrete state "
+              f"equal, live={snaps[a]['live']}, history max_abs_err={hist}, "
+              f"params max_abs_err={perr}", flush=True)
+
+
+def _field(cfg, dotted):
+    for part in dotted.split("."):
+        cfg = getattr(cfg, part)
+    return cfg
 
 
 def lm_phase(device, card_line, counters):
@@ -1874,6 +1913,28 @@ def lm_phase(device, card_line, counters):
     lm_engines(device, arch, init, llm)
     counts = lm_transport(device, arch, init, counters)
     lm_full_width(device, card_line)
+    return counts
+
+
+def moe_phase(device, card_line, counters):
+    """Phase 15 (module docstring): phase 14's checks on the MoE / MLA /
+    MTP families; returns the launch counts of DeepSeek-V3's gradient
+    transport step."""
+    import torch
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import transformer as tf
+    counts = None
+    for name in MOE_ARCHS:
+        arch = reduced(get_arch(name))
+        init = tf.init_lm(arch, torch.Generator().manual_seed(0))
+        llm = lm_card_vs_cpu(device, arch, init)
+        lm_engines(device, arch, init, llm)
+        if name == MOE_TRANSPORT[0]:
+            counts = lm_transport(device, arch, init, counters,
+                                  expect=MOE_TRANSPORT[1])
+    for name, cut, specs in FULL_MOE:
+        lm_full_width(device, card_line, name, cut, specs)
     return counts
 
 
@@ -2140,6 +2201,10 @@ def main() -> int:
     # phase 14: the mode-B LM trainer (card against CPU, engines, the
     # gradient transport's kernels, Qwen3-4B at full width)
     later["lm grad transport"] = lm_phase(device, card_line, counters)
+    # phase 15: the MoE / MLA / MTP families (the same checks; Phi-3.5-MoE
+    # and DeepSeek-V3 at their widest single-card tiers)
+    later[f"lm grad transport {MOE_TRANSPORT[0]}"] = moe_phase(
+        device, card_line, counters)
 
     # launches: kernels 1-3 on the fused main path, weighted_agg on the
     # legacy path; dequant_agg is on no path, so its count stays 0. Each

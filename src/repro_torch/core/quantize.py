@@ -9,16 +9,20 @@ leaf's memory order — which is why the port keeps the reference's param
 layouts. Every leaf goes through ``kernels.quantize.ops``: the CUDA
 kernels on CUDA tensors, their plain versions on CPU tensors; a param
 dict's leaves go through one grouped call of each.
+
+``quantize_pytree`` / ``dequantize_pytree`` are the packed wire format
+(codes, scales, shapes, dtypes, leaf names, bits); ``roundtrip`` /
+``roundtrip_rows`` are what a device or the server stores after it.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.kernels.quantize import ops as q_ops
-from repro_torch.models.common import Params
+from repro_torch.models.common import Params, canonical
 
 BLOCK = 128
 
@@ -35,6 +39,32 @@ def dequantize_leaf(q: torch.Tensor, scales: torch.Tensor, shape,
     for d in shape:
         n *= d
     return q_ops.dequantize(q, scales, n).reshape(shape).to(dtype)
+
+
+def quantize_pytree(tree: Params, bits: int = 8) -> Dict[str, Any]:
+    """The packed payload of one model: per leaf, in the reference's leaf
+    order (``names``, which stands in for its treedef), the int8 codes
+    ``(1, n_pad)`` and float32 scales ``(1, n_pad // 128)`` of the whole
+    leaf flattened into one row, and its shape and dtype. Every leaf goes
+    through one ``quantize_group`` call (on the card, one launch per 32
+    leaves)."""
+    tree = canonical(tree)
+    rows = [v.reshape(1, -1).float().contiguous() for v in tree.values()]
+    qs, ss = q_ops.quantize_group(rows, bits)
+    return {"q": qs, "scales": ss,
+            "shapes": [tuple(v.shape) for v in tree.values()],
+            "dtypes": [v.dtype for v in tree.values()],
+            "names": list(tree), "bits": bits}
+
+
+def dequantize_pytree(packed: Dict[str, Any]) -> Params:
+    """:func:`quantize_pytree`'s payload back to a param dict (each leaf
+    in its shape and dtype), through one ``dequantize_group`` call."""
+    ns = [math.prod(shape) for shape in packed["shapes"]]
+    outs = q_ops.dequantize_group(packed["q"], packed["scales"], ns)
+    return {name: o.reshape(shape).to(dtype)
+            for name, o, shape, dtype in zip(
+                packed["names"], outs, packed["shapes"], packed["dtypes"])}
 
 
 def roundtrip(tree: Params, bits: int = 8) -> Params:

@@ -22,8 +22,10 @@ checkpoint fields (``save_every``/``checkpoint_dir``/``resume_from``/
 reference's checkpoint format.
 
 The trainer runs on the card unless ``device="cpu"`` is asked for. The
-dense GQA family (``ATTN_MLP`` layouts) is ported; a tensor-parallel
-``mesh`` is ROADMAP item 13b, the serving plane's draft rows
+attention families are ported: dense GQA, MoE (Phi-3.5-MoE) and MLA with
+MoE and the MTP head (DeepSeek-V3). The Mamba2 / xLSTM / hybrid families
+are ROADMAP item 13b.2, the encoder-decoder model 13b.3, a
+tensor-parallel ``mesh`` 13b.4, the serving plane's draft rows
 (``draft_layers``) item 14.
 """
 from __future__ import annotations
@@ -54,7 +56,7 @@ from repro_torch.federated.executors import (FedLLMExecutor,
                                              LLMLegacyExecutor)
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import Params, dtype_of
+from repro_torch.models.common import Params
 
 LLM_ENGINES = ("llm", "legacy")
 
@@ -109,14 +111,14 @@ def make_acc_step(cfg: ArchConfig, n_clients: int, mesh=None,
 def _adopt_init(arch: ArchConfig, init_params: Any,
                 device: torch.device) -> Params:
     """``init_params`` (the reference's pytree as numpy, or a flat param
-    dict of tensors) -> the port's flat dict in the arch's param dtype on
-    ``device``, as new tensors the trainer owns."""
+    dict of tensors) -> the port's flat dict on ``device``, each leaf in
+    its dtype of ``init_lm`` (float32 routers in a bfloat16 model), as
+    new tensors the trainer owns."""
     flat = (dict(init_params)
             if isinstance(init_params, dict) and all(
                 isinstance(v, torch.Tensor) for v in init_params.values())
             else params_from_jax(init_params))
-    dtype = dtype_of(arch.param_dtype)
-    return {k: v.to(device=device, dtype=dtype, copy=True)
+    return {k: v.to(device=device, dtype=tf.param_dtype(arch, k), copy=True)
             for k, v in flat.items()}
 
 
@@ -147,7 +149,7 @@ class FedLLMTrainer:
         if mesh is not None:
             raise NotImplementedError(
                 "FedLLMTrainer(mesh=...): the tensor-parallel LM mesh is "
-                "not ported yet (ROADMAP item 13b)")
+                "not ported yet (ROADMAP item 13b.4)")
         if draft_layers:
             raise NotImplementedError(
                 "FedLLMTrainer(draft_layers=...): the draft rows of "

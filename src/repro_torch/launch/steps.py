@@ -1,8 +1,8 @@
 """Step builders for the FedCD mode-B round (port of
 ``repro/launch/steps.py:25-151``: ``client_weights_per_row``,
-``_lm_loss``, ``quantize_grads``, ``make_train_step`` and
-``make_eval_step``; the prefill and serve steps are the serving plane's,
-ROADMAP item 14).
+``_lm_loss`` with its MTP branch, ``quantize_grads``, ``make_train_step``
+and ``make_eval_step``; the audio loss is ROADMAP item 13b.3, the
+prefill and serve steps are the serving plane's, item 14).
 
 ``make_train_step`` is the cluster-scale FedCD round (DESIGN.md §3):
 clients are contiguous row-groups of the global batch; eq 1's
@@ -48,23 +48,32 @@ def _not_ported(cfg: ArchConfig, frames) -> None:
     if frames is not None or cfg.family == "audio":
         raise NotImplementedError(
             f"{cfg.name}: the audio (encoder-decoder) loss is not ported "
-            "yet (ROADMAP item 13b)")
-    if cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: the MTP loss is not ported yet (ROADMAP item 13b)")
+            "yet (ROADMAP item 13b.3)")
 
 
 def _lm_loss(cfg: ArchConfig, params, tokens, labels, row_w, mesh=None,
              dp_axes=("data",), frames=None, remat=True):
-    """Score-weighted next-token loss (the reference's without its audio
-    and MTP branches). Returns (loss + aux, (loss, aux))."""
+    """Score-weighted next-token loss, plus DeepSeek's MTP loss (weight
+    0.3) where the model has an MTP head (the reference's without its
+    audio branch). Returns (loss + aux, (loss, aux))."""
     _not_ported(cfg, frames)
-    logits, _hidden, aux = tf.lm_forward(cfg, params, tokens, mesh=mesh,
-                                         dp_axes=dp_axes, remat=remat)
+    logits, hidden, aux = tf.lm_forward(cfg, params, tokens, mesh=mesh,
+                                        dp_axes=dp_axes, remat=remat)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = (logz - gold).mean(dim=-1)                           # (B,)
     loss = torch.sum(nll * row_w)
+    if cfg.mtp and any(k.startswith("mtp.") for k in params):
+        # predict t+2: condition on emb(t+1)=labels, target labels shifted
+        mtp_lg = tf.mtp_logits(cfg, params, hidden, labels)
+        mtp_labels = torch.roll(labels, -1, 1).long()
+        lz = torch.logsumexp(mtp_lg, dim=-1)
+        gd = torch.gather(mtp_lg, -1, mtp_labels[..., None])[..., 0]
+        mask = torch.ones(labels.shape, device=lz.device)
+        mask[:, -1] = 0.0
+        mtp_nll = (((lz - gd) * mask).sum(-1)
+                   / torch.clamp(mask.sum(-1), min=1.0))
+        loss = loss + 0.3 * torch.sum(mtp_nll * row_w)
     return loss + aux, (loss, aux)
 
 
@@ -149,8 +158,7 @@ def make_train_step(cfg: ArchConfig, mesh=None,
     ``grad_transport_bits=8`` compresses the aggregated update before the
     parameter update (transport-compressed FedCD round, paper §3.4)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "a tensor-parallel mesh is not ported yet (ROADMAP item 13b)")
+        raise NotImplementedError(tf.MESH_13B4)
 
     def step(params: Params, tokens, labels, client_scores, frames=None):
         _not_ported(cfg, frames)
@@ -190,8 +198,7 @@ def make_eval_step(cfg: ArchConfig, n_clients: int, mesh=None,
                    dp_axes: Tuple[str, ...] = ("data",)) -> Callable:
     """Per-client validation loss — feeds the FedCD score update (eq 2)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "a tensor-parallel mesh is not ported yet (ROADMAP item 13b)")
+        raise NotImplementedError(tf.MESH_13B4)
 
     @torch.no_grad()
     def step(params, tokens, labels, frames=None):

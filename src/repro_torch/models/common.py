@@ -36,6 +36,15 @@ def prefixed(prefix: str, params: Params) -> Params:
     return {f"{prefix}.{k}": v for k, v in params.items()}
 
 
+def canonical(params: Params) -> Params:
+    """``params`` in the reference's pytree leaf order (dict keys sorted,
+    list items by index)."""
+    def key(name: str):
+        return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                     for p in name.split("."))
+    return {k: params[k] for k in sorted(params, key=key)}
+
+
 def subtree(params: Params, prefix: str) -> Params:
     """The leaves under ``prefix.``, with the prefix taken off."""
     n = len(prefix) + 1

@@ -1,0 +1,151 @@
+"""Mixture-of-Experts FFN with top-k routing and capacity-based dispatch
+(port of ``repro/models/moe.py``, the single-shard path).
+
+* Routing (softmax top-k, Switch load-balance aux loss) is float32: the
+  ``router`` leaf is float32 even in a bfloat16 model, and the logits
+  take float32 operands.
+* Dispatch scatters token *indices* into per-expert capacity buffers of
+  ``capacity(T)`` slots and gathers the tokens once; pairs past an
+  expert's capacity are dropped (combine weight zero), the Switch/GShard
+  discipline.
+* The experts' SwiGLU runs in the compute dtype as batched products; the
+  combine is float32 and cast back, and the shared expert (if any) is
+  added after the cast.
+
+Ordering, so that a step is bit-reproducible on the card: the top-k is a
+stable descending sort (the lower expert index first on ties, as
+``lax.top_k``); a pair's rank within its expert follows pair order
+``t*k + j`` (a stable sort, as the reference's ``argsort``); the gathers
+go through ``F.embedding``, whose backward sums a repeated row in a fixed
+order; and the combine gathers each (token, choice) pair's output and
+adds a token's k pairs in choice order. No scatter-add sits on the path.
+
+The reference's ``sharding_hints.constrain`` calls are the identity
+without a mesh and are left out; the expert-parallel ``shard_map`` branch
+of ``apply_moe`` (a ``mesh=``) is ROADMAP item 13b.4.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ArchConfig
+from repro_torch.models.common import (Params, apply_mlp, init_mlp,
+                                       normal_init, prefixed, subtree)
+
+
+def init_moe(generator: torch.Generator, cfg: ArchConfig, dtype,
+             device=None) -> Params:
+    m, d = cfg.moe, cfg.d_model
+    p: Params = {
+        "router": normal_init(generator, (d, m.n_experts), torch.float32,
+                              stddev=0.006, device=device),
+        "w_down": normal_init(generator, (m.n_experts, m.expert_ff, d),
+                              dtype, device=device),
+        "w_gate": normal_init(generator, (m.n_experts, d, m.expert_ff),
+                              dtype, device=device),
+        "w_up": normal_init(generator, (m.n_experts, d, m.expert_ff), dtype,
+                            device=device),
+    }
+    if m.n_shared:
+        p.update(prefixed("shared", init_mlp(
+            generator, d, m.n_shared * m.expert_ff, dtype, device)))
+    return p
+
+
+def capacity(n_tokens: int, cfg: ArchConfig) -> int:
+    m = cfg.moe
+    c = int(n_tokens * m.top_k * m.capacity_factor / m.n_experts) + 1
+    return max(8, c + (-c) % 8)
+
+
+def _route(params: Params, cfg: ArchConfig, xf: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Return (ids (T,k) int64, weights (T,k) float32, aux_loss scalar)."""
+    m = cfg.moe
+    logits = torch.matmul(xf.float(), params["router"])
+    probs = torch.softmax(logits, dim=-1)
+    wts, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    wts, ids = wts[:, :m.top_k], ids[:, :m.top_k]
+    wts = wts / torch.clamp(torch.sum(wts, dim=-1, keepdim=True), min=1e-9)
+    # Switch-style load-balance loss: E * sum_e f_e * P_e
+    pe = torch.mean(probs, dim=0)                           # (E,)
+    fe = torch.mean(F.one_hot(ids[:, 0], m.n_experts).float(), dim=0)
+    aux = m.n_experts * torch.sum(fe * pe) * m.aux_coef
+    return ids, wts, aux
+
+
+def _expert_shard(xf: torch.Tensor, ids: torch.Tensor, wts: torch.Tensor,
+                  w_gate: torch.Tensor, w_up: torch.Tensor,
+                  w_down: torch.Tensor, *, e0: int, cap: int,
+                  compute_dtype) -> torch.Tensor:
+    """Experts ``e0 .. e0 + E_loc`` over the tokens xf (T,d)."""
+    T, d = xf.shape
+    E_loc = w_gate.shape[0]
+    k = ids.shape[1]
+    Tk = T * k
+    dev = xf.device
+    pairs = torch.arange(Tk, device=dev)
+    pair_expert = ids.reshape(Tk).long()
+    pair_token = pairs // k
+    pair_w = wts.reshape(Tk)
+
+    local = (pair_expert >= e0) & (pair_expert < e0 + E_loc)
+    le = torch.where(local, pair_expert - e0, E_loc)    # E_loc = spill bucket
+    # a pair's rank within its expert, in pair order (searchsorted, not
+    # bincount: that reads its size back to the host on the card)
+    le_sorted, order = torch.sort(le, stable=True)
+    starts = torch.searchsorted(le_sorted,
+                                torch.arange(E_loc + 1, device=dev))
+    rank = torch.empty_like(le)
+    rank[order] = pairs - starts[le_sorted]
+
+    valid = local & (rank < cap)
+    sentinel = E_loc * cap                    # one slot past the buffers
+    slot = torch.where(valid, le * cap + rank, sentinel)
+
+    # index buffer: which token sits in each capacity slot (empty slots
+    # hold token 0 with weight 0, as the reference's); the sentinel slot
+    # takes every dropped pair and is cut off
+    tok_buf = torch.zeros(sentinel + 1, dtype=torch.long, device=dev)
+    tok_buf[slot] = pair_token
+    tok_buf = tok_buf[:sentinel]
+
+    ebuf = F.embedding(tok_buf, xf).reshape(E_loc, cap, d).to(compute_dtype)
+    g = torch.bmm(ebuf, w_gate)
+    u = torch.bmm(ebuf, w_up)
+    h = F.silu(g) * u
+    out = torch.bmm(h, w_down).reshape(sentinel, d)
+
+    # combine: each pair's slot output (the sentinel row is zero) times
+    # its weight, a token's k pairs added in choice order
+    out = torch.cat([out, out.new_zeros((1, d))])
+    w = torch.where(valid, pair_w, torch.zeros((), device=dev))
+    contrib = (F.embedding(slot, out).float() * w[:, None]).reshape(T, k, d)
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+    return y.to(xf.dtype)
+
+
+def apply_moe(params: Params, cfg: ArchConfig, x: torch.Tensor,
+              mesh=None, dp_axes: Tuple[str, ...] = ("data",),
+              ep_axis: str = "model"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN. x (B,S,d) -> (y (B,S,d), aux_loss)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "apply_moe(mesh=...): the expert-parallel shard_map branch is "
+            "not ported yet (ROADMAP item 13b.4)")
+    B, S, d = x.shape
+    xf = x.reshape(B * S, d)
+    ids, wts, aux = _route(params, cfg, xf)
+    y = _expert_shard(xf, ids, wts, params["w_gate"], params["w_up"],
+                      params["w_down"], e0=0, cap=capacity(B * S, cfg),
+                      compute_dtype=x.dtype)
+    if cfg.moe.n_shared:
+        y = y + apply_mlp(subtree(params, "shared"), xf)
+    return y.reshape(B, S, d), aux
+

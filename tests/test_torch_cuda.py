@@ -1048,3 +1048,125 @@ def test_lm_grad_transport_launches_once_per_step_on_card(cuda):
         tqops.quantize_group, tqops.dequantize_group = real
     for k in pk:
         assert torch.equal(pk[k], pp[k]), k
+
+
+# -- the MoE / MLA / MTP families on the card ------------------------------------
+
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
+
+
+def _moe_run(device, name, spec, init, rounds=8):
+    from repro_torch.config import FedCDConfig
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.federated.llm import FedLLMTrainer
+    tr = FedLLMTrainer(reduced(get_arch(name)), FedCDConfig(**LM_FED), 4, 2,
+                       16, seed=0, spec=spec, device=device, init_params=init)
+    tr.run(rounds)
+    return tr
+
+
+def _moe_init(name):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import transformer as tf
+    return tf.init_lm(reduced(get_arch(name)),
+                      torch.Generator().manual_seed(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_moe_trainer_on_card_matches_cpu(cuda, name):
+    """Reduced Phi-3.5-MoE and DeepSeek-V3 (MLA, shared expert, MTP) over
+    8 rounds on ``llm``, on the card and on the CPU from the same params:
+    discrete state equal, score history to 1e-6, params to 1e-4 (float32,
+    TF32 off: routing on near-ties would flip under TF32)."""
+    init = _moe_init(name)
+    card = _moe_run(cuda, name, "llm", init)
+    host = _moe_run("cpu", name, "llm", init)
+    np.testing.assert_array_equal(card.state.active, host.state.active)
+    np.testing.assert_array_equal(card.state.alive, host.state.alive)
+    assert card.registry.live_ids() == host.registry.live_ids()
+    assert [m.trained_models for m in card.metrics] == \
+        [m.trained_models for m in host.metrics]
+    np.testing.assert_allclose(card.state.history, host.state.history,
+                               atol=1e-6, equal_nan=True)
+    for m in host.registry.live_ids():
+        for k, v in host.registry.params[m].items():
+            np.testing.assert_allclose(card.registry.params[m][k].cpu(), v,
+                                       atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_moe_engines_bit_equal_on_card(cuda, name):
+    """``legacy`` and ``llm+pipeline`` equal ``llm`` at 0.0 on the card:
+    the MoE path has ordered reductions only (stable sorts, F.embedding
+    gathers, the combine summed in choice order, no scatter-add)."""
+    init = _moe_init(name)
+    ref = _moe_run(cuda, name, "llm", init)
+    for spec in ("legacy", "llm+pipeline"):
+        tr = _moe_run(cuda, name, spec, init)
+        assert tr.registry.live_ids() == ref.registry.live_ids()
+        np.testing.assert_array_equal(tr.state.active, ref.state.active)
+        for m in ref.registry.live_ids():
+            for k, v in ref.registry.params[m].items():
+                assert torch.equal(tr.registry.params[m][k], v), (spec, k)
+
+
+@pytest.mark.cuda
+def test_moe_grad_transport_launches_twice_per_step_on_card(cuda):
+    """Reduced DeepSeek-V3's gradient tree has 46 leaves of 128 values or
+    more, 32 a launch: 2 quantize and 2 dequantize launches per step, and
+    params equal to the step through the plain versions."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import steps
+    cfg = reduced(get_arch("deepseek-v3-671b"))
+    init = _moe_init("deepseek-v3-671b")
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 17))).to(cuda)
+    scores = torch.tensor([0.4, 0.1, 0.3, 0.2], device=cuda)
+    step = steps.make_train_step(cfg, lr=0.05, remat=False,
+                                 grad_transport_bits=8)
+    before = tqops.quantize.launches, tqops.dequantize.launches
+    pk, _ = step({k: v.to(cuda) for k, v in init.items()}, tok[:, :-1],
+                 tok[:, 1:], scores)
+    torch.cuda.synchronize()
+    assert (tqops.quantize.launches - before[0],
+            tqops.dequantize.launches - before[1]) == (2, 2)
+    real = tqops.quantize_group, tqops.dequantize_group
+    try:
+        tqops.quantize_group = lambda xs, bits=8: tuple(
+            map(list, zip(*[tqref.quantize_ref(x, bits) for x in xs])))
+        tqops.dequantize_group = lambda qs, ss, ns: [
+            tqref.dequantize_ref(q, s, (q.shape[0], n), torch.float32)
+            for q, s, n in zip(qs, ss, ns)]
+        pp, _ = step({k: v.to(cuda) for k, v in init.items()}, tok[:, :-1],
+                     tok[:, 1:], scores)
+    finally:
+        tqops.quantize_group, tqops.dequantize_group = real
+    for k in pk:
+        assert torch.equal(pk[k], pp[k]), k
+
+
+@pytest.mark.cuda
+def test_quantize_pytree_is_one_launch_each_on_card(cuda):
+    """The packed transport API: one quantize and one dequantize launch
+    for a model of up to 32 leaves, codes and scales equal to the plain
+    versions', each leaf back in its shape and dtype."""
+    from repro_torch.core import quantize as tq
+    init = _moe_init("phi3.5-moe-42b-a6.6b")
+    tree = {k: v.to(cuda) for k, v in init.items()}
+    tree["segments.0.attn.wq"] = tree["segments.0.attn.wq"].to(
+        torch.bfloat16)
+    before = tqops.quantize.launches, tqops.dequantize.launches
+    packed = tq.quantize_pytree(tree)
+    out = tq.dequantize_pytree(packed)
+    torch.cuda.synchronize()
+    assert (tqops.quantize.launches - before[0],
+            tqops.dequantize.launches - before[1]) == (1, 1)
+    host = tq.quantize_pytree({k: v.cpu() for k, v in tree.items()})
+    for a, b in zip(packed["q"], host["q"]):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(packed["scales"], host["scales"]):
+        assert torch.equal(a.cpu(), b)
+    for k, v in tree.items():
+        assert out[k].dtype == v.dtype and out[k].shape == v.shape, k

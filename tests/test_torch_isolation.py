@@ -55,7 +55,7 @@ def test_port_files_found():
     for rel in ("federated/llm.py", "launch/steps.py", "launch/train.py",
                 "models/transformer.py", "models/attention.py",
                 "optim/optimizers.py", "data/tokens.py",
-                "configs/qwen3_4b.py"):
+                "configs/qwen3_4b.py", "models/moe.py", "models/mla.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
