@@ -26,9 +26,10 @@ family): reduced Qwen3-4B on the card against the CPU, the ``legacy``
 and ``llm+pipeline`` engines and a crash-and-resume against ``llm`` on
 the card, one train step with int8 gradient transport through the
 transport kernels against their plain versions (one launch of each per
-step), then Qwen3-4B at full width (bf16, 36 layers, d_model 2560, vocab
-151936) for 4 rounds on ``llm`` and on ``legacy``, with per-round walls,
-tokens/s, the train/eval split and the peak memory. Phase 15 does the
+step), then Qwen3-4B at every published width (bf16, d_model 2560, vocab
+151936; its depth cut 36 -> 12) for 4 rounds on ``llm`` and on
+``legacy``, with per-round walls, tokens/s, the train/eval split and the
+peak memory. Phase 15 does the
 same for the MoE and MLA families: reduced Phi-3.5-MoE and reduced
 DeepSeek-V3 (MLA, a shared expert, the MTP head) on the card against the
 CPU, ``legacy`` and ``llm+pipeline`` equal to ``llm`` and a crash resumed
@@ -36,7 +37,17 @@ from its checkpoint, DeepSeek-V3's int8 gradient transport step (46
 leaves: two launches of each kernel), then Phi-3.5-MoE at every
 published width with its depth cut to 4 layers (``llm`` and ``legacy``)
 and DeepSeek-V3 at its widest single-card tier (4 layers, 16 of its 256
-experts; ``llm``).
+experts; ``llm``). Phase 16 does the same for the recurrent families at
+seq 24 (two mLSTM / SSD chunks of 16, the second padded): reduced
+xlstm-125m (an mLSTM and an sLSTM segment) and reduced Zamba2 (Mamba2
+groups, the shared attention block with per-site LoRA) on the card
+against the CPU, ``legacy`` / ``llm+pipeline`` / crash-and-resume equal
+to ``llm``, the int8 gradient transport of reduced Zamba2 (31 leaves:
+one launch of each kernel) and of xlstm-125m whole (54 leaves: two),
+then xlstm-125m whole (12 layers, d_model 768, vocab 50304) and Zamba2-7B
+at every published width with its depth cut 81 -> 25 (4 sites of 6
+Mamba2 layers and a tail layer), each on ``llm`` and ``legacy``. Each
+phase ends in an ``[elapsed]`` line with the script's wall clock.
 
     python3 chip_smoke.py
 
@@ -44,8 +55,9 @@ Needs one CUDA GPU and ``nvcc``; exits non-zero without a result line
 otherwise, and on any failed check. Phases print one line each; the last
 line is a JSON object with ``"ok": true``. Float32 throughout with TF32
 off for matrix products and convolutions, except the full-width models
-of phases 14-15, which are bf16 as registered (their float32 products,
-the MoE routers among them, still without TF32).
+of phases 14-16, which are bf16 as registered (their float32 products,
+the MoE routers and the recurrences' float32 leaves among them, still
+without TF32).
 """
 from __future__ import annotations
 
@@ -165,6 +177,9 @@ LM_TRANSPORT = (8, 2, 128)          # clients, per client, seq (phase 14.3)
 FULL_LM_FED = dict(n_devices=8, devices_per_round=4, milestones=(2,),
                    max_models=4, lr=0.01, late_delete_round=8)
 FULL_LM_CLIENTS, FULL_LM_PER, FULL_LM_SEQ, FULL_LM_ROUNDS = 8, 2, 128, 4
+# Qwen3-4B's tier at every published width, its depth cut 36 -> 12 to
+# keep the script under 600 s with phase 16 (PERF.md section 4)
+FULL_LM_CUT = {"n_layers": 12}
 # the MoE / MLA / MTP families (phase 15): the reduced configs on phase
 # 14's FedCD configuration and dims; DeepSeek-V3's gradient transport
 # (46 leaves of 128 values or more, 32 a launch: 2 launches of each
@@ -175,6 +190,18 @@ MOE_TRANSPORT = ("deepseek-v3-671b", 2)
 FULL_MOE = (("phi3.5-moe-42b-a6.6b", {"n_layers": 4}, ("llm", "legacy")),
             ("deepseek-v3-671b", {"n_layers": 4, "moe.n_experts": 16},
              ("llm",)))
+# the Mamba2 / xLSTM / hybrid families (phase 16): the reduced configs on
+# phase 14's FedCD configuration at seq 24 (two chunks of 16, the second
+# padded: 16 would be one chunk, without a carried state); the gradient
+# transport (arch, reduced, predicted launches of each kernel: 32 leaves
+# a launch) of reduced Zamba2 (31 leaves) and of xlstm-125m whole (54);
+# then xlstm-125m whole and Zamba2-7B at every published width, its
+# depth cut to the deepest 6k+1 predicted under ~70 GB (PERF.md)
+SSM_ARCHS = ("xlstm-125m", "zamba2-7b")
+SSM_SEQ = 24
+SSM_TRANSPORT = (("zamba2-7b", True, 1), ("xlstm-125m", False, 2))
+FULL_SSM = (("xlstm-125m", None, ("llm", "legacy")),
+            ("zamba2-7b", {"n_layers": 25}, ("llm", "legacy")))
 
 
 def fail(msg: str) -> None:
@@ -1613,10 +1640,10 @@ def lm_compare(a, b, tag):
     return hist, perr
 
 
-def lm_card_vs_cpu(device, arch, init):
+def lm_card_vs_cpu(device, arch, init, seq=LM_SEQ):
     """Phase 14.1: the reduced LM on ``llm``, on the card and on the CPU
     from the same params (float32, TF32 off)."""
-    dims = (LM_CLIENTS, LM_PER, LM_SEQ)
+    dims = (LM_CLIENTS, LM_PER, seq)
     snaps = {}
     for dev in (device, "cpu"):
         tr = lm_trainer(arch, LM_FED, dims, "llm", dev, init)
@@ -1628,8 +1655,9 @@ def lm_card_vs_cpu(device, arch, init):
                                          card["genealogy"].values()):
         fail("LM card vs CPU: the schedule made no clone or no deletion")
     print(f"[lm card-vs-cpu] {arch.name} reduced (d_model={arch.d_model}, "
-          f"{arch.n_layers} layers, vocab {arch.vocab_size}) {LM_ROUNDS} "
-          f"rounds on llm: discrete state equal, live={card['live']}, "
+          f"{arch.n_layers} layers, vocab {arch.vocab_size}, seq {seq}) "
+          f"{LM_ROUNDS} rounds on llm: discrete state equal, live="
+          f"{card['live']}, "
           f"models created={len(card['genealogy'])}, trained per round="
           f"{card['trained']}, history max_abs_err={hist}, params "
           f"max_abs_err={perr}", flush=True)
@@ -1639,7 +1667,7 @@ def lm_card_vs_cpu(device, arch, init):
     return card
 
 
-def lm_engines(device, arch, init, llm):
+def lm_engines(device, arch, init, llm, seq=LM_SEQ):
     """Phase 14.2: legacy and llm+pipeline against llm on the card, and a
     crash at LM_CRASH resumed from the last checkpoint."""
     import tempfile
@@ -1647,7 +1675,7 @@ def lm_engines(device, arch, init, llm):
     from repro_torch.core.spec import EngineSpec
     from repro_torch.data.scenarios import (FaultEvent, FaultSchedule,
                                             SimulatedCrash)
-    dims = (LM_CLIENTS, LM_PER, LM_SEQ)
+    dims = (LM_CLIENTS, LM_PER, seq)
 
     def run(spec):
         tr = lm_trainer(arch, LM_FED, dims, spec, device, init)
@@ -1749,7 +1777,8 @@ def lm_transport(device, arch, init, counters, expect=1):
                for a, b in zip(ks, ps))
     perr = max(float((outs["kernel"][k] - outs["plain"][k]).abs().max())
                for k in outs["kernel"])
-    print(f"[lm grad transport] {arch.name} reduced, one step of "
+    print(f"[lm grad transport] {arch.name} ({arch.n_layers}x"
+          f"{arch.d_model}, {arch.param_dtype}), one step of "
           f"{n}x{per}x{seq} tokens, {len(kq)} leaves through the "
           f"transport: codes max_off={off} code_mismatch_share={frac} "
           f"scale_rel_err={srel} params max_abs_err={perr} "
@@ -1821,6 +1850,7 @@ def lm_full_width(device, card_line, name=LM_ARCH, cut=None,
     from repro_torch.config import override
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tf
+    t_tier = time.perf_counter()
     full = get_arch(name)
     arch = override(full, **cut) if cut else full
     t0 = time.perf_counter()
@@ -1892,6 +1922,8 @@ def lm_full_width(device, card_line, name=LM_ARCH, cut=None,
         print(f"[lm full engines] {arch.name}: {a} == {b}: discrete state "
               f"equal, live={snaps[a]['live']}, history max_abs_err={hist}, "
               f"params max_abs_err={perr}", flush=True)
+    print(f"[lm full tier] {arch.name}: wall_s="
+          f"{time.perf_counter() - t_tier:.1f}", flush=True)
 
 
 def _field(cfg, dotted):
@@ -1912,7 +1944,7 @@ def lm_phase(device, card_line, counters):
     llm = lm_card_vs_cpu(device, arch, init)
     lm_engines(device, arch, init, llm)
     counts = lm_transport(device, arch, init, counters)
-    lm_full_width(device, card_line)
+    lm_full_width(device, card_line, LM_ARCH, FULL_LM_CUT)
     return counts
 
 
@@ -1938,6 +1970,38 @@ def moe_phase(device, card_line, counters):
     return counts
 
 
+def ssm_phase(device, card_line, counters):
+    """Phase 16 (module docstring): phase 14's checks on the xLSTM and
+    Zamba2 hybrid families at seq SSM_SEQ; returns the launch counts of
+    each gradient transport step, by path name."""
+    import torch
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import transformer as tf
+    counts = {}
+    for name in SSM_ARCHS:
+        arch = reduced(get_arch(name))
+        init = tf.init_lm(arch, torch.Generator().manual_seed(0))
+        llm = lm_card_vs_cpu(device, arch, init, seq=SSM_SEQ)
+        lm_engines(device, arch, init, llm, seq=SSM_SEQ)
+    for name, cut_down, expect in SSM_TRANSPORT:
+        arch = reduced(get_arch(name)) if cut_down else get_arch(name)
+        init = tf.init_lm(arch, torch.Generator().manual_seed(0))
+        path = f"lm grad transport {name}" + (" reduced" if cut_down
+                                              else "")
+        counts[path] = lm_transport(device, arch, init, counters,
+                                    expect=expect)
+    for name, cut, specs in FULL_SSM:
+        arch = get_arch(name)
+        chunk = (arch.ssm.chunk if arch.family == "hybrid"
+                 else arch.xlstm.chunk)
+        print(f"[lm full chunks] {name}: seq {FULL_LM_SEQ} at chunk {chunk}: "
+              f"{-(-FULL_LM_SEQ // min(FULL_LM_SEQ, chunk))} chunk(s) a "
+              "sequence", flush=True)
+        lm_full_width(device, card_line, name, cut, specs)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1950,6 +2014,13 @@ def main() -> int:
     from repro_torch.models.cnn import init_cnn
 
     device = torch.device("cuda")
+    t_script = time.perf_counter()
+
+    def elapsed(tag):
+        """The script's wall clock at the end of phase ``tag``."""
+        print(f"[elapsed] phase {tag} done at "
+              f"{time.perf_counter() - t_script:.1f} s", flush=True)
+
     # phase 1: the card, and full float32 for products and convolutions
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1998,10 +2069,12 @@ def main() -> int:
             print(f"[diag {name} {shape}] " + " ".join(
                 f"{k}={v}" for k, v in r["diag"].items()))
 
+    elapsed("1-3")
     # phase 4: one MLP round on the card against the CPU
     err = mlp_card_vs_cpu(device)
     print(f"[mlp card-vs-cpu] bank max_abs_err={err} val matrices equal")
 
+    elapsed(4)
     # phase 5: the main path, with every launch counter from zero
     counters = (wops.multi_weighted_agg, wops.weighted_agg, wops.dequant_agg,
                 qops.quantize, qops.dequantize)
@@ -2041,6 +2114,7 @@ def main() -> int:
             fail(f"kernel {name} was not launched on the main path")
     check_transport_launches("main path", launches)
 
+    elapsed(5)
     # phase 6: the three engines agree on the card, and the pipelined and
     # sparse fused runs agree with the fused one
     err, live, stats, sparse = engines_agree(device)
@@ -2052,6 +2126,7 @@ def main() -> int:
     for name, st in stats.items():
         print(f"[engines pipeline_stats] {name}: {st}")
 
+    elapsed(6)
     # phase 7: the legacy engine at full width; then the batched engine
     walls, legacy = drive(lambda: engine_path(device, "legacy"))
     report("legacy path", walls, legacy)
@@ -2070,6 +2145,7 @@ def main() -> int:
     fused_counts = dict(launches)
     launches["weighted_agg"] = legacy["weighted_agg"]
 
+    elapsed(7)
     # phase 8: the pipelined paths at full width, each with its own counts,
     # with the overlap check on the real rounds
     from repro_torch.federated.executors import (FedAvgFusedExecutor,
@@ -2113,6 +2189,7 @@ def main() -> int:
           f"consumed; few where the host, not the card, sets the training's "
           f"pace)")
 
+    elapsed(8)
     # phase 9: the overlap check, with a device spin after each speculation
     # so that its finding does not depend on the host's pace
     probe = OverlapProbe((FusedExecutor, FedAvgFusedExecutor),
@@ -2128,6 +2205,7 @@ def main() -> int:
     if consumed and not probe.overlapped:
         fail("overlap: every readback waited for the speculative training")
 
+    elapsed(9)
     # phases 10-13 run under the no-sync probe; every path has its own
     # launch counts. They hold runs to each other, and the
     # CNN's training is not run-to-run deterministic on cuDNN's default
@@ -2186,12 +2264,16 @@ def main() -> int:
     clock = None
     try:
         semisync_phase(run_path, nosync)
+        elapsed(10)
         churn_phase(run_path, nosync)
+        elapsed(11)
         # phase 12: crash and resume at full width
         clock = CheckpointClock()
         resume_phase(run_path, crash_path, clock, device)
+        elapsed(12)
         # phase 13: the sharded planes at full width
         sharded_phase(run_path, device)
+        elapsed(13)
     finally:
         if clock is not None:
             clock.remove()
@@ -2201,10 +2283,16 @@ def main() -> int:
     # phase 14: the mode-B LM trainer (card against CPU, engines, the
     # gradient transport's kernels, Qwen3-4B at full width)
     later["lm grad transport"] = lm_phase(device, card_line, counters)
+    elapsed(14)
     # phase 15: the MoE / MLA / MTP families (the same checks; Phi-3.5-MoE
     # and DeepSeek-V3 at their widest single-card tiers)
     later[f"lm grad transport {MOE_TRANSPORT[0]}"] = moe_phase(
         device, card_line, counters)
+    elapsed(15)
+    # phase 16: the Mamba2 / xLSTM / hybrid families (the same checks at
+    # seq 24; xlstm-125m whole and Zamba2-7B at every published width)
+    later.update(ssm_phase(device, card_line, counters))
+    elapsed(16)
 
     # launches: kernels 1-3 on the fused main path, weighted_agg on the
     # legacy path; dequant_agg is on no path, so its count stays 0. Each

@@ -21,10 +21,11 @@ checkpoint fields (``save_every``/``checkpoint_dir``/``resume_from``/
 ``faults``) give LM runs the elastic cadence of FedCD/FedAvg, in the
 reference's checkpoint format.
 
-The trainer runs on the card unless ``device="cpu"`` is asked for. The
-attention families are ported: dense GQA, MoE (Phi-3.5-MoE) and MLA with
-MoE and the MTP head (DeepSeek-V3). The Mamba2 / xLSTM / hybrid families
-are ROADMAP item 13b.2, the encoder-decoder model 13b.3, a
+The trainer runs on the card unless ``device="cpu"`` is asked for. Every
+decoder-only family is ported: dense GQA, MoE (Phi-3.5-MoE), MLA with MoE
+and the MTP head (DeepSeek-V3), xLSTM (mLSTM and sLSTM blocks) and the
+Zamba2 hybrid (Mamba2 groups, a shared attention block with per-site
+LoRA). The encoder-decoder model is ROADMAP item 13b.3, a
 tensor-parallel ``mesh`` 13b.4, the serving plane's draft rows
 (``draft_layers``) item 14.
 """
@@ -112,8 +113,9 @@ def _adopt_init(arch: ArchConfig, init_params: Any,
                 device: torch.device) -> Params:
     """``init_params`` (the reference's pytree as numpy, or a flat param
     dict of tensors) -> the port's flat dict on ``device``, each leaf in
-    its dtype of ``init_lm`` (float32 routers in a bfloat16 model), as
-    new tensors the trainer owns."""
+    its dtype of ``init_lm`` (``transformer.param_dtype``: the float32
+    leaves of a bfloat16 model stay float32), as new tensors the trainer
+    owns."""
     flat = (dict(init_params)
             if isinstance(init_params, dict) and all(
                 isinstance(v, torch.Tensor) for v in init_params.values())

@@ -14,10 +14,12 @@ same step.
 The port's step trains IN PLACE: ``step(params, ...)`` writes the
 updated values into ``params``' own tensors and returns that dict (the
 LM trainer's bank rows are trained where they lie; pass a copy to keep
-the input). It takes one gradient per LAYER of each stacked segment leaf
-(``segments.*`` leaves split along their layer axis into views), so no
-stacked gradient is ever assembled; the values are the reference's,
-since every layer's slice of a stacked gradient is that layer's gradient.
+the input). It takes one gradient per LAYER of each stacked leaf
+(``segments.*``, ``mamba_tail.*`` and ``lora.*`` split along their row
+axis into views, ``mamba_groups.*`` along its (site, layer) axes, in
+memory order: ``transformer.stacked_depth``), so no stacked gradient is
+ever assembled; the values are the reference's, since every layer's
+slice of a stacked gradient is that layer's gradient.
 """
 from __future__ import annotations
 
@@ -115,17 +117,21 @@ def quantize_grads(grads: GradTree, bits: int = 8) -> GradTree:
     return out
 
 
-def _grad_leaves(params: Params) -> GradTree:
-    """Leaves to differentiate: detached views of ``params`` that require
-    grad, a stacked segment leaf as its per-layer views."""
+def _targets(params: Params) -> GradTree:
+    """``params`` with each stacked leaf as its per-layer views."""
     out: GradTree = {}
     for k, v in params.items():
-        if k.startswith("segments."):
-            out[k] = [v[i].detach().requires_grad_()
-                      for i in range(v.shape[0])]
-        else:
-            out[k] = v.detach().requires_grad_()
+        depth = tf.stacked_depth(k)
+        out[k] = tf.layer_views(v, depth) if depth else v
     return out
+
+
+def _grad_leaves(params: Params) -> GradTree:
+    """Leaves to differentiate: detached views of ``params`` that require
+    grad, a stacked leaf as its per-layer views."""
+    return {k: ([p.detach().requires_grad_() for p in v]
+                if isinstance(v, list) else v.detach().requires_grad_())
+            for k, v in _targets(params).items()}
 
 
 def _flat(tree: GradTree) -> List[torch.Tensor]:
@@ -185,10 +191,7 @@ def make_train_step(cfg: ArchConfig, mesh=None,
         gtree = _unflat(leaves, grads)
         if grad_transport_bits:
             gtree = quantize_grads(gtree, grad_transport_bits)
-        targets = [p for k, v in params.items()
-                   for p in (v.unbind(0) if k.startswith("segments.")
-                             else [v])]
-        sgd_update_(zip(targets, _flat(gtree)), lr)
+        sgd_update_(zip(_flat(_targets(params)), _flat(gtree)), lr)
         return params, {"loss": loss.detach(), "aux": aux.detach()}
 
     return step

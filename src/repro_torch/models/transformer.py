@@ -1,8 +1,11 @@
-"""Decoder-only LM assembly for the attention families (port of the
-training half of ``repro/models/transformer.py``: ``_init_block`` and
-``_apply_block`` for ``ATTN_MLP``, ``ATTN_MOE``, ``MLA_MLP`` and
-``MLA_MOE``, ``segments``, ``_stack_init``, ``init_lm``, ``lm_forward``
-and ``mtp_logits`` for the non-hybrid layouts).
+"""Decoder-only LM assembly (port of the training half of
+``repro/models/transformer.py``: ``_init_block`` and ``_apply_block``
+for every decoder block kind — ``ATTN_MLP``, ``ATTN_MOE``, ``MLA_MLP``,
+``MLA_MOE``, ``MAMBA2``, ``MLSTM``, ``SLSTM`` — ``segments``,
+``_stack_init``, the Zamba2 shared block (``_init_shared_block``,
+``_init_site_lora``, ``_shared_block_params``, the full-sequence branch
+of ``_apply_shared_block``), ``init_lm``, ``lm_forward`` and
+``mtp_logits``).
 
 Layers are grouped into *segments* of identical block kind, and each
 segment's params are STACKED along a leading layer axis, as the
@@ -15,11 +18,21 @@ each layer optionally recomputed in the backward pass (``remat``:
 ``torch.utils.checkpoint`` per layer). DeepSeek's MTP head (``mtp.*``)
 is one block of the layout's last kind, not stacked.
 
-A segment leaf may also be given as a sequence of per-layer tensors
+Zamba2's hybrid layout has its own assembly: ``mamba_groups.*`` stacks
+``(n_sites, every, ...)`` Mamba2 blocks, ``mamba_tail.*`` ``(n_tail,
+...)`` more; one ``shared.*`` attention+MLP block, not stacked, runs
+after each site's group on ``concat(hidden, x0)`` (``x0`` the embedding
+after the compute-dtype cast), with the site's LoRA deltas
+(``lora.*``, ``(n_sites, ...)``) added to its weights. As the
+reference's, the hybrid path takes no ``remat``.
+
+A stacked leaf may also be given as a sequence of per-layer tensors
 (``launch.steps`` does so, to take one gradient per layer instead of a
-stacked one). The Mamba2 / xLSTM blocks and the hybrid assembly are
-ROADMAP item 13b.2, the encoder-decoder model 13b.3, a tensor-parallel
-mesh 13b.4; the KV caches, prefill and decode are item 14.
+stacked one): ``mamba_groups.*`` as ``n_sites * every`` tensors in
+memory order, the others one per row (``stacked_depth``). The
+encoder-decoder model is ROADMAP item 13b.3, a tensor-parallel mesh
+13b.4; the KV and recurrent caches, prefill and decode of the assembly
+are item 14.
 
 API:
   init_lm(cfg, generator, device)            -> params
@@ -37,8 +50,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import config as C
 from repro_torch.config import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as mb
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xl
 from repro_torch.models.common import (Params, apply_mlp, canonical,
                                        dtype_of, embed, init_embedding,
                                        init_mlp, init_rmsnorm, normal_init,
@@ -47,48 +62,65 @@ from repro_torch.models.common import (Params, apply_mlp, canonical,
 Leaf = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 ATTENTION_KINDS = (C.ATTN_MLP, C.ATTN_MOE, C.MLA_MLP, C.MLA_MOE)
+RECURRENT_KINDS = (C.MAMBA2, C.MLSTM, C.SLSTM)
 MESH_13B4 = "a tensor-parallel mesh is not ported yet (ROADMAP item 13b.4)"
+CACHE_14 = ("the shared block's KV cache and prefill are the serving "
+            "plane's, not ported yet (ROADMAP item 14)")
+# leaves that are float32 in every model (a bfloat16 one included)
+FLOAT32_LEAVES = ("moe.router", "core.A_log", "core.D", "core.dt_bias",
+                  "core.f_bias")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError unless ``cfg`` is a decoder-only stack of
-    attention blocks (GQA or MLA, MLP or MoE; an MTP head allowed)."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid assembly is not ported yet (ROADMAP "
-            "item 13b.2)")
+    """Raise NotImplementedError for the encoder-decoder model (ROADMAP
+    item 13b.3); every decoder-only layout is ported."""
     if cfg.family == "audio" or cfg.encdec.n_enc_layers:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder model is not ported yet "
             "(ROADMAP item 13b.3)")
-    kinds = sorted(set(cfg.layout()) - set(ATTENTION_KINDS))
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: block kind(s) {kinds} are not ported yet "
-            "(ROADMAP item 13b.2)")
 
 
 def param_dtype(cfg: ArchConfig, name: str) -> torch.dtype:
-    """The dtype of leaf ``name`` of ``init_lm(cfg)``: a MoE router is
+    """The dtype of leaf ``name`` of ``init_lm(cfg)``: a MoE router,
+    Mamba2's ``A_log`` / ``D`` / ``dt_bias`` and xLSTM's ``f_bias`` are
     float32 in every model, every other leaf the arch's param dtype."""
-    if name.endswith("moe.router"):
+    if name.endswith(FLOAT32_LEAVES):
         return torch.float32
     return dtype_of(cfg.param_dtype)
+
+
+def stacked_depth(name: str) -> int:
+    """How many leading axes of leaf ``name`` of ``init_lm`` index
+    layers: 2 for ``mamba_groups.*`` (site, layer), 1 for
+    ``segments.*``, ``mamba_tail.*`` and ``lora.*`` (one row each), 0
+    for a leaf used whole."""
+    if name.startswith("mamba_groups."):
+        return 2
+    return int(name.startswith(("segments.", "mamba_tail.", "lora.")))
+
+
+def layer_views(leaf: torch.Tensor, depth: int) -> List[torch.Tensor]:
+    """A stacked leaf's per-layer VIEWS in memory order (writes to them
+    write the leaf); ``[leaf]`` at depth 0."""
+    if not depth:
+        return [leaf]
+    return list(leaf.view(-1, *leaf.shape[depth:]).unbind(0))
 
 
 # ---------------------------------------------------------------------------
 # Single-block init / apply
 # ---------------------------------------------------------------------------
-def _require_ported(kind: str) -> None:
-    if kind not in ATTENTION_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP item 13b.2)")
-
-
 def _init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
                 dtype, device=None) -> Params:
-    _require_ported(kind)
     d = cfg.d_model
+    if kind in RECURRENT_KINDS:
+        init_core = {C.MAMBA2: mb.init_mamba2, C.MLSTM: xl.init_mlstm,
+                     C.SLSTM: xl.init_slstm}[kind]
+        return {**prefixed("core", init_core(generator, cfg, dtype,
+                                             device)),
+                **prefixed("norm", init_rmsnorm(d, dtype, device))}
+    if kind not in ATTENTION_KINDS:
+        raise ValueError(kind)
     if kind in (C.MLA_MLP, C.MLA_MOE):
         a = mla_mod.init_mla(generator, cfg, dtype, device)
     else:
@@ -108,8 +140,14 @@ def _apply_block(params: Params, cfg: ArchConfig, kind: str,
                  x: torch.Tensor, positions: Optional[torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence block. Returns (x, aux_loss)."""
-    _require_ported(kind)
     aux = torch.zeros((), device=x.device)
+    if kind in RECURRENT_KINDS:
+        forward = {C.MAMBA2: mb.mamba2_forward, C.MLSTM: xl.mlstm_forward,
+                   C.SLSTM: xl.slstm_forward}[kind]
+        h = rmsnorm(subtree(params, "norm"), x, cfg.norm_eps)
+        return x + forward(subtree(params, "core"), cfg, h), aux
+    if kind not in ATTENTION_KINDS:
+        raise ValueError(kind)
     h = rmsnorm(subtree(params, "norm1"), x, cfg.norm_eps)
     if kind in (C.MLA_MLP, C.MLA_MOE):
         a = mla_mod.mla_forward(subtree(params, "attn"), cfg, h, positions)
@@ -139,6 +177,71 @@ def _stack_init(generator: torch.Generator, n: int,
 
 
 # ---------------------------------------------------------------------------
+# Zamba2-style shared attention block
+# ---------------------------------------------------------------------------
+def _init_shared_block(generator: torch.Generator, cfg: ArchConfig, dtype,
+                       device=None) -> Params:
+    d = cfg.d_model
+    return {"w_concat": normal_init(generator, (2 * d, d), dtype,
+                                    device=device),
+            **prefixed("norm1", init_rmsnorm(d, dtype, device)),
+            **prefixed("attn", attn.init_attention(generator, cfg, dtype,
+                                                   device)),
+            **prefixed("norm2", init_rmsnorm(d, dtype, device)),
+            **prefixed("mlp", init_mlp(generator, d, cfg.d_ff, dtype,
+                                       device))}
+
+
+def _init_site_lora(generator: torch.Generator, cfg: ArchConfig, dtype,
+                    device=None) -> Params:
+    r = cfg.shared_attn_lora_rank
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim()
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {"qa": normal_init(generator, (d, r), dtype, device=device),
+            "qb": zeros((r, H * hd)),
+            "oa": normal_init(generator, (H * hd, r), dtype, device=device),
+            "ob": zeros((r, d)),
+            "ca": normal_init(generator, (2 * d, r), dtype, device=device),
+            "cb": zeros((r, d))}
+
+
+def _shared_block_params(shared: Params, lora: Params) -> Params:
+    """Materialize per-site weights = shared + LoRA deltas."""
+    p = dict(shared)
+    p["w_concat"] = shared["w_concat"] + lora["ca"] @ lora["cb"]
+    p["attn.wq"] = shared["attn.wq"] + lora["qa"] @ lora["qb"]
+    p["attn.wo"] = shared["attn.wo"] + lora["oa"] @ lora["ob"]
+    return p
+
+
+def _apply_shared_block(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                        x0: torch.Tensor, positions, cache=None, window=0,
+                        prefill=False, n_valid=None):
+    """Zamba2 shared block: concat(hidden, embeds) -> proj -> attn+mlp.
+    Only the full-sequence branch is ported (``cache=None``)."""
+    if cache is not None or prefill:
+        raise NotImplementedError(CACHE_14)
+    hcat = torch.cat([x, x0], dim=-1)
+    h = torch.matmul(hcat, p["w_concat"])
+    hn = rmsnorm(subtree(p, "norm1"), h, cfg.norm_eps)
+    a = attn.attention_forward(subtree(p, "attn"), cfg, hn, positions)
+    h = h + a
+    f = apply_mlp(subtree(p, "mlp"), rmsnorm(subtree(p, "norm2"), h,
+                                             cfg.norm_eps))
+    return x + h + f, None
+
+
+def hybrid_sites(cfg: ArchConfig) -> Tuple[int, int, int]:
+    """(sites, Mamba2 layers a site, tail layers) of a hybrid layout."""
+    every = cfg.shared_attn_every
+    n_sites = cfg.n_layers // every
+    return n_sites, every, cfg.n_layers - n_sites * every
+
+
+# ---------------------------------------------------------------------------
 # Top-level LM
 # ---------------------------------------------------------------------------
 def init_lm(cfg: ArchConfig, generator: torch.Generator,
@@ -149,10 +252,30 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
     dtype = dtype_of(cfg.param_dtype)
     p: Params = prefixed("embed", init_embedding(
         generator, cfg.vocab_size, cfg.d_model, dtype, device))
-    for i, (kind, n) in enumerate(segments(cfg)):
-        p.update(prefixed(f"segments.{i}", _stack_init(
-            generator, n,
-            lambda g, kind=kind: _init_block(g, cfg, kind, dtype, device))))
+
+    def mamba(g):
+        return _init_block(g, cfg, C.MAMBA2, dtype, device)
+
+    if cfg.family == "hybrid":
+        n_sites, every, n_tail = hybrid_sites(cfg)
+        p.update(prefixed("mamba_groups", _stack_init(
+            generator, n_sites,
+            lambda g: _stack_init(g, every, mamba))))
+        if n_tail:
+            p.update(prefixed("mamba_tail", _stack_init(generator, n_tail,
+                                                        mamba)))
+        p.update(prefixed("shared", _init_shared_block(generator, cfg,
+                                                       dtype, device)))
+        if cfg.shared_attn_lora_rank:
+            p.update(prefixed("lora", _stack_init(
+                generator, n_sites,
+                lambda g: _init_site_lora(g, cfg, dtype, device))))
+    else:
+        for i, (kind, n) in enumerate(segments(cfg)):
+            p.update(prefixed(f"segments.{i}", _stack_init(
+                generator, n,
+                lambda g, kind=kind: _init_block(g, cfg, kind, dtype,
+                                                 device))))
     p.update(prefixed("final_norm", init_rmsnorm(cfg.d_model, dtype,
                                                  device)))
     if not cfg.tie_embeddings:
@@ -168,8 +291,9 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
     return canonical(p)
 
 
-def _layers(leaf: Leaf) -> Sequence[torch.Tensor]:
-    return leaf.unbind(0) if isinstance(leaf, torch.Tensor) else leaf
+def _layers(leaf: Leaf, depth: int = 1) -> Sequence[torch.Tensor]:
+    return layer_views(leaf, depth) if isinstance(leaf, torch.Tensor) \
+        else leaf
 
 
 def _scan_segment(stacked: Dict[str, Leaf], cfg: ArchConfig, kind: str,
@@ -190,6 +314,29 @@ def _scan_segment(stacked: Dict[str, Leaf], cfg: ArchConfig, kind: str,
             x, a = body(x)
         aux = aux + a
     return x, aux
+
+
+def _hybrid_forward(cfg: ArchConfig, params: Dict[str, Leaf],
+                    x: torch.Tensor, positions) -> torch.Tensor:
+    """Zamba2: each site's Mamba2 group, then the shared block with the
+    site's LoRA on ``concat(hidden, x0)``; then the tail."""
+    x0 = x
+    n_sites, every, _ = hybrid_sites(cfg)
+    groups = {k: _layers(v, 2)
+              for k, v in subtree(params, "mamba_groups").items()}
+    shared, lora = subtree(params, "shared"), subtree(params, "lora")
+    for s in range(n_sites):
+        for j in range(every):
+            layer = {k: v[s * every + j] for k, v in groups.items()}
+            x, _ = _apply_block(layer, cfg, C.MAMBA2, x, positions)
+        sp = (_shared_block_params(shared, {k: v[s]
+                                            for k, v in lora.items()})
+              if lora else shared)
+        x, _ = _apply_shared_block(sp, cfg, x, x0, positions)
+    tail = subtree(params, "mamba_tail")
+    if tail:
+        x, _ = _scan_segment(tail, cfg, C.MAMBA2, x, positions, False)
+    return x
 
 
 def _logits(cfg: ArchConfig, params: Params, h: torch.Tensor
@@ -217,10 +364,13 @@ def lm_forward(cfg: ArchConfig, params: Dict[str, Leaf],
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     aux = torch.zeros((), device=x.device)
-    for i, (kind, _n) in enumerate(segments(cfg)):
-        x, a = _scan_segment(subtree(params, f"segments.{i}"), cfg, kind, x,
-                             positions, remat)
-        aux = aux + a
+    if cfg.family == "hybrid":
+        x = _hybrid_forward(cfg, params, x, positions)
+    else:
+        for i, (kind, _n) in enumerate(segments(cfg)):
+            x, a = _scan_segment(subtree(params, f"segments.{i}"), cfg,
+                                 kind, x, positions, remat)
+            aux = aux + a
     return _logits(cfg, params, x), x, aux
 
 

@@ -1170,3 +1170,95 @@ def test_quantize_pytree_is_one_launch_each_on_card(cuda):
         assert torch.equal(a.cpu(), b)
     for k, v in tree.items():
         assert out[k].dtype == v.dtype and out[k].shape == v.shape, k
+
+
+# -- the xLSTM and Zamba2 hybrid families on the card ----------------------------
+
+SSM_ARCHS = ("xlstm-125m", "zamba2-7b")
+
+
+def _ssm_run(device, name, spec, init, rounds=8):
+    """Reduced ``name`` on ``LM_FED`` at seq 24: the mLSTM / SSD runs two
+    chunks of 16, the second padded."""
+    from repro_torch.config import FedCDConfig
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.federated.llm import FedLLMTrainer
+    tr = FedLLMTrainer(reduced(get_arch(name)), FedCDConfig(**LM_FED), 4, 2,
+                       24, seed=0, spec=spec, device=device, init_params=init)
+    tr.run(rounds)
+    return tr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SSM_ARCHS)
+def test_ssm_trainer_on_card_matches_cpu(cuda, name):
+    """Reduced xlstm-125m and Zamba2 over 8 rounds on ``llm``, on the card
+    and on the CPU from the same params: discrete state equal, score
+    history to 1e-6, params to 1e-4 (float32, TF32 off)."""
+    init = _moe_init(name)
+    card = _ssm_run(cuda, name, "llm", init)
+    host = _ssm_run("cpu", name, "llm", init)
+    np.testing.assert_array_equal(card.state.active, host.state.active)
+    np.testing.assert_array_equal(card.state.alive, host.state.alive)
+    assert card.registry.live_ids() == host.registry.live_ids()
+    assert [m.trained_models for m in card.metrics] == \
+        [m.trained_models for m in host.metrics]
+    np.testing.assert_allclose(card.state.history, host.state.history,
+                               atol=1e-6, equal_nan=True)
+    for m in host.registry.live_ids():
+        for k, v in host.registry.params[m].items():
+            np.testing.assert_allclose(card.registry.params[m][k].cpu(), v,
+                                       atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SSM_ARCHS)
+def test_ssm_legacy_bit_equal_to_llm_on_card(cuda, name):
+    """``legacy`` equals ``llm`` at 0.0 on the card: the chunk loops,
+    cumulative sums, ``repeat_interleave`` and maxima reduce in a fixed
+    order, and no scatter-add is on the path."""
+    init = _moe_init(name)
+    ref = _ssm_run(cuda, name, "llm", init)
+    tr = _ssm_run(cuda, name, "legacy", init)
+    assert tr.registry.live_ids() == ref.registry.live_ids()
+    np.testing.assert_array_equal(tr.state.active, ref.state.active)
+    for m in ref.registry.live_ids():
+        for k, v in ref.registry.params[m].items():
+            assert torch.equal(tr.registry.params[m][k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,launches", [("zamba2-7b", 1),
+                                           ("xlstm-125m", 1)])
+def test_ssm_grad_transport_launches_on_card(cuda, name, launches):
+    """Reduced Zamba2 (31 leaves of 128 values or more) and reduced xLSTM
+    (22) make one quantize and one dequantize launch per step, params
+    equal to the step through the plain versions."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import steps
+    cfg = reduced(get_arch(name))
+    init = _moe_init(name)
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 25))).to(cuda)
+    scores = torch.tensor([0.4, 0.1, 0.3, 0.2], device=cuda)
+    step = steps.make_train_step(cfg, lr=0.05, remat=False,
+                                 grad_transport_bits=8)
+    before = tqops.quantize.launches, tqops.dequantize.launches
+    pk, _ = step({k: v.to(cuda) for k, v in init.items()}, tok[:, :-1],
+                 tok[:, 1:], scores)
+    torch.cuda.synchronize()
+    assert (tqops.quantize.launches - before[0],
+            tqops.dequantize.launches - before[1]) == (launches, launches)
+    real = tqops.quantize_group, tqops.dequantize_group
+    try:
+        tqops.quantize_group = lambda xs, bits=8: tuple(
+            map(list, zip(*[tqref.quantize_ref(x, bits) for x in xs])))
+        tqops.dequantize_group = lambda qs, ss, ns: [
+            tqref.dequantize_ref(q, s, (q.shape[0], n), torch.float32)
+            for q, s, n in zip(qs, ss, ns)]
+        pp, _ = step({k: v.to(cuda) for k, v in init.items()}, tok[:, :-1],
+                     tok[:, 1:], scores)
+    finally:
+        tqops.quantize_group, tqops.dequantize_group = real
+    for k in pk:
+        assert torch.equal(pk[k], pp[k]), k

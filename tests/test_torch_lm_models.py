@@ -37,7 +37,8 @@ from repro_torch.models import transformer as ttf  # noqa: E402
 DENSE = ("qwen3-4b", "internlm2-1.8b", "glm4-9b", "llama3-405b",
          "chameleon-34b")
 MOE = ("deepseek-v3-671b", "phi3.5-moe-42b-a6.6b")
-OTHER = ("zamba2-7b", "xlstm-125m", "whisper-small")
+RECURRENT = ("zamba2-7b", "xlstm-125m")
+OTHER = ("whisper-small",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -68,7 +69,7 @@ def test_registry_names_match():
     assert len(tconfigs.all_arch_names()) == 10
 
 
-@pytest.mark.parametrize("name", DENSE + MOE + OTHER)
+@pytest.mark.parametrize("name", DENSE + MOE + RECURRENT + OTHER)
 def test_arch_configs_reduced_and_param_counts_match(name):
     full = (jconfigs.get_arch(name), tconfigs.get_arch(name))
     red = _arch_pair(name)
@@ -246,7 +247,7 @@ def test_lm_forward_bf16_tier(name):
 @pytest.mark.parametrize("name", OTHER)
 def test_other_families_raise_not_implemented(name):
     _, tc = _arch_pair(name)
-    item = "13b.3" if name == "whisper-small" else "13b.2"
+    item = "13b.3"
     with pytest.raises(NotImplementedError, match=item):
         ttf.init_lm(tc, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match=item):
