@@ -46,8 +46,18 @@ to ``llm``, the int8 gradient transport of reduced Zamba2 (31 leaves:
 one launch of each kernel) and of xlstm-125m whole (54 leaves: two),
 then xlstm-125m whole (12 layers, d_model 768, vocab 50304) and Zamba2-7B
 at every published width with its depth cut 81 -> 25 (4 sites of 6
-Mamba2 layers and a tail layer), each on ``llm`` and ``legacy``. Each
-phase ends in an ``[elapsed]`` line with the script's wall clock.
+Mamba2 layers and a tail layer), each on ``llm`` and ``legacy``. Phase 17
+drives the decode path: the four tiny decoder configs of the serving
+tests (dense with a sliding window, MLA, xLSTM, the Zamba2 hybrid) and
+reduced whisper-small on the card against the CPU (chunked prefill with
+a padded tail, decode steps, caches; rollback after a speculative verify
+bitwise equal to the prefill of the accepted prefix), then whisper-small
+whole (bf16: train steps at 4 x 2 x 448 tokens on 1500 source frames,
+the encoder's share, an eval, an int8 gradient transport step, a greedy
+decode of 64 tokens) and Qwen3-4B at phase 14's tier (a 2048-token
+prefill at B=8 and 64 decode steps, held against the teacher-forced
+forward). Each phase ends in an ``[elapsed]`` line with the script's
+wall clock.
 
     python3 chip_smoke.py
 
@@ -55,7 +65,7 @@ Needs one CUDA GPU and ``nvcc``; exits non-zero without a result line
 otherwise, and on any failed check. Phases print one line each; the last
 line is a JSON object with ``"ok": true``. Float32 throughout with TF32
 off for matrix products and convolutions, except the full-width models
-of phases 14-16, which are bf16 as registered (their float32 products,
+of phases 14-17, which are bf16 as registered (their float32 products,
 the MoE routers and the recurrences' float32 leaves among them, still
 without TF32).
 """
@@ -202,6 +212,27 @@ SSM_SEQ = 24
 SSM_TRANSPORT = (("zamba2-7b", True, 1), ("xlstm-125m", False, 2))
 FULL_SSM = (("xlstm-125m", None, ("llm", "legacy")),
             ("zamba2-7b", {"n_layers": 25}, ("llm", "legacy")))
+# the decode path (phase 17): the four tiny configs of
+# tests/test_gateway.py:37-55 and reduced whisper-small on the card against
+# the CPU (float32): an 11-token prompt in chunks of 4 (the last padded),
+# then 8 decode steps (whisper: its caches, then 8 decode steps); a verify
+# of a 4-token chunk whose draft is rejected at its second token
+DECODE_B, DECODE_PROMPT, DECODE_CHUNK, DECODE_STEPS, DECODE_MAXLEN = (
+    2, 11, 4, 8, 24)
+DECODE_LOGIT_TOL = 1e-5             # logits, card against CPU
+DECODE_CACHE_TOL = 1e-6             # cache floats, of each leaf's scale
+# whisper-small whole (phase 17.2), bf16 as registered: 4 clients x 2
+# rows x 448 target tokens (Whisper's published decoder context) on 1500
+# source frames, per-layer recompute; a greedy decode of 64 tokens at B=8
+WHISPER = "whisper-small"
+WHISPER_DIMS = (4, 2, 448)
+WHISPER_STEPS = 3                   # timed train steps, after a warm-up
+WHISPER_DECODE = 64
+# Qwen3-4B at phase 14's tier (phase 17.3): a 2048-token prompt at B=8 in
+# chunks of 512, then 64 greedy decode steps, held against the
+# teacher-forced forward over the same 2112 tokens
+QWEN_DECODE = (8, 2048, 512, 64)    # batch, prompt, chunk, new tokens
+QWEN_AGREE = 0.95                   # argmax agreement with the forward
 
 
 def fail(msg: str) -> None:
@@ -1726,6 +1757,7 @@ def lm_transport(device, arch, init, counters, expect=1):
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.kernels.quantize import ref as qref
     from repro_torch.launch import steps
+    from repro_torch.models import frontends
 
     n, per, seq = LM_TRANSPORT
     tokens, labels = lm_batch(np.random.default_rng(0), n, per, seq,
@@ -1734,7 +1766,13 @@ def lm_transport(device, arch, init, counters, expect=1):
                 for a in (tokens, labels))
     scores = torch.rand(n, generator=torch.Generator().manual_seed(1)
                         ).to(device)
-    step = steps.make_train_step(arch, lr=0.05, remat=False,
+    # an audio model takes encoder frames, and recomputes each layer in
+    # the backward pass (1500 frames a row)
+    audio = arch.family == "audio"
+    frames = (frontends.synthetic_audio_frames(
+        torch.Generator().manual_seed(2), arch, n * per, device)
+        if audio else None)
+    step = steps.make_train_step(arch, lr=0.05, remat=audio,
                                  grad_transport_bits=8)
     kernel_q, kernel_dq = qops.quantize_group, qops.dequantize_group
     seen = {}
@@ -1763,7 +1801,7 @@ def lm_transport(device, arch, init, counters, expect=1):
             params = {k: v.to(device, copy=True) for k, v in init.items()}
             for fn in counters:
                 fn.launches = 0
-            outs[tag], _ = step(params, tok, lab, scores)
+            outs[tag], _ = step(params, tok, lab, scores, frames)
             torch.cuda.synchronize()
             if tag == "kernel":
                 counts = {fn.__name__: fn.launches for fn in counters}
@@ -1999,6 +2037,404 @@ def ssm_phase(device, card_line, counters):
               f"{-(-FULL_LM_SEQ // min(FULL_LM_SEQ, chunk))} chunk(s) a "
               "sequence", flush=True)
         lm_full_width(device, card_line, name, cut, specs)
+    return counts
+
+
+# -- phase 17: the decode path ------------------------------------------------
+
+def gateway_configs():
+    """The four tiny decoder configs of tests/test_gateway.py:37-55."""
+    from repro_torch.config import ArchConfig, MLAConfig, XLSTMConfig
+    common = dict(n_heads=4, d_ff=128, vocab_size=64, d_model=64,
+                  param_dtype="float32", compute_dtype="float32")
+    return {
+        "dense_win": ArchConfig(name="tw", n_layers=2, n_kv_heads=2,
+                                sliding_window=6, **common),
+        "mla": ArchConfig(name="tm", family="moe", attn_type="mla",
+                          n_layers=2, n_kv_heads=4,
+                          mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                                        qk_nope_dim=16, qk_rope_dim=8,
+                                        v_head_dim=16), **common),
+        "ssm": ArchConfig(name="ts", family="ssm", n_layers=3, n_kv_heads=4,
+                          xlstm=XLSTMConfig(slstm_layers=(1,)), **common),
+        "hybrid": ArchConfig(name="th", family="hybrid", n_layers=5,
+                             n_kv_heads=4, shared_attn_every=2,
+                             shared_attn_lora_rank=4, **common),
+    }
+
+
+def cache_gaps(card, host, tag):
+    """Fail unless two cache dicts have the same leaves and equal integer
+    leaves; return the largest float gap over its leaf's scale (max |v|,
+    at least 1)."""
+    if list(card) != list(host):
+        fail(f"{tag}: cache leaves differ")
+    gap = 0.0
+    for k, h in host.items():
+        c = card[k].cpu()
+        if c.dtype != h.dtype or c.shape != h.shape:
+            fail(f"{tag}: cache leaf {k} is {c.dtype} {tuple(c.shape)}, "
+                 f"not {h.dtype} {tuple(h.shape)}")
+        if not h.dtype.is_floating_point:
+            if not bool((c == h).all()):
+                fail(f"{tag}: cache leaf {k} differs")
+            continue
+        scale = max(1.0, float(h.abs().max()))
+        gap = max(gap, float((c - h).abs().max()) / scale)
+    return gap
+
+
+def decode_run(cfg, params, prompt, dec, device, frames=None):
+    """A prompt's chunked prefill (the last chunk padded), then decode
+    steps over ``dec``; an audio config builds its caches from ``frames``
+    and decodes only. Returns (the logits of each call, the caches), on
+    the host."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import transformer as tf
+    win = cfg.sliding_window
+    params = {k: v.to(device) for k, v in params.items()}
+    serve = steps.make_serve_step(cfg, window=win)
+    logits = []
+    with torch.no_grad():
+        if frames is not None:
+            caches = ed.init_encdec_caches(cfg, params, frames.to(device),
+                                           DECODE_MAXLEN)
+        else:
+            prefill = steps.make_prefill_step(cfg, window=win)
+            caches = tf.init_lm_caches(cfg, prompt.shape[0], DECODE_MAXLEN,
+                                       window=win, device=device)
+            for s in range(0, prompt.shape[1], DECODE_CHUNK):
+                chunk = prompt[:, s:s + DECODE_CHUNK]
+                nv = chunk.shape[1]
+                chunk = torch.nn.functional.pad(chunk,
+                                                (0, DECODE_CHUNK - nv))
+                last, caches = prefill(params, caches, chunk.to(device), nv)
+                logits.append(last)
+        for t in range(dec.shape[1]):
+            last, caches = serve(params, caches, dec[:, t:t + 1].to(device))
+            logits.append(last)
+    return ([x.cpu() for x in logits],
+            {k: v.cpu() for k, v in caches.items()})
+
+
+def rollback_check(cfg, params, prompt, device):
+    """On ``device``: prefill the prompt, verify a 4-token chunk whose
+    draft is rejected at its second token; the rolled-back caches must
+    be bitwise the prefill of the accepted prefix."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    win = cfg.sliding_window
+    params = {k: v.to(device) for k, v in params.items()}
+    with torch.no_grad():
+        caches = tf.init_lm_caches(cfg, prompt.shape[0], DECODE_MAXLEN,
+                                   window=win, device=device)
+        _, caches = tf.lm_prefill(cfg, params, prompt[:, :7].to(device),
+                                  caches, window=win)
+        chunk = prompt[:, 7:].to(device)
+        probe, _ = tf.lm_prefill(cfg, params, chunk, caches, window=win)
+        draft = torch.argmax(probe, -1).to(torch.int32)[:, :-1]
+        draft[:, 1] = (draft[:, 1] + 1) % cfg.vocab_size
+        _, n_keep, rolled = tf.lm_spec_verify(cfg, params, chunk, draft,
+                                              caches, window=win)
+        _, oracle = tf.lm_prefill(cfg, params, chunk, caches, window=win,
+                                  n_valid=n_keep)
+    if int(n_keep) != 2:
+        fail(f"decode {cfg.name}: the verify kept {int(n_keep)} tokens, "
+             "not 2")
+    return all(torch.equal(rolled[k], oracle[k]) for k in oracle)
+
+
+def decode_card_vs_cpu(device, drive):
+    """Phase 17.1 (module docstring). ``drive(tag, fn)`` runs ``fn`` with
+    the launch counters from zero and keeps its counts under ``tag``."""
+    import torch
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as tf
+    cases = [(name, cfg, None) for name, cfg in gateway_configs().items()]
+    cases.append((WHISPER, reduced(get_arch(WHISPER)), True))
+    B = DECODE_B
+    for name, cfg, audio in cases:
+        gen = torch.Generator().manual_seed(0)
+        rng = np.random.default_rng(0)
+        prompt = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, DECODE_PROMPT)))
+        dec = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (B, DECODE_STEPS)))
+        if audio:
+            params = ed.init_encdec(cfg, gen)
+            frames = frontends.synthetic_audio_frames(gen, cfg, B)
+        else:
+            params = tf.init_lm(cfg, gen)
+            frames = None
+        card = drive(f"decode {name}", lambda: decode_run(
+            cfg, params, prompt, dec, device, frames))
+        host = decode_run(cfg, params, prompt, dec, "cpu", frames)
+        lgap = max(float((a - b).abs().max())
+                   for a, b in zip(card[0], host[0]))
+        cgap = cache_gaps(card[1], host[1], f"decode {name}")
+        finite = all(bool(torch.isfinite(x).all()) for x in card[0])
+        bitwise = None if audio else rollback_check(cfg, params, prompt,
+                                                    device)
+        what = (f"caches of {cfg.encdec.source_len} frames, "
+                f"{DECODE_STEPS} decode steps" if audio else
+                f"prefill of {DECODE_PROMPT} tokens in chunks of "
+                f"{DECODE_CHUNK} (the last padded), {DECODE_STEPS} decode "
+                "steps")
+        print(f"[decode card-vs-cpu] {name} ({cfg.family}, {cfg.n_layers} "
+              f"layers, d_model {cfg.d_model}, window {cfg.sliding_window}"
+              f"), B={B}, {what}: logits max_abs_err={lgap} cache "
+              f"max_err/scale={cgap} index/pos equal, finite={finite}"
+              + ("" if audio else
+                 f"; rollback after verify == prefill of the accepted "
+                 f"prefix on the card: bitwise={bitwise}"), flush=True)
+        if not (lgap <= DECODE_LOGIT_TOL and cgap <= DECODE_CACHE_TOL
+                and finite and bitwise is not False):
+            fail(f"decode {name}: card against CPU logits {lgap} > "
+                 f"{DECODE_LOGIT_TOL}, caches {cgap} > {DECODE_CACHE_TOL}, "
+                 f"non-finite logits, or rollback not bitwise "
+                 f"({bitwise})")
+
+
+def op_count(fn):
+    """The aten operators one call of ``fn`` dispatches, views included:
+    each costs the host microseconds, however little the card does."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
+def timed(fn):
+    """``fn()``'s result and its device milliseconds (CUDA events)."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def whisper_phase(device, card_line, counters, drive):
+    """Phase 17.2 (module docstring): whisper-small whole."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import frontends
+    arch = get_arch(WHISPER)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = ed.init_encdec(arch, gen, device=device)
+    n_params = sum(v.numel() for v in params.values())
+    n, per, seq = WHISPER_DIMS
+    B = n * per
+    frames = frontends.synthetic_audio_frames(gen, arch, B, device)
+    toks = torch.randint(0, arch.vocab_size, (B, seq + 1), generator=gen,
+                         device=device)
+    tok, lab = toks[:, :-1], toks[:, 1:]
+    scores = torch.rand(n, generator=gen, device=device)
+    step = steps.make_train_step(arch, lr=0.01)        # per-layer remat
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(params, tok, lab, scores, frames)              # warm-up
+    torch.cuda.synchronize()
+    step_ms, losses = [], []
+    for _ in range(WHISPER_STEPS):
+        (params, m), ms = timed(lambda: step(params, tok, lab, scores,
+                                             frames))
+        step_ms.append(ms)
+        losses.append(float(m["loss"]))
+    train_peak = torch.cuda.max_memory_allocated()
+    # the encoder alone, forward and backward as inside the step: its
+    # per-layer leaves, its output's gradient dense
+    leaves = {k: v for k, v in steps._grad_leaves(params).items()
+              if k.startswith(("enc_blocks.", "enc_norm."))}
+    flat = [p for v in leaves.values()
+            for p in (v if isinstance(v, list) else [v])]
+
+    def encoder():
+        out = ed.encode(arch, leaves, frames, remat=True)
+        return torch.autograd.grad(out.float().sum(), flat)
+
+    encoder()
+    enc_ms = float(np.mean([timed(encoder)[1] for _ in range(2)]))
+    del leaves, flat
+    evaluate = steps.make_eval_step(arch, n)
+    evaluate(params, tok, lab, frames)
+    per_client, eval_ms = timed(lambda: evaluate(params, tok, lab, frames))
+    mean_ms = float(np.mean(step_ms))
+    print(f"[whisper train] {arch.name} whole: {n_params} params "
+          f"({arch.encdec.n_enc_layers}+{arch.n_layers} layers, d_model "
+          f"{arch.d_model}, vocab {arch.vocab_size}, {arch.param_dtype}), "
+          f"{n} clients x {per} rows x {seq} target tokens on "
+          f"{arch.encdec.source_len} source frames, per-layer recompute: "
+          f"step device ms={[round(x, 3) for x in step_ms]} mean="
+          f"{mean_ms:.3f} target tokens/s={B * seq / mean_ms * 1e3:.1f} "
+          f"encoder fwd+bwd ms={enc_ms:.3f} (share {enc_ms / mean_ms:.3f}) "
+          f"eval ms={eval_ms:.3f} losses={losses} "
+          f"max_memory_allocated={train_peak} "
+          f"({train_peak / 2**30:.2f} GiB) ({card_line})", flush=True)
+    if not (np.all(np.isfinite(losses))
+            and bool(torch.isfinite(per_client).all())):
+        fail(f"whisper train: losses {losses}, eval {per_client}")
+    # the greedy decode: caches from the same frames, 64 tokens at B=8
+    serve = steps.make_serve_step(arch)
+    torch.cuda.reset_peak_memory_stats()
+
+    def decode():
+        with torch.no_grad():
+            caches = ed.init_encdec_caches(arch, params, frames,
+                                           WHISPER_DECODE)
+        cross = sum(v.nbytes for k, v in caches.items()
+                    if k.startswith("cross."))
+        ops = op_count(lambda: serve(params, caches, tok[:, :1]))
+        outs = []
+
+        def loop(caches, cur):
+            for _ in range(WHISPER_DECODE):
+                logits, caches = serve(params, caches, cur)
+                cur = torch.argmax(logits, -1)[:, None]
+                outs.append(logits)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ms = timed(lambda: loop(caches, tok[:, :1]))
+        return cross, ops, outs, ms, time.perf_counter() - t0
+
+    cross, ops, outs, dec_ms, dec_wall = drive(
+        f"encdec decode {WHISPER}", decode)
+    dec_peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(x).all()) for x in outs)
+    print(f"[whisper decode] {arch.name} whole, greedy, B={B}, "
+          f"{WHISPER_DECODE} tokens: device ms/token="
+          f"{dec_ms / WHISPER_DECODE:.3f} wall ms/token="
+          f"{dec_wall * 1e3 / WHISPER_DECODE:.3f} aten ops/token={ops} "
+          f"cross-K/V cache bytes="
+          f"{cross} ({cross / 1e6:.1f} MB) finite={finite} "
+          f"max_memory_allocated={dec_peak} ({dec_peak / 2**30:.2f} GiB) "
+          f"({card_line})", flush=True)
+    if not finite:
+        fail("whisper decode: non-finite logits")
+    init = {k: v.cpu() for k, v in params.items()}
+    del params, frames
+    torch.cuda.empty_cache()
+    return lm_transport(device, arch, init, counters, expect=1)
+
+
+def qwen_decode_phase(device, card_line, drive):
+    """Phase 17.3 (module docstring): Qwen3-4B at phase 14's tier."""
+    import gc
+
+    import torch
+
+    from repro_torch.config import override
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    arch = override(get_arch(LM_ARCH), **FULL_LM_CUT)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = tf.init_lm(arch, gen, device=device)
+    n_params = sum(v.numel() for v in params.values())
+    B, P, CH, N = QWEN_DECODE
+    prompt = torch.randint(0, arch.vocab_size, (B, P), generator=gen,
+                           device=device)
+    prefill = steps.make_prefill_step(arch)
+    serve = steps.make_serve_step(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        caches = tf.init_lm_caches(arch, B, P + N, device=device)
+
+        def fill(caches):
+            for s in range(0, P, CH):
+                last, caches = prefill(params, caches, prompt[:, s:s + CH],
+                                       CH)
+            return last, caches
+
+        (last, caches), pre_ms = timed(lambda: fill(caches))
+        kv = sum(v.nbytes for v in caches.values())
+        logits = [last]
+        toks = [torch.argmax(last, -1)]
+
+        def loop(caches):
+            for _ in range(N):
+                lg, caches = serve(params, caches, toks[-1][:, None])
+                logits.append(lg)
+                toks.append(torch.argmax(lg, -1))
+            return caches
+
+        caches, dec_ms = timed(lambda: loop(caches))
+        ops = op_count(lambda: serve(params, caches, toks[-1][:, None]))
+        return pre_ms, dec_ms, ops, kv, torch.stack(logits, 1), \
+            torch.stack(toks[:N], 1)
+
+    pre_ms, dec_ms, ops, kv, dec_logits, new = drive(
+        f"prefill+decode {LM_ARCH}", run)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        full, _, _ = tf.lm_forward(arch, params, torch.cat([prompt, new], 1))
+    forced = full[:, P - 1:]                        # (B, N + 1, V)
+    agree = float((torch.argmax(forced, -1)
+                   == torch.argmax(dec_logits, -1)).float().mean())
+    gap = float((forced - dec_logits).abs().max())
+    finite = bool(torch.isfinite(dec_logits).all()
+                  and torch.isfinite(forced).all())
+    print(f"[qwen decode] {arch.name} at {arch.n_layers} layers (every "
+          f"width kept, {n_params} params, {arch.param_dtype}), B={B}: "
+          f"prefill of {P} tokens in chunks of {CH} device ms={pre_ms:.3f} "
+          f"({B * P / pre_ms * 1e3:.1f} tokens/s), {N} decode steps device "
+          f"ms/token={dec_ms / N:.3f} (aten ops/token={ops}), KV cache "
+          f"bytes={kv} "
+          f"({kv / 1e9:.3f} GB), max_memory_allocated={peak} "
+          f"({peak / 2**30:.2f} GiB); against the teacher-forced forward "
+          f"over {P + N} tokens: argmax agreement={agree} (bar "
+          f"{QWEN_AGREE}), logits max_abs_diff={gap}, finite={finite} "
+          f"({card_line})", flush=True)
+    del params, full, forced
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (finite and agree >= QWEN_AGREE):
+        fail(f"qwen decode: argmax agreement {agree} < {QWEN_AGREE} or "
+             "non-finite logits")
+
+
+def decode_phase(device, card_line, counters):
+    """Phase 17 (module docstring); returns the launch counts of each of
+    its paths, by path name (the decode paths make none)."""
+    import torch
+    counts = {}
+
+    def drive(tag, fn):
+        for f in counters:
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts[tag] = {f.__name__: f.launches for f in counters}
+        if any(counts[tag].values()):
+            fail(f"{tag}: kernel launches {counts[tag]}, predicted none")
+        return out
+
+    decode_card_vs_cpu(device, drive)
+    counts[f"lm grad transport {WHISPER}"] = whisper_phase(
+        device, card_line, counters, drive)
+    qwen_decode_phase(device, card_line, drive)
     return counts
 
 
@@ -2293,6 +2729,10 @@ def main() -> int:
     # seq 24; xlstm-125m whole and Zamba2-7B at every published width)
     later.update(ssm_phase(device, card_line, counters))
     elapsed(16)
+    # phase 17: the decode path (card against CPU on five families,
+    # whisper-small whole, Qwen3-4B's prefill and decode)
+    later.update(decode_phase(device, card_line, counters))
+    elapsed(17)
 
     # launches: kernels 1-3 on the fused main path, weighted_agg on the
     # legacy path; dequant_agg is on no path, so its count stays 0. Each

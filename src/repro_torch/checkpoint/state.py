@@ -1,7 +1,7 @@
 """Elastic checkpoint/resume: the complete logical round state (port of
 ``repro/checkpoint/state.py``: the ``fedcd``, ``fedavg`` and ``fedllm``
 kinds; the ``fedllm`` kind's draft rows are the serving plane's, ROADMAP
-item 14).
+item 14b).
 
 ``checkpoint/io.py`` snapshots one tree; this module snapshots a RUNNING
 SERVER — everything the next round depends on, keyed by the control
@@ -322,7 +322,7 @@ def _snapshot_fedllm(server: Any) -> Tuple[dict, dict]:
          "trained_models": m.trained_models}
         for m in server.metrics]
     scalars["n_devices"] = int(server.n_clients)
-    scalars["draft"] = None          # draft rows: ROADMAP item 14
+    scalars["draft"] = None          # draft rows: ROADMAP item 14b
     return arrays, scalars
 
 
@@ -581,7 +581,7 @@ def restore_server_state(server: Any, path: str) -> int:
     if kind == "fedllm" and scalars.get("draft"):
         raise NotImplementedError(
             "checkpoint carries draft rows (speculative serving): not "
-            "ported yet (ROADMAP item 14)")
+            "ported yet (ROADMAP item 14b)")
     _set_rng(server.rng, scalars["rng"]["rng"])
 
     if kind == "fedcd":

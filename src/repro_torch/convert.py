@@ -1,5 +1,5 @@
-"""Carry parameters between the reference's pytrees and the port's flat
-param dicts.
+"""Carry parameters and decode caches between the reference's pytrees
+and the port's flat dicts.
 
 A reference pytree (nested dicts and lists of arrays, as numpy) maps to
 a flat ``{name: tensor}`` dict in the reference's leaf order: dict keys
@@ -10,6 +10,8 @@ reference's HWIO conv kernels and ``(in, out)`` dense weights.
 bfloat16 leaves cross in both directions: the reference's (ml_dtypes)
 bfloat16 arrays widen to float32 and cast to ``torch.bfloat16``, and a
 bfloat16 tensor leaves as a float32 array. Both widenings are exact.
+Integer leaves keep their dtype (a cache's ``index`` and ``pos`` stay
+int32).
 """
 from __future__ import annotations
 
@@ -70,3 +72,18 @@ def params_to_numpy(params: Params) -> Any:
         return out
 
     return listify(root)
+
+
+def caches_from_jax(tree: Any, device: Optional[Union[str, torch.device]]
+                    = None) -> Params:
+    """A reference decode-cache tree (``init_lm_caches``' list of
+    segment caches or the hybrid's dict, ``init_encdec_caches``' dict, a
+    verify's collected states) -> the port's flat cache dict; the same
+    walk as :func:`params_from_jax`."""
+    return params_from_jax(tree, device)
+
+
+def caches_to_numpy(caches: Params) -> Any:
+    """The port's flat cache dict -> the reference's cache tree of numpy
+    arrays (a list of segment caches for a decoder-only stack)."""
+    return params_to_numpy(caches)

@@ -25,9 +25,10 @@ The trainer runs on the card unless ``device="cpu"`` is asked for. Every
 decoder-only family is ported: dense GQA, MoE (Phi-3.5-MoE), MLA with MoE
 and the MTP head (DeepSeek-V3), xLSTM (mLSTM and sLSTM blocks) and the
 Zamba2 hybrid (Mamba2 groups, a shared attention block with per-site
-LoRA). The encoder-decoder model is ROADMAP item 13b.3, a
-tensor-parallel ``mesh`` 13b.4, the serving plane's draft rows
-(``draft_layers``) item 14.
+LoRA). The encoder-decoder model (``family == "audio"``) is refused at
+construction: the reference's trainer gives its step no frames and fails
+inside it. A tensor-parallel ``mesh`` is ROADMAP item 13b.4, the serving
+plane's draft rows (``draft_layers``) item 14b.
 """
 from __future__ import annotations
 
@@ -155,8 +156,12 @@ class FedLLMTrainer:
         if draft_layers:
             raise NotImplementedError(
                 "FedLLMTrainer(draft_layers=...): the draft rows of "
-                "speculative serving are not ported yet (ROADMAP item 14)")
-        tf.check_supported(arch)
+                "speculative serving are not ported yet (ROADMAP item 14b)")
+        if arch.family == "audio":
+            raise ValueError(
+                f"FedLLMTrainer cannot train {arch.name}: an audio model "
+                "needs encoder frames, which the trainer's step is never "
+                "given (the reference's fails inside the step on them)")
         self.spec = spec
         self.arch, self.fed = arch, fed
         self.n_clients, self.per_client, self.seq = n_clients, per_client, seq

@@ -1,8 +1,8 @@
-"""Step builders for the FedCD mode-B round (port of
-``repro/launch/steps.py:25-151``: ``client_weights_per_row``,
-``_lm_loss`` with its MTP branch, ``quantize_grads``, ``make_train_step``
-and ``make_eval_step``; the audio loss is ROADMAP item 13b.3, the
-prefill and serve steps are the serving plane's, item 14).
+"""Step builders for training (the FedCD mode-B round), prefill and
+decode (port of ``repro/launch/steps.py``, whole: ``client_weights_per_row``,
+``_lm_loss`` with its audio and MTP branches, ``quantize_grads``,
+``make_train_step``, ``make_eval_step``, ``make_prefill_step`` and
+``make_serve_step``; a ``mesh`` is ROADMAP item 13b.4).
 
 ``make_train_step`` is the cluster-scale FedCD round (DESIGN.md §3):
 clients are contiguous row-groups of the global batch; eq 1's
@@ -19,7 +19,8 @@ the input). It takes one gradient per LAYER of each stacked leaf
 axis into views, ``mamba_groups.*`` along its (site, layer) axes, in
 memory order: ``transformer.stacked_depth``), so no stacked gradient is
 ever assembled; the values are the reference's, since every layer's
-slice of a stacked gradient is that layer's gradient.
+slice of a stacked gradient is that layer's gradient. The encoder-decoder
+model's ``enc_blocks.*`` and ``dec_blocks.*`` split per row too.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.quantize import ops as q_ops
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import Params
 from repro_torch.optim import sgd_update_
@@ -46,21 +48,24 @@ def client_weights_per_row(client_scores: torch.Tensor, batch: int
     return w / torch.clamp(torch.sum(w), min=1e-12)
 
 
-def _not_ported(cfg: ArchConfig, frames) -> None:
-    if frames is not None or cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the audio (encoder-decoder) loss is not ported "
-            "yet (ROADMAP item 13b.3)")
+def _forward(cfg: ArchConfig, params, tokens, frames, remat=False):
+    """(logits, hidden, aux): the encoder-decoder model on ``frames``
+    for an audio config (aux 0), else the decoder-only LM."""
+    if cfg.family == "audio":
+        logits, hidden = ed.encdec_forward(cfg, params, frames, tokens,
+                                           remat=remat)
+        return logits, hidden, torch.zeros((), device=logits.device)
+    return tf.lm_forward(cfg, params, tokens, remat=remat)
 
 
 def _lm_loss(cfg: ArchConfig, params, tokens, labels, row_w, mesh=None,
              dp_axes=("data",), frames=None, remat=True):
     """Score-weighted next-token loss, plus DeepSeek's MTP loss (weight
-    0.3) where the model has an MTP head (the reference's without its
-    audio branch). Returns (loss + aux, (loss, aux))."""
-    _not_ported(cfg, frames)
-    logits, hidden, aux = tf.lm_forward(cfg, params, tokens, mesh=mesh,
-                                        dp_axes=dp_axes, remat=remat)
+    0.3) where the model has an MTP head. Returns (loss + aux, (loss,
+    aux))."""
+    if mesh is not None:
+        raise NotImplementedError(tf.MESH_13B4)
+    logits, hidden, aux = _forward(cfg, params, tokens, frames, remat)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = (logz - gold).mean(dim=-1)                           # (B,)
@@ -167,14 +172,13 @@ def make_train_step(cfg: ArchConfig, mesh=None,
         raise NotImplementedError(tf.MESH_13B4)
 
     def step(params: Params, tokens, labels, client_scores, frames=None):
-        _not_ported(cfg, frames)
         B = tokens.shape[0]
         row_w = client_weights_per_row(client_scores, B)
         leaves = _grad_leaves(params)
         flat = _flat(leaves)
         if microbatches == 1:
             total, (loss, aux) = _lm_loss(cfg, leaves, tokens, labels,
-                                          row_w, remat=remat)
+                                          row_w, frames=frames, remat=remat)
             grads = list(torch.autograd.grad(total, flat))
         else:
             mb = B // microbatches
@@ -182,9 +186,10 @@ def make_train_step(cfg: ArchConfig, mesh=None,
             loss = aux = torch.zeros((), device=tokens.device)
             for i in range(microbatches):
                 sl = slice(i * mb, (i + 1) * mb)
-                total, (l_mb, a) = _lm_loss(cfg, leaves, tokens[sl],
-                                            labels[sl], row_w[sl],
-                                            remat=remat)
+                total, (l_mb, a) = _lm_loss(
+                    cfg, leaves, tokens[sl], labels[sl], row_w[sl],
+                    frames=None if frames is None else frames[sl],
+                    remat=remat)
                 gs = torch.autograd.grad(total, flat)
                 grads = [acc + g for acc, g in zip(grads, gs)]
                 loss, aux = loss + l_mb.detach(), aux + a.detach()
@@ -205,12 +210,63 @@ def make_eval_step(cfg: ArchConfig, n_clients: int, mesh=None,
 
     @torch.no_grad()
     def step(params, tokens, labels, frames=None):
-        _not_ported(cfg, frames)
-        logits, _, _ = tf.lm_forward(cfg, params, tokens)
+        logits, _, _ = _forward(cfg, params, tokens, frames)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
         nll = (logz - gold).mean(dim=-1)                       # (B,)
         B = tokens.shape[0]
         return nll.reshape(n_clients, B // n_clients).mean(dim=-1)
+
+    return step
+
+
+def make_prefill_step(cfg: ArchConfig, window: int = 0, mesh=None,
+                      dp_axes: Tuple[str, ...] = ("data",)) -> Callable:
+    """Chunked cache-filling prefill: one call appends a whole token
+    chunk to every layer cache.
+
+    step(params, caches, tokens (B,S), n_valid) ->
+        (next-token logits (B,V) at the last valid position, caches)
+
+    Callers loop fixed-shape chunks over the prompt, padding the ragged
+    tail and passing ``n_valid`` (an int or a 0-d tensor; read on the
+    device, as the reference's clamped ``dynamic_slice``). With a
+    ring-buffer window the chunk must satisfy S <= window."""
+    if cfg.family == "audio":
+        raise ValueError("audio uses the encdec driver paths in examples/")
+    if mesh is not None:
+        raise NotImplementedError(tf.MESH_13B4)
+
+    @torch.no_grad()
+    def step(params, caches, tokens, n_valid):
+        S = tokens.shape[1]
+        nv = torch.as_tensor(n_valid, dtype=torch.int32,
+                             device=tokens.device)
+        logits, caches = tf.lm_prefill(cfg, params, tokens, caches,
+                                       window=window, n_valid=nv)
+        last = torch.clamp(nv - 1, 0, S - 1).long().reshape(1)
+        return torch.index_select(logits, 1, last)[:, 0, :], caches
+
+    return step
+
+
+def make_serve_step(cfg: ArchConfig, window: int = 0, mesh=None,
+                    dp_axes: Tuple[str, ...] = ("data",)) -> Callable:
+    """One-token batched decode against a KV/state cache (the
+    encoder-decoder model's for an audio config).
+
+    step(params, caches, tokens (B,1)) -> (logits (B,V), caches)"""
+    if mesh is not None:
+        raise NotImplementedError(tf.MESH_13B4)
+
+    @torch.no_grad()
+    def step(params, caches, tokens):
+        if cfg.family == "audio":
+            logits, caches = ed.encdec_decode(cfg, params, tokens, caches,
+                                              window)
+        else:
+            logits, caches = tf.lm_decode(cfg, params, tokens, caches,
+                                          window=window)
+        return logits[:, -1, :], caches
 
     return step

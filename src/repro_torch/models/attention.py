@@ -1,12 +1,21 @@
-"""GQA attention with qk-norm and sliding windows, full-sequence paths
-(port of ``repro/models/attention.py:37-165``; the KV caches, prefill and
-decode are the serving plane's and come with it).
+"""GQA attention with qk-norm, sliding windows and ring-buffer KV caches
+(port of ``repro/models/attention.py``, whole).
 
-Two execution paths, as the reference's:
+Three execution paths, as the reference's:
 
 * ``naive``   — materializes (S, T) scores; used for short sequences.
 * ``chunked`` — online softmax over KV blocks of ``KV_BLOCK``, O(S *
   block) memory; selected above ``CHUNKED_THRESHOLD`` positions.
+* ``decode`` / ``prefill`` — one token, or a chunk of ``S`` tokens,
+  against a (ring-buffer) cache.
+
+Cache layout, the reference's: ``{"index": (), "k": (B, C, Kv, hd),
+"pos": (C,) absolute position per slot (-1 = empty), "v": (B, C, Kv,
+hd)}``, ``index`` and ``pos`` int32. For sliding-window decode, ``C ==
+window`` and writes wrap. The reference drops a prefill's padded lanes
+with a ``mode="drop"`` scatter; here every write goes to a cache grown
+by one spare slot ``C``, which takes the dropped lanes and is cut off
+after the write, so no index is ever out of range.
 
 The math is the reference's in plain torch: float32 scores (products of
 the compute-dtype q and k, taken in float32), an explicit causal/window
@@ -148,7 +157,7 @@ def _chunked_attention(q, k, v, q_positions, kv_positions, window: int,
 
 
 # ---------------------------------------------------------------------------
-# Public entry point
+# Public entry points
 # ---------------------------------------------------------------------------
 def attention_forward(params: Params, cfg: ArchConfig, x: torch.Tensor,
                       positions: Optional[torch.Tensor] = None
@@ -166,3 +175,134 @@ def attention_forward(params: Params, cfg: ArchConfig, x: torch.Tensor,
                                cfg.sliding_window)
     B_, S_, H, hd = out.shape
     return torch.matmul(out.reshape(B_, S_, H * hd), params["wo"])
+
+
+def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                  window: int = 0, device=None) -> Params:
+    C = min(max_len, window) if window else max_len
+    Kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim()
+    return {
+        "index": torch.zeros((), dtype=torch.int32, device=device),
+        "k": torch.zeros((batch, C, Kv, hd), dtype=dtype, device=device),
+        "pos": torch.full((C,), -1, dtype=torch.int32, device=device),
+        "v": torch.zeros((batch, C, Kv, hd), dtype=dtype, device=device),
+    }
+
+
+def write_slots(cache: torch.Tensor, slots: torch.Tensor,
+                values: torch.Tensor, dim: int) -> torch.Tensor:
+    """``cache`` with ``values`` written at ``slots`` along ``dim``, where
+    a slot equal to ``cache.shape[dim]`` drops its lane (the reference's
+    ``.at[slots].set(values, mode="drop")`` for slots ``<= C``)."""
+    spare = cache.narrow(dim, 0, 1)
+    grown = torch.cat([cache, spare], dim=dim)
+    grown.index_copy_(dim, slots.long(), values.to(cache.dtype))
+    return grown.narrow(dim, 0, cache.shape[dim])
+
+
+def attention_prefill(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                      cache: Params, window: int = 0,
+                      n_valid: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Params]:
+    """Multi-token cache-filling prefill: append ``S`` tokens to the
+    cache in ONE attended forward. x (B,S,d).
+
+    The chunk attends to [cache slots, in-chunk keys] before the chunk is
+    written (writing first would clobber, under a ring buffer, history
+    slots an early query of the chunk still sees); requires ``S <= C``
+    under a window. ``n_valid`` marks a right-padded chunk: tokens at
+    offsets ``>= n_valid`` neither enter any query's view nor get written,
+    and the index advances by ``n_valid`` only."""
+    B, S, _ = x.shape
+    dev = x.device
+    idx = cache["index"]
+    offs = torch.arange(S, dtype=torch.int32, device=dev)
+    positions = idx + offs
+    n_adv = torch.as_tensor(S if n_valid is None else n_valid,
+                            dtype=torch.int32, device=dev)
+    real = offs < n_adv
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    C = cache["k"].shape[1]
+    kv_pos = torch.cat([cache["pos"],
+                        torch.where(real, positions, -1).to(torch.int32)])
+    scores = _gqa_scores(q, torch.cat([cache["k"], k], dim=1))
+    valid = (kv_pos[None, :] >= 0) & (kv_pos[None, :] <= positions[:, None])
+    if window:
+        valid = valid & (kv_pos[None, :] > positions[:, None] - window)
+    scores = torch.where(valid[None, None, None], scores,
+                         torch.full((), NEG_INF, device=dev))
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, torch.cat([cache["v"], v], dim=1)).to(x.dtype)
+    H, hd = out.shape[2], out.shape[3]
+    y = torch.matmul(out.reshape(B, S, H * hd), params["wo"])
+    slots = positions % C if window else positions
+    slots = torch.where(real & (slots < C), slots, C)   # C: dropped
+    return y, {"index": idx + n_adv,
+               "k": write_slots(cache["k"], slots, k, 1),
+               "pos": write_slots(cache["pos"], slots, positions, 0),
+               "v": write_slots(cache["v"], slots, v, 1)}
+
+
+def rollback_keep(C: int, S: int, index: torch.Tensor, n_keep,
+                  window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cache slots a verify chunk of ``S`` tokens written from the
+    (smallest) ``index`` keeps after ``n_keep`` accepted tokens, as a
+    ``(C,)`` mask, and ``n_keep`` as an int32 tensor."""
+    if S > C:
+        raise ValueError(f"verify chunk {S} exceeds cache slots {C}")
+    dev = index.device
+    offs = torch.arange(S, dtype=torch.int32, device=dev)
+    positions = torch.min(index).to(torch.int32) + offs
+    slots = positions % C if window else positions
+    slots = torch.where(slots < C, slots, C)
+    n_keep = torch.as_tensor(n_keep, dtype=torch.int32, device=dev)
+    keep = write_slots(torch.zeros((C,), dtype=torch.bool, device=dev),
+                       slots, offs < n_keep, 0)
+    return keep, n_keep
+
+
+def attention_rollback(old: Params, full: Params, n_keep, S: int,
+                       window: int = 0) -> Params:
+    """Roll a speculative-verify chunk back to its first ``n_keep``
+    tokens. ``full`` is the cache after ``attention_prefill`` of an
+    ``S``-token chunk over ``old`` with ``n_valid=S``; the result is
+    bitwise the cache the same prefill with ``n_valid=n_keep`` leaves
+    (K/V do not depend on ``n_valid``, only the write mask and the index
+    do). Rejected positions' slots revert to ``old``; leading stacked
+    axes (layers, shared-attention sites) broadcast through."""
+    keep, n_keep = rollback_keep(old["k"].shape[-3], S, old["index"],
+                                 n_keep, window)
+    return {
+        "index": old["index"] + n_keep,
+        "k": torch.where(keep[:, None, None], full["k"], old["k"]),
+        "pos": torch.where(keep, full["pos"], old["pos"]),
+        "v": torch.where(keep[:, None, None], full["v"], old["v"]),
+    }
+
+
+def attention_decode(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                     cache: Params, window: int = 0
+                     ) -> Tuple[torch.Tensor, Params]:
+    """One-token decode. x (B,1,d); cache as from ``init_kv_cache``. The
+    slot is ``index % C`` under a window, else ``min(index, C - 1)`` (the
+    reference's clamped ``dynamic_update_slice``)."""
+    B = x.shape[0]
+    idx = cache["index"]
+    positions = idx[None].to(torch.int32)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    C = cache["k"].shape[1]
+    slot = (idx % C if window else torch.clamp(idx, max=C - 1)).long()[None]
+    knew = cache["k"].index_copy(1, slot, k.to(cache["k"].dtype))
+    vnew = cache["v"].index_copy(1, slot, v.to(cache["v"].dtype))
+    pnew = cache["pos"].index_copy(0, slot, positions)
+    scores = _gqa_scores(q, knew)                        # (B,Kv,G,1,C)
+    valid = (pnew >= 0) & (pnew <= idx)
+    if window:
+        valid = valid & (pnew > idx - window)
+    scores = torch.where(valid[None, None, None, None], scores,
+                         torch.full((), NEG_INF, device=x.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, vnew).to(x.dtype)
+    H, hd = out.shape[2], out.shape[3]
+    y = torch.matmul(out.reshape(B, 1, H * hd), params["wo"])
+    return y, {"index": idx + 1, "k": knew, "pos": pnew, "v": vnew}

@@ -14,7 +14,7 @@ products (the reference's ``preferred_element_type=float32``: float32
 operands here) and the scores are MULTIPLIED by ``1/sqrt(nope + rope)``,
 as the reference's. A cache is a flat dict ``{"c_kv", "k_rope", "pos",
 "index"}``; the scatters the reference drops out of bounds write to one
-extra slot here, which is cut off.
+extra slot here, which is cut off (``attention.write_slots``).
 
 The reference's ``sharding_hints.constrain`` calls are the identity
 without a mesh and are left out (ROADMAP item 13b.4).
@@ -28,7 +28,8 @@ import torch
 from repro_torch.config import ArchConfig
 from repro_torch.models.attention import (CHUNKED_THRESHOLD, NEG_INF,
                                           _chunked_attention,
-                                          _naive_attention)
+                                          _naive_attention, rollback_keep,
+                                          write_slots)
 from repro_torch.models.common import (Params, apply_rope, init_rmsnorm,
                                        normal_init, prefixed, rmsnorm,
                                        subtree)
@@ -179,15 +180,12 @@ def mla_prefill(params: Params, cfg: ArchConfig, x: torch.Tensor,
     y = _absorbed(params, cfg, q_nope, q_rope, ckv_all, krope_all, valid,
                   x.dtype)
     slots = positions % C if window else positions
-    slots = torch.where(real & (slots < C), slots, C).long()   # C: dropped
-    ckv_new = torch.cat([cache["c_kv"], cache["c_kv"][:, :1]], dim=1)
-    krope_new = torch.cat([cache["k_rope"], cache["k_rope"][:, :1]], dim=1)
-    pos_new = torch.cat([cache["pos"], cache["pos"][:1]])
-    ckv_new[:, slots] = c_kv.to(ckv_new.dtype)
-    krope_new[:, slots] = k_rope[:, :, 0, :].to(krope_new.dtype)
-    pos_new[slots] = positions
-    return y, {"c_kv": ckv_new[:, :C], "index": idx + n_adv,
-               "k_rope": krope_new[:, :C], "pos": pos_new[:C]}
+    slots = torch.where(real & (slots < C), slots, C)          # C: dropped
+    return y, {"c_kv": write_slots(cache["c_kv"], slots, c_kv, 1),
+               "index": idx + n_adv,
+               "k_rope": write_slots(cache["k_rope"], slots,
+                                     k_rope[:, :, 0, :], 1),
+               "pos": write_slots(cache["pos"], slots, positions, 0)}
 
 
 def mla_rollback(old: Params, full: Params, n_keep, S: int,
@@ -196,19 +194,8 @@ def mla_rollback(old: Params, full: Params, n_keep, S: int,
     ``attention.attention_rollback``: revert a verify chunk's rejected
     slots (bitwise equal to ``mla_prefill`` with ``n_valid=n_keep``).
     Leading stacked axes broadcast through."""
-    C = old["c_kv"].shape[-2]
-    if S > C:
-        raise ValueError(f"verify chunk {S} exceeds cache slots {C}")
-    dev = old["c_kv"].device
-    idx0 = torch.min(old["index"]).to(torch.int32)
-    offs = torch.arange(S, dtype=torch.int32, device=dev)
-    positions = idx0 + offs
-    slots = positions % C if window else positions
-    slots = torch.where(slots < C, slots, C).long()
-    n_keep = torch.as_tensor(n_keep, dtype=torch.int32, device=dev)
-    keep = torch.zeros((C + 1,), dtype=torch.bool, device=dev)
-    keep[slots] = offs < n_keep
-    keep = keep[:C]
+    keep, n_keep = rollback_keep(old["c_kv"].shape[-2], S, old["index"],
+                                 n_keep, window)
     return {
         "c_kv": torch.where(keep[:, None], full["c_kv"], old["c_kv"]),
         "index": old["index"] + n_keep,

@@ -1,11 +1,11 @@
-"""Decoder-only LM assembly (port of the training half of
-``repro/models/transformer.py``: ``_init_block`` and ``_apply_block``
-for every decoder block kind — ``ATTN_MLP``, ``ATTN_MOE``, ``MLA_MLP``,
-``MLA_MOE``, ``MAMBA2``, ``MLSTM``, ``SLSTM`` — ``segments``,
-``_stack_init``, the Zamba2 shared block (``_init_shared_block``,
-``_init_site_lora``, ``_shared_block_params``, the full-sequence branch
-of ``_apply_shared_block``), ``init_lm``, ``lm_forward`` and
-``mtp_logits``).
+"""Decoder-only LM assembly (port of ``repro/models/transformer.py``,
+whole but its mesh: ``_init_block``, ``_apply_block``, ``_init_block_cache``,
+``_decode_block`` and ``_prefill_block`` for every decoder block kind —
+``ATTN_MLP``, ``ATTN_MOE``, ``MLA_MLP``, ``MLA_MOE``, ``MAMBA2``,
+``MLSTM``, ``SLSTM`` — ``segments``, ``_stack_init``, the Zamba2 shared
+block, ``init_lm``, ``lm_forward``, ``mtp_logits``, and the decode path:
+``init_lm_caches``, ``lm_decode``, ``lm_prefill``, ``lm_cache_rollback``,
+``lm_spec_verify`` and ``lm_spec_propose``).
 
 Layers are grouped into *segments* of identical block kind, and each
 segment's params are STACKED along a leading layer axis, as the
@@ -16,7 +16,10 @@ param bank and the checkpoints map leaf to leaf. The reference scans a
 segment with ``lax.scan``; here it is a Python loop over the layer axis,
 each layer optionally recomputed in the backward pass (``remat``:
 ``torch.utils.checkpoint`` per layer). DeepSeek's MTP head (``mtp.*``)
-is one block of the layout's last kind, not stacked.
+is one block of the layout's last kind, not stacked. An audio config
+builds and runs the decoder-only stack, ignoring ``encdec``, as the
+reference's ``init_lm`` / ``lm_forward`` do (the encoder-decoder model
+is ``encdec.py``).
 
 Zamba2's hybrid layout has its own assembly: ``mamba_groups.*`` stacks
 ``(n_sites, every, ...)`` Mamba2 blocks, ``mamba_tail.*`` ``(n_tail,
@@ -29,15 +32,26 @@ reference's, the hybrid path takes no ``remat``.
 A stacked leaf may also be given as a sequence of per-layer tensors
 (``launch.steps`` does so, to take one gradient per layer instead of a
 stacked one): ``mamba_groups.*`` as ``n_sites * every`` tensors in
-memory order, the others one per row (``stacked_depth``). The
-encoder-decoder model is ROADMAP item 13b.3, a tensor-parallel mesh
-13b.4; the KV and recurrent caches, prefill and decode of the assembly
-are item 14.
+memory order, the others one per row (``stacked_depth``). A
+tensor-parallel mesh is ROADMAP item 13b.4.
+
+Caches are flat dicts of the reference's cache tree, stacked per
+segment like the params: ``0.k`` ``(n_layers, B, C, Kv, hd)``, ``0.pos``
+``(n_layers, C)``, ``0.index`` ``(n_layers,)`` for an attention segment
+(``attention.init_kv_cache``'s leaves, MLA's ``c_kv`` / ``k_rope``), the
+recurrent states of ``mamba2`` / ``xlstm`` for the others; the hybrid's
+``groups.*`` ``(n_sites, every, ...)``, ``shared.*`` ``(n_sites, ...)``
+and ``tail.*``. Every cache function returns new tensors and leaves its
+input caches as they were. A speculative verify's per-step recurrent
+states mirror the cache keys with a time axis after the layer axes.
 
 API:
-  init_lm(cfg, generator, device)            -> params
-  lm_forward(cfg, params, tokens|embeds,...) -> (logits, hidden, aux)
+  init_lm(cfg, generator, device)              -> params
+  lm_forward(cfg, params, tokens|embeds,...)   -> (logits, hidden, aux)
   mtp_logits(cfg, params, hidden, next_tokens) -> logits
+  init_lm_caches(cfg, batch, max_len, ...)     -> caches
+  lm_decode(cfg, params, tokens, caches,...)   -> (logits, caches)
+  lm_prefill(cfg, params, tokens, caches,...)  -> (logits, caches[, states])
 """
 from __future__ import annotations
 
@@ -64,20 +78,9 @@ Leaf = Union[torch.Tensor, Sequence[torch.Tensor]]
 ATTENTION_KINDS = (C.ATTN_MLP, C.ATTN_MOE, C.MLA_MLP, C.MLA_MOE)
 RECURRENT_KINDS = (C.MAMBA2, C.MLSTM, C.SLSTM)
 MESH_13B4 = "a tensor-parallel mesh is not ported yet (ROADMAP item 13b.4)"
-CACHE_14 = ("the shared block's KV cache and prefill are the serving "
-            "plane's, not ported yet (ROADMAP item 14)")
 # leaves that are float32 in every model (a bfloat16 one included)
 FLOAT32_LEAVES = ("moe.router", "core.A_log", "core.D", "core.dt_bias",
                   "core.f_bias")
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for the encoder-decoder model (ROADMAP
-    item 13b.3); every decoder-only layout is ported."""
-    if cfg.family == "audio" or cfg.encdec.n_enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder model is not ported yet "
-            "(ROADMAP item 13b.3)")
 
 
 def param_dtype(cfg: ArchConfig, name: str) -> torch.dtype:
@@ -90,13 +93,15 @@ def param_dtype(cfg: ArchConfig, name: str) -> torch.dtype:
 
 
 def stacked_depth(name: str) -> int:
-    """How many leading axes of leaf ``name`` of ``init_lm`` index
-    layers: 2 for ``mamba_groups.*`` (site, layer), 1 for
-    ``segments.*``, ``mamba_tail.*`` and ``lora.*`` (one row each), 0
-    for a leaf used whole."""
+    """How many leading axes of leaf ``name`` of ``init_lm`` (or
+    ``encdec.init_encdec``) index layers: 2 for ``mamba_groups.*`` (site,
+    layer), 1 for ``segments.*``, ``mamba_tail.*``, ``lora.*``,
+    ``enc_blocks.*`` and ``dec_blocks.*`` (one row each), 0 for a leaf
+    used whole."""
     if name.startswith("mamba_groups."):
         return 2
-    return int(name.startswith(("segments.", "mamba_tail.", "lora.")))
+    return int(name.startswith(("segments.", "mamba_tail.", "lora.",
+                                "enc_blocks.", "dec_blocks.")))
 
 
 def layer_views(leaf: torch.Tensor, depth: int) -> List[torch.Tensor]:
@@ -105,6 +110,28 @@ def layer_views(leaf: torch.Tensor, depth: int) -> List[torch.Tensor]:
     if not depth:
         return [leaf]
     return list(leaf.view(-1, *leaf.shape[depth:]).unbind(0))
+
+
+def _layers(leaf: Leaf, depth: int = 1) -> Sequence[torch.Tensor]:
+    return layer_views(leaf, depth) if isinstance(leaf, torch.Tensor) \
+        else leaf
+
+
+def layer_params(stacked: Dict[str, Leaf], depth: int = 1
+                 ) -> List[Params]:
+    """A stacked group's (params' or caches') per-layer dicts of views,
+    in memory order."""
+    per = {k: _layers(v, depth) for k, v in stacked.items()}
+    n = len(next(iter(per.values())))
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
+def stack_layers(layers: Sequence[Params], *shape: int) -> Params:
+    """Per-layer dicts -> one dict of leaves stacked on a leading layer
+    axis, or on the axes ``shape`` (in memory order) where given."""
+    shape = shape or (len(layers),)
+    return {k: torch.stack([c[k] for c in layers]).reshape(
+        *shape, *layers[0][k].shape) for k in layers[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -220,18 +247,31 @@ def _shared_block_params(shared: Params, lora: Params) -> Params:
 def _apply_shared_block(p: Params, cfg: ArchConfig, x: torch.Tensor,
                         x0: torch.Tensor, positions, cache=None, window=0,
                         prefill=False, n_valid=None):
-    """Zamba2 shared block: concat(hidden, embeds) -> proj -> attn+mlp.
-    Only the full-sequence branch is ported (``cache=None``)."""
-    if cache is not None or prefill:
-        raise NotImplementedError(CACHE_14)
+    """Zamba2 shared block: concat(hidden, embeds) -> proj -> attn+mlp;
+    against ``cache`` a one-token decode, or with ``prefill`` a chunk."""
     hcat = torch.cat([x, x0], dim=-1)
     h = torch.matmul(hcat, p["w_concat"])
     hn = rmsnorm(subtree(p, "norm1"), h, cfg.norm_eps)
-    a = attn.attention_forward(subtree(p, "attn"), cfg, hn, positions)
+    ap = subtree(p, "attn")
+    if cache is None:
+        a = attn.attention_forward(ap, cfg, hn, positions)
+    elif prefill:
+        a, cache = attn.attention_prefill(ap, cfg, hn, cache, window,
+                                          n_valid)
+    else:
+        a, cache = attn.attention_decode(ap, cfg, hn, cache, window)
     h = h + a
     f = apply_mlp(subtree(p, "mlp"), rmsnorm(subtree(p, "norm2"), h,
                                              cfg.norm_eps))
-    return x + h + f, None
+    return x + h + f, cache
+
+
+def _site_params(params: Dict[str, Leaf], s: int) -> Params:
+    """The shared block's weights at site ``s`` (with its LoRA deltas)."""
+    shared, lora = subtree(params, "shared"), subtree(params, "lora")
+    if not lora:
+        return shared
+    return _shared_block_params(shared, layer_params(lora)[s])
 
 
 def hybrid_sites(cfg: ArchConfig) -> Tuple[int, int, int]:
@@ -248,7 +288,6 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
             device: Optional[torch.device] = None) -> Params:
     """Random params of ``cfg`` (names, shapes and dtypes the
     reference's ``init_lm``; values drawn from ``generator``)."""
-    check_supported(cfg)
     dtype = dtype_of(cfg.param_dtype)
     p: Params = prefixed("embed", init_embedding(
         generator, cfg.vocab_size, cfg.d_model, dtype, device))
@@ -291,19 +330,11 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
     return canonical(p)
 
 
-def _layers(leaf: Leaf, depth: int = 1) -> Sequence[torch.Tensor]:
-    return layer_views(leaf, depth) if isinstance(leaf, torch.Tensor) \
-        else leaf
-
-
 def _scan_segment(stacked: Dict[str, Leaf], cfg: ArchConfig, kind: str,
                   x: torch.Tensor, positions, remat
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    per_layer = {k: _layers(v) for k, v in stacked.items()}
-    n = len(next(iter(per_layer.values())))
     aux = torch.zeros((), device=x.device)
-    for i in range(n):
-        layer = {k: v[i] for k, v in per_layer.items()}
+    for layer in layer_params(stacked):
 
         def body(h, layer=layer):
             return _apply_block(layer, cfg, kind, h, positions)
@@ -322,17 +353,12 @@ def _hybrid_forward(cfg: ArchConfig, params: Dict[str, Leaf],
     site's LoRA on ``concat(hidden, x0)``; then the tail."""
     x0 = x
     n_sites, every, _ = hybrid_sites(cfg)
-    groups = {k: _layers(v, 2)
-              for k, v in subtree(params, "mamba_groups").items()}
-    shared, lora = subtree(params, "shared"), subtree(params, "lora")
+    groups = layer_params(subtree(params, "mamba_groups"), 2)
     for s in range(n_sites):
-        for j in range(every):
-            layer = {k: v[s * every + j] for k, v in groups.items()}
+        for layer in groups[s * every:(s + 1) * every]:
             x, _ = _apply_block(layer, cfg, C.MAMBA2, x, positions)
-        sp = (_shared_block_params(shared, {k: v[s]
-                                            for k, v in lora.items()})
-              if lora else shared)
-        x, _ = _apply_shared_block(sp, cfg, x, x0, positions)
+        x, _ = _apply_shared_block(_site_params(params, s), cfg, x, x0,
+                                   positions)
     tail = subtree(params, "mamba_tail")
     if tail:
         x, _ = _scan_segment(tail, cfg, C.MAMBA2, x, positions, False)
@@ -357,7 +383,6 @@ def lm_forward(cfg: ArchConfig, params: Dict[str, Leaf],
     """Returns (logits float32, final_hidden, aux_loss)."""
     if mesh is not None:
         raise NotImplementedError(MESH_13B4)
-    check_supported(cfg)
     x = embed(subtree(params, "embed"), tokens) if embeds is None else embeds
     x = x.to(dtype_of(cfg.compute_dtype))
     S = x.shape[1]
@@ -388,3 +413,318 @@ def mtp_logits(cfg: ArchConfig, params: Dict[str, Leaf],
     h = torch.matmul(h, m["proj"])
     h, _ = _apply_block(subtree(m, "block"), cfg, cfg.layout()[-1], h, None)
     return _logits(cfg, params, h)
+
+
+# ---------------------------------------------------------------------------
+# Decode path
+# ---------------------------------------------------------------------------
+def _init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                      dtype, window: int, device=None) -> Params:
+    if kind in (C.ATTN_MLP, C.ATTN_MOE):
+        return attn.init_kv_cache(cfg, batch, max_len, dtype, window, device)
+    if kind in (C.MLA_MLP, C.MLA_MOE):
+        return mla_mod.init_mla_cache(cfg, batch, max_len, dtype, window,
+                                      device)
+    init = {C.MAMBA2: mb.init_mamba2_cache, C.MLSTM: xl.init_mlstm_cache,
+            C.SLSTM: xl.init_slstm_cache}.get(kind)
+    if init is None:
+        raise ValueError(kind)
+    return init(cfg, batch, dtype, device)
+
+
+def _ffn(params: Params, cfg: ArchConfig, kind: str, x: torch.Tensor
+         ) -> torch.Tensor:
+    """An attention block's second half: x + MLP or MoE (aux dropped)."""
+    h = rmsnorm(subtree(params, "norm2"), x, cfg.norm_eps)
+    if kind in (C.ATTN_MOE, C.MLA_MOE):
+        return x + moe_mod.apply_moe(subtree(params, "moe"), cfg, h)[0]
+    return x + apply_mlp(subtree(params, "mlp"), h)
+
+
+def _decode_block(params: Params, cfg: ArchConfig, kind: str,
+                  x: torch.Tensor, cache: Params, window: int
+                  ) -> Tuple[torch.Tensor, Params]:
+    if kind in RECURRENT_KINDS:
+        decode = {C.MAMBA2: mb.mamba2_decode, C.MLSTM: xl.mlstm_decode,
+                  C.SLSTM: xl.slstm_decode}[kind]
+        h = rmsnorm(subtree(params, "norm"), x, cfg.norm_eps)
+        y, cache = decode(subtree(params, "core"), cfg, h, cache)
+        return x + y, cache
+    if kind not in ATTENTION_KINDS:
+        raise ValueError(kind)
+    h = rmsnorm(subtree(params, "norm1"), x, cfg.norm_eps)
+    decode = (mla_mod.mla_decode if kind in (C.MLA_MLP, C.MLA_MOE)
+              else attn.attention_decode)
+    a, cache = decode(subtree(params, "attn"), cfg, h, cache, window)
+    return _ffn(params, cfg, kind, x + a), cache
+
+
+def _prefill_block(params: Params, cfg: ArchConfig, kind: str,
+                   x: torch.Tensor, cache: Params, window: int, n_valid,
+                   collect: bool = False
+                   ) -> Tuple[torch.Tensor, Params, Params]:
+    """Cache-filling chunk forward: append S tokens in one pass. x
+    (B,S,d). Returns (x, cache, states): with ``collect`` (the
+    speculative verify) a recurrent kind's states after each step,
+    stacked on a leading time axis; ``{}`` otherwise and for attention
+    kinds, whose rollback merges old and full caches by slot."""
+    if kind in ATTENTION_KINDS:
+        h = rmsnorm(subtree(params, "norm1"), x, cfg.norm_eps)
+        prefill = (mla_mod.mla_prefill if kind in (C.MLA_MLP, C.MLA_MOE)
+                   else attn.attention_prefill)
+        a, cache = prefill(subtree(params, "attn"), cfg, h, cache, window,
+                           n_valid)
+        return _ffn(params, cfg, kind, x + a), cache, {}
+    # recurrent kinds: one-token decodes over time, each state update
+    # gated so a padded tail token never advances the recurrence
+    S = x.shape[1]
+    nv = torch.as_tensor(S if n_valid is None else n_valid,
+                         dtype=torch.int32, device=x.device)
+    ys, steps = [], []
+    for t in range(S):
+        y, new = _decode_block(params, cfg, kind, x[:, t:t + 1], cache,
+                               window)
+        live = nv > t
+        cache = {k: torch.where(live, new[k], cache[k]) for k in new}
+        ys.append(y)
+        if collect:
+            steps.append(cache)
+    return (torch.cat(ys, dim=1), cache,
+            stack_layers(steps) if collect else {})
+
+
+def _stack_cache(one: Params, *shape: int) -> Params:
+    return {k: v.expand(*shape, *v.shape).clone() for k, v in one.items()}
+
+
+def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int,
+                   window: int = 0, device=None) -> Params:
+    """Empty caches of every layer (compute dtype; ``index`` / ``pos``
+    int32)."""
+    dtype = dtype_of(cfg.compute_dtype)
+
+    def one(kind, w=window):
+        return _init_block_cache(cfg, kind, batch, max_len, dtype, w,
+                                 device)
+
+    if cfg.family == "hybrid":
+        n_sites, every, n_tail = hybrid_sites(cfg)
+        caches = {**prefixed("groups", _stack_cache(one(C.MAMBA2), n_sites,
+                                                    every)),
+                  **prefixed("shared", _stack_cache(
+                      one(C.ATTN_MLP, window or cfg.sliding_window),
+                      n_sites))}
+        if n_tail:
+            caches.update(prefixed("tail", _stack_cache(one(C.MAMBA2),
+                                                        n_tail)))
+        return canonical(caches)
+    return canonical({k: v for i, (kind, n) in enumerate(segments(cfg))
+                      for k, v in prefixed(str(i), _stack_cache(
+                          one(kind), n)).items()})
+
+
+BlockFn = Callable[[Params, str, torch.Tensor, Params],
+                   Tuple[torch.Tensor, Params, Params]]
+
+
+def _run_group(block: BlockFn, kind: str, x: torch.Tensor,
+               layers: Sequence[Params], caches: Sequence[Params]):
+    new, states = [], []
+    for lp, lc in zip(layers, caches):
+        x, nc, st = block(lp, kind, x, lc)
+        new.append(nc)
+        states.append(st)
+    return x, new, states
+
+
+def _cached_pass(cfg: ArchConfig, params: Dict[str, Leaf], x: torch.Tensor,
+                 caches: Params, block: BlockFn, shared_fn
+                 ) -> Tuple[torch.Tensor, Params, Params]:
+    """Every layer over ``x`` against its cache: ``block(lp, kind, x,
+    lc) -> (x, cache, states)`` a layer, ``shared_fn(sp, x, x0, cache)
+    -> (x, cache)`` at each hybrid site. Returns (x, caches, states),
+    both flat and stacked as the caches."""
+    new: Params = {}
+    states: Params = {}
+
+    def keep(prefix, caches_, states_, *shape):
+        new.update(prefixed(prefix, stack_layers(caches_, *shape)))
+        if states_[0]:
+            states.update(prefixed(prefix, stack_layers(states_, *shape)))
+
+    if cfg.family == "hybrid":
+        x0 = x
+        n_sites, every, n_tail = hybrid_sites(cfg)
+        groups = layer_params(subtree(params, "mamba_groups"), 2)
+        gcaches = layer_params(subtree(caches, "groups"), 2)
+        scaches = layer_params(subtree(caches, "shared"))
+        gnew, gstates, snew = [], [], []
+        for s in range(n_sites):
+            sl = slice(s * every, (s + 1) * every)
+            x, nc, st = _run_group(block, C.MAMBA2, x, groups[sl],
+                                   gcaches[sl])
+            gnew += nc
+            gstates += st
+            x, sc = shared_fn(_site_params(params, s), x, x0, scaches[s])
+            snew.append(sc)
+        keep("groups", gnew, gstates, n_sites, every)
+        new.update(prefixed("shared", stack_layers(snew)))
+        if n_tail:
+            x, nc, st = _run_group(
+                block, C.MAMBA2, x,
+                layer_params(subtree(params, "mamba_tail")),
+                layer_params(subtree(caches, "tail")))
+            keep("tail", nc, st)
+        return x, canonical(new), canonical(states)
+    for i, (kind, _n) in enumerate(segments(cfg)):
+        x, nc, st = _run_group(
+            block, kind, x, layer_params(subtree(params, f"segments.{i}")),
+            layer_params(subtree(caches, str(i))))
+        keep(str(i), nc, st)
+    return x, canonical(new), canonical(states)
+
+
+def _embed_in(cfg: ArchConfig, params, tokens, embeds, mesh
+              ) -> torch.Tensor:
+    if mesh is not None:
+        raise NotImplementedError(MESH_13B4)
+    x = embed(subtree(params, "embed"), tokens) if embeds is None else embeds
+    return x.to(dtype_of(cfg.compute_dtype))
+
+
+def lm_decode(cfg: ArchConfig, params: Dict[str, Leaf],
+              tokens: torch.Tensor, caches: Params, window: int = 0,
+              embeds: Optional[torch.Tensor] = None, mesh=None,
+              dp_axes: Tuple[str, ...] = ("data",)
+              ) -> Tuple[torch.Tensor, Params]:
+    """One decode step. tokens (B,1) -> (logits (B,1,V) float32,
+    caches)."""
+    x = _embed_in(cfg, params, tokens, embeds, mesh)
+    w_shared = window or cfg.sliding_window
+
+    def block(lp, kind, h, lc):
+        return (*_decode_block(lp, cfg, kind, h, lc, window), {})
+
+    def shared_fn(sp, h, x0, sc):
+        return _apply_shared_block(sp, cfg, h, x0, None, cache=sc,
+                                   window=w_shared)
+
+    x, caches, _ = _cached_pass(cfg, params, x, caches, block, shared_fn)
+    return _logits(cfg, params, x), caches
+
+
+def lm_prefill(cfg: ArchConfig, params: Dict[str, Leaf],
+               tokens: torch.Tensor, caches: Params, window: int = 0,
+               n_valid: Optional[torch.Tensor] = None,
+               embeds: Optional[torch.Tensor] = None, mesh=None,
+               dp_axes: Tuple[str, ...] = ("data",),
+               collect_states: bool = False):
+    """Chunked cache-filling prefill: append ``S`` tokens to every layer
+    cache in one pass. tokens (B,S) -> (logits (B,S,V) float32, caches).
+
+    ``n_valid`` (an int or a 0-d tensor, read on the device) marks how
+    many leading tokens of a padded final chunk are real: attention lanes
+    past it are not written, recurrent updates are gated off.
+    ``collect_states=True`` returns ``(logits, caches, states)``, the
+    per-step recurrent states ``lm_cache_rollback`` selects from."""
+    x = _embed_in(cfg, params, tokens, embeds, mesh)
+    w_shared = window or cfg.sliding_window
+
+    def block(lp, kind, h, lc):
+        return _prefill_block(lp, cfg, kind, h, lc, window, n_valid,
+                              collect=collect_states)
+
+    def shared_fn(sp, h, x0, sc):
+        return _apply_shared_block(sp, cfg, h, x0, None, cache=sc,
+                                   window=w_shared, prefill=True,
+                                   n_valid=n_valid)
+
+    x, caches, states = _cached_pass(cfg, params, x, caches, block,
+                                     shared_fn)
+    if collect_states:
+        return _logits(cfg, params, x), caches, states
+    return _logits(cfg, params, x), caches
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding (DESIGN.md §16)
+# ---------------------------------------------------------------------------
+def lm_cache_rollback(cfg: ArchConfig, old: Params, full: Params,
+                      states: Params, n_keep, S: int, window: int = 0
+                      ) -> Params:
+    """Roll a verify chunk's caches back to its first ``n_keep`` tokens
+    (``n_keep >= 1``). ``old`` is the cache before the verify prefill,
+    ``full`` / ``states`` the cache and per-step states after it
+    (``lm_prefill(..., collect_states=True)`` over ``S`` tokens).
+    Attention caches merge old and full per slot (bitwise a prefill with
+    ``n_valid=n_keep``); recurrent caches take the state after step
+    ``n_keep``."""
+    def part(prefix, kind, w=window, time_axis=1):
+        o, f = subtree(old, prefix), subtree(full, prefix)
+        if kind in (C.ATTN_MLP, C.ATTN_MOE):
+            r = attn.attention_rollback(o, f, n_keep, S, w)
+        elif kind in (C.MLA_MLP, C.MLA_MOE):
+            r = mla_mod.mla_rollback(o, f, n_keep, S, w)
+        elif kind == C.MAMBA2:
+            r = mb.mamba2_rollback(subtree(states, prefix), n_keep,
+                                   time_axis)
+        else:
+            r = xl.xlstm_rollback(subtree(states, prefix), n_keep,
+                                  time_axis)
+        return prefixed(prefix, r)
+
+    if cfg.family == "hybrid":
+        out = {**part("groups", C.MAMBA2, time_axis=2),
+               **part("shared", C.ATTN_MLP, window or cfg.sliding_window)}
+        if subtree(old, "tail"):
+            out.update(part("tail", C.MAMBA2))
+        return canonical(out)
+    return canonical({k: v for i, (kind, _n) in enumerate(segments(cfg))
+                      for k, v in part(str(i), kind).items()})
+
+
+def lm_spec_verify(cfg: ArchConfig, params: Dict[str, Leaf],
+                   tokens: torch.Tensor, draft: torch.Tensor,
+                   caches: Params, window: int = 0, sample_fn=None,
+                   mesh=None, dp_axes: Tuple[str, ...] = ("data",)):
+    """Verify a speculative chunk in ONE chunked forward.
+
+    ``tokens`` (B, S=k+1) is ``[cur, d_1..d_k]``, ``draft`` (B, k) is
+    ``[d_1..d_k]``. The target prefills the chunk, takes its own choice
+    at every position (argmax, or ``sample_fn(logits) -> (B, S)``), and
+    accepts the longest matching prefix of the draft. Returns ``(out
+    (B,S) int32, n_keep, caches)``: ``n_keep = 1 + accepted`` (the batch
+    min; a 0-d int32 tensor, not read on the host) chunk tokens consumed
+    by the rolled-back caches."""
+    S = tokens.shape[1]
+    logits, full, states = lm_prefill(cfg, params, tokens, caches,
+                                      window=window, mesh=mesh,
+                                      collect_states=True)
+    out = torch.argmax(logits, dim=-1) if sample_fn is None \
+        else sample_fn(logits)
+    out = out.to(torch.int32)
+    ok = (draft == out[:, :-1]).to(torch.int32)
+    acc = torch.sum(torch.cumprod(ok, dim=1), dim=1)
+    n_keep = (1 + torch.min(acc)).to(torch.int32)
+    return out, n_keep, lm_cache_rollback(cfg, caches, full, states, n_keep,
+                                          S, window)
+
+
+def lm_spec_propose(cfg: ArchConfig, params: Dict[str, Leaf],
+                    prev_tokens: torch.Tensor, prev_keep,
+                    cur: torch.Tensor, k: int, caches: Params,
+                    window: int = 0, mesh=None,
+                    dp_axes: Tuple[str, ...] = ("data",)):
+    """Draft side, one call a spec round: commit the previous round's
+    chunk ``prev_tokens`` (B, S) with ``n_valid=prev_keep`` (0: a no-op,
+    for the first round), then greedily decode ``k`` proposals from
+    ``cur`` (B, 1). Returns ``(proposals (B, k) int32, caches)``, the
+    caches after the commit only."""
+    _, caches = lm_prefill(cfg, params, prev_tokens, caches, window=window,
+                           n_valid=prev_keep, mesh=mesh)
+    tok, cs, props = cur, caches, []
+    for _ in range(k):
+        lg, cs = lm_decode(cfg, params, tok, cs, window=window)
+        tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+        props.append(tok)
+    return torch.cat(props, dim=1), caches

@@ -11,7 +11,11 @@ order); quantize and dequantize exact (both sides use IEEE division and
 round half to even). The mode-B LM trainer: the tiny LM on the card
 against the CPU (discrete state exact, score history 1e-6, params 1e-4),
 and the int8 gradient transport's step (one launch of each kernel, params
-equal to the plain versions' step).
+equal to the plain versions' step). The decode path: the tiny decoder
+configs of the serving tests and reduced whisper-small on the card
+against the CPU (logits 1e-5, cache floats 1e-6 of each leaf's scale,
+``index`` / ``pos`` equal), rollback after a verify bitwise equal to the
+prefill of the accepted prefix.
 """
 import numpy as np
 import pytest
@@ -1258,6 +1262,176 @@ def test_ssm_grad_transport_launches_on_card(cuda, name, launches):
             for q, s, n in zip(qs, ss, ns)]
         pp, _ = step({k: v.to(cuda) for k, v in init.items()}, tok[:, :-1],
                      tok[:, 1:], scores)
+    finally:
+        tqops.quantize_group, tqops.dequantize_group = real
+    for k in pk:
+        assert torch.equal(pk[k], pp[k]), k
+
+
+# -- the decode path on the card ----------------------------------------------
+
+def _decode_config(name):
+    """The tiny decoder configs of ``tests/test_gateway.py:37-55`` and
+    reduced whisper-small."""
+    from repro_torch.config import ArchConfig, MLAConfig, XLSTMConfig
+    from repro_torch.configs import get_arch, reduced
+    common = dict(n_heads=4, d_ff=128, vocab_size=64, d_model=64,
+                  param_dtype="float32", compute_dtype="float32")
+    if name == "whisper-small":
+        return reduced(get_arch(name))
+    return {
+        "dense_win": lambda: ArchConfig(name="tw", n_layers=2, n_kv_heads=2,
+                                        sliding_window=6, **common),
+        "mla": lambda: ArchConfig(
+            name="tm", family="moe", attn_type="mla", n_layers=2,
+            n_kv_heads=4, mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                                        qk_nope_dim=16, qk_rope_dim=8,
+                                        v_head_dim=16), **common),
+        "ssm": lambda: ArchConfig(name="ts", family="ssm", n_layers=3,
+                                  n_kv_heads=4,
+                                  xlstm=XLSTMConfig(slstm_layers=(1,)),
+                                  **common),
+        "hybrid": lambda: ArchConfig(name="th", family="hybrid", n_layers=5,
+                                     n_kv_heads=4, shared_attn_every=2,
+                                     shared_attn_lora_rank=4, **common),
+    }[name]()
+
+
+DECODE_FAMILIES = ("dense_win", "mla", "ssm", "hybrid")
+
+
+def _decode(cfg, params, prompt, dec, device, frames=None):
+    """Prefill ``prompt`` in chunks of 4 (the last padded) and decode
+    ``dec`` (an audio config: caches from ``frames``, decode only).
+    Returns every call's logits and the caches, on the host."""
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import transformer as tf
+    win = cfg.sliding_window
+    params = {k: v.to(device) for k, v in params.items()}
+    serve = steps.make_serve_step(cfg, window=win)
+    out = []
+    with torch.no_grad():
+        if frames is not None:
+            caches = ed.init_encdec_caches(cfg, params, frames.to(device), 24)
+        else:
+            prefill = steps.make_prefill_step(cfg, window=win)
+            caches = tf.init_lm_caches(cfg, 2, 24, window=win, device=device)
+            for s in range(0, prompt.shape[1], 4):
+                chunk = prompt[:, s:s + 4]
+                nv = chunk.shape[1]
+                chunk = torch.nn.functional.pad(chunk, (0, 4 - nv))
+                last, caches = prefill(params, caches, chunk.to(device), nv)
+                out.append(last.cpu())
+        for t in range(dec.shape[1]):
+            last, caches = serve(params, caches, dec[:, t:t + 1].to(device))
+            out.append(last.cpu())
+    return out, {k: v.cpu() for k, v in caches.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DECODE_FAMILIES + ("whisper-small",))
+def test_decode_on_card_matches_cpu(cuda, name):
+    """An 11-token prompt in chunks of 4 and 8 decode steps (whisper:
+    its caches and 8 decode steps), card against CPU from the same
+    params: logits 1e-5, cache floats 1e-6 of each leaf's scale,
+    ``index`` / ``pos`` equal; no kernel launched."""
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as tf
+    cfg = _decode_config(name)
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 11)))
+    dec = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    frames = None
+    if cfg.family == "audio":
+        params = ed.init_encdec(cfg, gen)
+        frames = frontends.synthetic_audio_frames(gen, cfg, 2)
+    else:
+        params = tf.init_lm(cfg, gen)
+    before = tqops.quantize.launches, twops.multi_weighted_agg.launches
+    card = _decode(cfg, params, prompt, dec, cuda, frames)
+    assert (tqops.quantize.launches,
+            twops.multi_weighted_agg.launches) == before
+    host = _decode(cfg, params, prompt, dec, "cpu", frames)
+    for a, b in zip(card[0], host[0]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+    assert list(card[1]) == list(host[1])
+    for k, h in host[1].items():
+        c = card[1][k]
+        assert c.dtype == h.dtype and c.shape == h.shape, k
+        if h.dtype.is_floating_point:
+            scale = max(1.0, float(h.abs().max()))
+            np.testing.assert_allclose(c.numpy(), h.numpy(),
+                                       atol=1e-6 * scale, rtol=0, err_msg=k)
+        else:
+            assert torch.equal(c, h), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DECODE_FAMILIES)
+def test_rollback_bitwise_equals_prefill_on_card(cuda, name):
+    """``tests/test_specdecode.py:104-140`` on the card: a verify whose
+    draft is rejected at its second token leaves bitwise the caches of a
+    prefill of the chunk with ``n_valid=n_keep``."""
+    from repro_torch.models import transformer as tf
+    cfg = _decode_config(name)
+    win = cfg.sliding_window
+    params = {k: v.to(cuda) for k, v in
+              tf.init_lm(cfg, torch.Generator().manual_seed(1)).items()}
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 11))).to(cuda)
+    with torch.no_grad():
+        caches = tf.init_lm_caches(cfg, 1, 24, window=win, device=cuda)
+        _, caches = tf.lm_prefill(cfg, params, toks[:, :7], caches,
+                                  window=win)
+        chunk = toks[:, 7:]
+        probe, _ = tf.lm_prefill(cfg, params, chunk, caches, window=win)
+        draft = torch.argmax(probe, -1).to(torch.int32)[:, :-1]
+        draft[:, 1] = (draft[:, 1] + 1) % cfg.vocab_size
+        _, n_keep, rolled = tf.lm_spec_verify(cfg, params, chunk, draft,
+                                              caches, window=win)
+        _, oracle = tf.lm_prefill(cfg, params, chunk, caches, window=win,
+                                  n_valid=n_keep)
+    assert int(n_keep) == 2
+    for k in oracle:
+        assert torch.equal(rolled[k], oracle[k]), k
+
+
+@pytest.mark.cuda
+def test_whisper_grad_transport_launches_once_per_step_on_card(cuda):
+    """Reduced whisper-small's audio step with ``grad_transport_bits=8``
+    (27 leaves): one quantize and one dequantize launch, params equal to
+    the step through the plain versions."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import frontends
+    cfg = reduced(get_arch("whisper-small"))
+    gen = torch.Generator().manual_seed(0)
+    init = ed.init_encdec(cfg, gen)
+    frames = frontends.synthetic_audio_frames(gen, cfg, 4, cuda)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 9))).to(cuda)
+    scores = torch.tensor([0.4, 0.6], device=cuda)
+    step = steps.make_train_step(cfg, lr=0.05, grad_transport_bits=8)
+    before = tqops.quantize.launches, tqops.dequantize.launches
+    pk, _ = step({k: v.to(cuda) for k, v in init.items()}, tok[:, :-1],
+                 tok[:, 1:], scores, frames)
+    torch.cuda.synchronize()
+    assert (tqops.quantize.launches - before[0],
+            tqops.dequantize.launches - before[1]) == (1, 1)
+    real = tqops.quantize_group, tqops.dequantize_group
+    try:
+        tqops.quantize_group = lambda xs, bits=8: tuple(
+            map(list, zip(*[tqref.quantize_ref(x, bits) for x in xs])))
+        tqops.dequantize_group = lambda qs, ss, ns: [
+            tqref.dequantize_ref(q, s, (q.shape[0], n), torch.float32)
+            for q, s, n in zip(qs, ss, ns)]
+        pp, _ = step({k: v.to(cuda) for k, v in init.items()}, tok[:, :-1],
+                     tok[:, 1:], scores, frames)
     finally:
         tqops.quantize_group, tqops.dequantize_group = real
     for k in pk:

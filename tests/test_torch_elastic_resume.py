@@ -1,8 +1,10 @@
 """Elastic checkpoint/resume and fault injection in the port, on the CPU,
 in the setup of ``tests/test_engine_equivalence.py::_small_setup`` (MLP,
 8 devices, milestones 2/5): the meshless tiers of
-``tests/test_elastic_resume.py`` run through the port, then checkpoints
-carried across packages in both directions.
+``tests/test_elastic_resume.py`` run through the port, port against
+port. Checkpoints carried across packages and across mesh layouts are in
+``tests/test_torch_elastic_cross.py`` (split off so the two halves run
+on two test workers).
 
 Bars:
 * port against port (a crash at any scripted phase, then a fresh server
@@ -10,14 +12,8 @@ Bars:
   run): discrete state, score history, per-round metrics and
   ``semisync_stats`` exactly equal, params bit-identical
   (``torch.equal``) — the reference's bars for its own engines;
-* across packages (one package saves at round 4, the other resumes and
-  runs to round 8, against the saver's uninterrupted run): discrete
-  state and ``semisync_stats`` exactly equal; params to atol=1e-5, or
-  within one int8 step when quantized (accuracies then to 1/16, as the
-  port's other int8 parity tests);
 * torn and corrupt checkpoints raise ``CheckpointError`` naming the keys.
 """
-import json
 import os
 
 import numpy as np
@@ -32,8 +28,7 @@ from repro_torch.checkpoint.state import (ARRAYS, MANIFEST,  # noqa: E402
                                           verify_checkpoint)
 from repro_torch.data import scenarios as ts  # noqa: E402
 from test_torch_semisync import (STRAGGLER, bit_identical,  # noqa: E402
-                                 churn, make, same_state, straggler)
-from test_torch_slice import STEP, _params_close  # noqa: E402
+                                 churn, make, straggler)
 
 ROUNDS = 8
 FAULTS = {"ref": js, "port": ts}
@@ -263,184 +258,3 @@ def test_save_is_atomic_no_tmp_residue(tmp_path):
     manifest, arrays = verify_checkpoint(path)
     assert set(manifest["arrays"]) == set(arrays)
     assert manifest["engine"] == "fused" and manifest["kind"] == "fedcd"
-
-
-# -- across packages: the format is shared ---------------------------------
-
-CROSS = {"fused": {}, "semisync": dict(straggler=semi),
-         "churn": dict(scenario=churn)}
-
-
-@pytest.mark.parametrize("bits", [0, 8])
-@pytest.mark.parametrize("case", sorted(CROSS))
-@pytest.mark.parametrize("saver,resumer", [("ref", "port"),
-                                           ("port", "ref")])
-def test_checkpoint_resumes_across_packages(tmp_path, saver, resumer, case,
-                                            bits):
-    """One package saves at round 4; the other resumes and runs to round
-    8. Held against the saver's uninterrupted run."""
-    kw, root = CROSS[case], str(tmp_path / "ck")
-    _run(dict(kw, save_every=4, checkpoint_dir=root), rounds=4, pkg=saver,
-         bits=bits)
-    res = _run(dict(kw, resume_from=root), pkg=resumer, bits=bits)
-    full = _run(kw, pkg=saver, bits=bits)
-    ref, port = (full, res) if saver == "ref" else (res, full)
-    same_state(ref, port, acc_atol=1 / 16 if bits else 0.0)
-    _params_close(ref, port, atol=STEP if bits else 1e-5)
-    if case == "semisync":
-        assert res.semisync_stats.folded > 0
-    if case == "churn":
-        assert port.databank.present_ids() == ref.databank.present_ids()
-        assert port.databank.row_of == {
-            d: ref.databank.row_of[d] for d in ref.databank.present_ids()}
-
-
-@pytest.mark.parametrize("case", sorted(CROSS) + ["legacy", "pipeline"])
-def test_manifest_matches_the_reference_key_for_key(tmp_path, case):
-    """The same run saved by each package: the same arrays (keys, dtypes,
-    shapes) and the same state scalars, RNG positions included."""
-    kw = {"legacy": dict(engine="legacy"),
-          "pipeline": dict(pipeline=True)}.get(case) or CROSS[case]
-    manifests = {}
-    for pkg in ("ref", "port"):
-        root = str(tmp_path / pkg)
-        _run(dict(kw, save_every=4, checkpoint_dir=root), rounds=4, pkg=pkg)
-        with open(os.path.join(root, "step_000004", MANIFEST)) as f:
-            manifests[pkg] = json.load(f)
-    ref, port = manifests["ref"], manifests["port"]
-    assert {k: (v["dtype"], v["shape"]) for k, v in port["arrays"].items()} \
-        == {k: (v["dtype"], v["shape"]) for k, v in ref["arrays"].items()}
-    for key in ("schema", "kind", "round", "engine", "config"):
-        assert port[key] == ref[key], key
-    rs, ps = ref["state"], port["state"]
-    assert set(ps) == set(rs)
-    for key in rs:
-        if key == "metrics":             # wall_s is the host's clock
-            assert [dict(m, wall_s=0) for m in ps[key]] == \
-                [dict(m, wall_s=0) for m in rs[key]]
-        else:
-            assert ps[key] == rs[key], key
-
-
-# -- resharding-on-resume (``tests/test_elastic_resume.py:150-190``) -------
-
-def mesh(sm, sd=1):
-    """A launch mesh for either package: the port's cells on the CPU,
-    the reference's one-cell mesh (its only one on a one-device host)."""
-    def build(pkg):
-        if pkg == "ref":
-            from repro.launch.mesh import make_model_mesh
-            assert (sm, sd) == (1, 1)
-            return make_model_mesh(1)
-        from repro_torch.launch.mesh import make_launch_mesh
-        return make_launch_mesh(sm, sd, devices=["cpu"] * (sm * sd))
-    return dict(model_shards=sm, data_shards=sd, mesh=build)
-
-
-@pytest.fixture(scope="module")
-def sharded2_ref():
-    return _run(mesh(2))
-
-
-def test_sharded_same_shape_resumes_bit_identical(tmp_path, sharded2_ref):
-    res = _crash_then_resume(mesh(2), (5, "mid-dispatch"),
-                             str(tmp_path / "ck"))
-    bit_identical(sharded2_ref, res)
-    # same layout -> placement restored verbatim
-    assert res.registry.params.row_of == sharded2_ref.registry.params.row_of
-
-
-def test_fused_checkpoint_resumes_onto_sharded_mesh(tmp_path, sharded2_ref):
-    root = str(tmp_path / "ck")
-    _run(dict(save_every=4, checkpoint_dir=root), rounds=4)
-    res = _run(dict(mesh(2), resume_from=root))
-    same_state(sharded2_ref, res, acc_atol=1e-6)
-    _params_close(sharded2_ref, res, atol=1e-5)
-
-
-def test_sharded_checkpoint_resumes_onto_2d_mesh(tmp_path):
-    """``sharded@4`` resumes as ``sharded@2x2``: another model-shard count
-    and a data axis the checkpoint never had."""
-    root = str(tmp_path / "ck")
-    with pytest.raises(ts.SimulatedCrash):
-        _run(dict(mesh(4), save_every=2, checkpoint_dir=root,
-                  faults=_faults((5, "mid-dispatch"))))
-    res = _run(dict(mesh(2, 2), resume_from=root))
-    ref = _run(mesh(2, 2))
-    same_state(ref, res, acc_atol=1e-6)
-    _params_close(ref, res, atol=1e-5)
-
-
-def test_sharded_checkpoint_resumes_onto_fused(tmp_path, fused_ref):
-    """The other direction: a 4-shard checkpoint whose rows are not the
-    ids resumes on the one-shard fused plane, which places the ids
-    anew and reads its bank through ``row_of``."""
-    root = str(tmp_path / "ck")
-    saver = _run(dict(mesh(4), save_every=4, checkpoint_dir=root),
-                 rounds=4)
-    assert any(m != r for m, r in saver.registry.params.row_of.items())
-    res = _run(dict(resume_from=root))
-    same_state(fused_ref, res, acc_atol=1e-6)
-    _params_close(fused_ref, res, atol=1e-5)
-
-
-# across packages AND layouts: (saver, its spec) -> (resumer, its spec)
-RESHARD = {
-    "ref sharded@1 -> port 2x2": ("ref", mesh(1), "port", mesh(2, 2)),
-    "port 2x2 churn -> ref sharded@1 churn": (
-        "port", dict(mesh(2, 2), scenario=churn),
-        "ref", dict(mesh(1), scenario=churn)),
-}
-
-
-@pytest.mark.parametrize("case", sorted(RESHARD))
-def test_checkpoint_resumes_across_packages_and_layouts(tmp_path, case):
-    """One package saves at round 4 on one layout; the other resumes on
-    another layout and runs to round 8. Held against the resumer's own
-    uninterrupted run on its layout (the reference's fused run where the
-    resumer is the port)."""
-    saver, skw, resumer, rkw = RESHARD[case]
-    root = str(tmp_path / "ck")
-    _run(dict(skw, save_every=4, checkpoint_dir=root), rounds=4, pkg=saver)
-    res = _run(dict(rkw, resume_from=root), pkg=resumer)
-    full = _run({k: v for k, v in rkw.items()
-                 if resumer == "ref" or k == "scenario"}, pkg="ref")
-    same_state(full, res, acc_atol=1e-6)
-    if resumer == "port":
-        _params_close(full, res, atol=1e-5)
-    else:
-        for m in full.registry.live_ids():
-            for a, b in zip(_jax_leaves(full.registry.params[m]),
-                            _jax_leaves(res.registry.params[m])):
-                np.testing.assert_allclose(b, a, atol=1e-5, rtol=0)
-    if "churn" in case:
-        assert res.databank.present_ids() == full.databank.present_ids()
-
-
-def _jax_leaves(tree):
-    import jax
-    return [np.asarray(a) for a in jax.tree.leaves(tree)]
-
-
-def test_sharded_manifest_matches_the_reference_key_for_key(tmp_path):
-    """The one-shard sharded plane saved by each package: the same
-    arrays and the same state scalars, the bank's placement and load
-    EWMA included."""
-    manifests = {}
-    for pkg in ("ref", "port"):
-        root = str(tmp_path / pkg)
-        _run(dict(mesh(1), save_every=4, checkpoint_dir=root), rounds=4,
-             pkg=pkg)
-        with open(os.path.join(root, "step_000004", MANIFEST)) as f:
-            manifests[pkg] = json.load(f)
-    ref, port = manifests["ref"], manifests["port"]
-    assert {k: (v["dtype"], v["shape"]) for k, v in port["arrays"].items()} \
-        == {k: (v["dtype"], v["shape"]) for k, v in ref["arrays"].items()}
-    rs, ps = ref["state"], port["state"]
-    assert set(ps) == set(rs)
-    for key in rs:
-        if key == "metrics":
-            assert [dict(m, wall_s=0) for m in ps[key]] == \
-                [dict(m, wall_s=0) for m in rs[key]]
-        else:
-            assert ps[key] == rs[key], key

@@ -244,7 +244,7 @@ def test_draft_rows_in_a_checkpoint_raise(tmp_path, ref):
     manifest["state"]["draft"] = {"layers": 1, "present": [0]}
     with open(mpath, "w") as f:
         json.dump(manifest, f)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14b"):
         _trainer(ref[1]).restore(path)
 
 
@@ -314,7 +314,7 @@ def test_run_resumes_after_restore_round_count(ref):
 def test_trainer_refuses_what_is_not_ported(ref):
     with pytest.raises(NotImplementedError, match="13b.4"):
         _trainer(ref[1], mesh=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14b"):
         _trainer(ref[1], draft_layers=1)
 
 

@@ -18,7 +18,9 @@ from the reference trainer's initial model, carried through
 ``repro_torch.convert``; tokens come from a numpy seed. The reference
 runs its ``legacy`` engine and its ``init_lm`` under ``jax.jit``. Bars
 (float32): leaf names, shapes and dtypes equal; the per-site weights to
-1e-6; the shared block, logits and the final hidden state to 1e-5; one
+1e-6; the shared block (full sequence, a padded prefill chunk and a
+decode step against its KV cache; the cache's floats to 1e-6 of their
+largest magnitude, ``index`` and ``pos`` exact), logits and the final hidden state to 1e-5; one
 train step's loss to 1e-5 and every updated leaf to 1e-6;
 ``quantize_grads`` of one gradient tree to rtol 1e-6 of the reference's,
 in one group call of its 31 leaves (one launch of each kernel on the
@@ -46,11 +48,13 @@ from repro.config import FedCDConfig as JFed  # noqa: E402
 from repro.core.spec import EngineSpec as JSpec  # noqa: E402
 from repro.federated import llm as jllm  # noqa: E402
 from repro.launch import steps as JS  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch import config as tconfig  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.config import FedCDConfig  # noqa: E402
-from repro_torch.convert import params_from_jax, params_to_numpy  # noqa: E402
+from repro_torch.convert import (caches_from_jax, params_from_jax,  # noqa: E402
+                                 params_to_numpy)
 from repro_torch.core.spec import EngineSpec  # noqa: E402
 from repro_torch.federated.llm import FedLLMTrainer  # noqa: E402
 from repro_torch.kernels import group  # noqa: E402
@@ -211,9 +215,30 @@ def test_shared_block_with_lora_matches(ref):
     yb, cache = ttf._apply_shared_block(got, TCFG, _t(x), _t(x0), _t(pos))
     assert cache is None
     np.testing.assert_allclose(yb.numpy(), np.asarray(ya), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ttf._apply_shared_block(got, TCFG, _t(x), _t(x0), _t(pos),
-                                cache={})
+    # the cache branches: a padded prefill chunk, then one decode step
+    sp = jtf._shared_block_params(jp["shared"], site)
+    cache0 = jattn.init_kv_cache(JCFG, 2, 2 * SEQ, np.float32)
+    ya, ca = jax.jit(lambda p, a, b, c: jtf._apply_shared_block(
+        p, JCFG, a, b, None, cache=c, prefill=True, n_valid=SEQ - 5))(
+        sp, x, x0, cache0)
+    yb, cb = ttf._apply_shared_block(
+        got, TCFG, _t(x), _t(x0), None, prefill=True, n_valid=SEQ - 5,
+        cache=caches_from_jax(jax.tree.map(np.asarray, cache0)))
+    np.testing.assert_allclose(yb[:, :SEQ - 5].numpy(),
+                               np.asarray(ya)[:, :SEQ - 5], atol=1e-5)
+    ya, ca = jax.jit(lambda p, a, b, c: jtf._apply_shared_block(
+        p, JCFG, a, b, None, cache=c))(sp, x[:, :1], x0[:, :1], ca)
+    yb, cb = ttf._apply_shared_block(got, TCFG, _t(x[:, :1]),
+                                     _t(x0[:, :1]), None, cache=cb)
+    np.testing.assert_allclose(yb.numpy(), np.asarray(ya), atol=1e-5)
+    want = caches_from_jax(jax.tree.map(np.asarray, ca))
+    assert list(cb) == list(want)
+    for k in ("index", "pos"):
+        assert torch.equal(cb[k], want[k]), k
+    for k in ("k", "v"):
+        scale = max(1.0, float(want[k].abs().max()))
+        np.testing.assert_allclose(cb[k].numpy(), want[k].numpy(),
+                                   atol=1e-6 * scale, err_msg=k)
 
 
 # -- forward and the train step ----------------------------------------------

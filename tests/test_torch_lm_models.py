@@ -246,12 +246,26 @@ def test_lm_forward_bf16_tier(name):
 
 @pytest.mark.parametrize("name", OTHER)
 def test_other_families_raise_not_implemented(name):
-    _, tc = _arch_pair(name)
-    item = "13b.3"
-    with pytest.raises(NotImplementedError, match=item):
-        ttf.init_lm(tc, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match=item):
-        ttf.lm_forward(tc, {}, torch.zeros((1, 4), dtype=torch.long))
+    """No family raises any more: on an audio config the reference's
+    ``init_lm`` / ``lm_forward`` build and run a decoder-only stack
+    (``embed``, ``final_norm``, ``lm_head``, ``segments``), ignoring
+    ``encdec``, and the port's do the same (the encoder-decoder model is
+    ``models.encdec``, ``tests/test_torch_encdec.py``)."""
+    jc, tc = _arch_pair(name)
+    p = jax.jit(lambda k: jtf.init_lm(jc, k))(jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, p))
+    assert sorted(p) == ["embed", "final_norm", "lm_head", "segments"]
+    own = ttf.init_lm(tc, torch.Generator().manual_seed(0))
+    assert list(own) == list(tp)
+    for k in own:
+        assert own[k].shape == tp[k].shape and own[k].dtype == tp[k].dtype
+    toks = np.random.default_rng(9).integers(
+        0, jc.vocab_size, (1, 4)).astype(np.int32)
+    la, ha, _ = jax.jit(lambda q, t: jtf.lm_forward(jc, q, t))(p, toks)
+    lb, hb, ab = ttf.lm_forward(tc, tp, _t(toks))
+    assert lb.shape == (1, 4, 512) and float(ab) == 0.0
+    np.testing.assert_allclose(lb.numpy(), _np(la), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(hb.numpy(), _np(ha), atol=1e-5, rtol=1e-5)
 
 
 def test_mesh_raises_not_implemented():

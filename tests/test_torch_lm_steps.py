@@ -297,12 +297,31 @@ def test_quantize_grads_is_one_group_call(monkeypatch):
 
 
 def test_steps_refuse_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="13b.4"):
-        TS.make_train_step(TCFG, mesh=object())
+    """A mesh (ROADMAP item 13b.4) raises in every step builder. The
+    audio step is ported: its train step on reduced whisper-small moves
+    the reference's way (the parity bars are in
+    ``tests/test_torch_encdec.py``)."""
+    for make in (TS.make_train_step, TS.make_prefill_step,
+                 TS.make_serve_step):
+        with pytest.raises(NotImplementedError, match="13b.4"):
+            make(TCFG, mesh=object())
     with pytest.raises(NotImplementedError, match="13b.4"):
         TS.make_eval_step(TCFG, N_CLIENTS, mesh=object())
-    step = TS.make_train_step(TCFG)
-    with pytest.raises(NotImplementedError, match="13b.3"):
-        step({}, torch.zeros((4, 2), dtype=torch.long),
-             torch.zeros((4, 2), dtype=torch.long), torch.ones(4),
-             frames=torch.zeros(1))
+    from repro import configs as jconfigs
+    from repro_torch import configs as tconfigs
+    from repro.models import encdec as jed
+    jc = jconfigs.reduced(jconfigs.get_arch("whisper-small"))
+    tc = tconfigs.reduced(tconfigs.get_arch("whisper-small"))
+    jp = jax.jit(lambda k: jed.init_encdec(jc, k))(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(20)
+    frames = rng.normal(size=(4, 24, 256)).astype(np.float32)
+    toks = rng.integers(0, 512, (4, 3)).astype(np.int32)
+    scores = np.array([0.25, 0.75], np.float32)
+    jq, jm = jax.jit(JS.make_train_step(jc, lr=0.05, remat=False))(
+        jp, toks[:, :-1], toks[:, 1:], scores, frames)
+    tq, tm = TS.make_train_step(tc, lr=0.05)(
+        _port(jp), _t(toks[:, :-1]).long(), _t(toks[:, 1:]).long(),
+        _t(scores), frames=_t(frames))
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               atol=1e-5, rtol=1e-5)
+    _close(tq, jq, atol=1e-6)
