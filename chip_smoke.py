@@ -56,8 +56,19 @@ whole (bf16: train steps at 4 x 2 x 448 tokens on 1500 source frames,
 the encoder's share, an eval, an int8 gradient transport step, a greedy
 decode of 64 tokens) and Qwen3-4B at phase 14's tier (a 2048-token
 prefill at B=8 and 64 decode steps, held against the teacher-forced
-forward). Each phase ends in an ``[elapsed]`` line with the script's
-wall clock.
+forward). Phase 18 drives the serving plane (``repro_torch.serve``):
+TINY and the four tiny configs, each a two-model population with
+synthetic scores, through the gateway's vanilla, speculative (a 1-layer
+draft, k=3), paged int8 and speculative+paged modes on the card and on
+the CPU — greedy streams card == CPU and every mode == vanilla, pages
+and lanes all returned after the drain — then Qwen3-4B at phase 14's
+tier: the LM trainer with 2-layer draft rows trains phase 14's FedCD
+configuration until two models are live, a gateway of 8 lanes serves 16
+requests of 128-token prompts and 32 new tokens in the vanilla, spec and
+paged modes (TTFT, tokens/s, dispatches, batching efficiency,
+acceptance, KV bytes, agreement with vanilla), then one more round, a
+``sync`` and a second batch. No serving path launches a kernel. Each
+phase ends in an ``[elapsed]`` line with the script's wall clock.
 
     python3 chip_smoke.py
 
@@ -233,6 +244,24 @@ WHISPER_DECODE = 64
 # teacher-forced forward over the same 2112 tokens
 QWEN_DECODE = (8, 2048, 512, 64)    # batch, prompt, chunk, new tokens
 QWEN_AGREE = 0.95                   # argmax agreement with the forward
+# the serving plane (phase 18): TINY and the four tiny configs of
+# tests/test_gateway.py:37-55, each a two-model population (init_lm of seed
+# 0 and a perturbed clone, synthetic scores), on the card and on the CPU
+# (float32) in every gateway mode; then Qwen3-4B at phase 14's tier (bf16)
+# served from a FedCD population the LM trainer trains on phase 14's
+# configuration, with draft rows
+SERVE_MODES = (("vanilla", {}), ("spec", dict(spec_k=3, draft_layers=1)),
+               ("paged", dict(paged=True, page_slots=8)),
+               ("spec+paged", dict(spec_k=3, draft_layers=1, paged=True,
+                                   page_slots=8)))
+SERVE_SMALL = (8, 10, 6)            # requests (one a device), prompt, new
+SERVE_SMALL_GW = dict(max_len=64, lanes=4, chunk=8)
+SERVE_SHRINK = 3.5                  # dense f32 KV over paged int8 (TINY)
+SERVE_DRAFT_LAYERS = 2              # the trainer's draft rows (phase 18.2)
+SERVE_FULL_GW = dict(max_len=256, lanes=8, chunk=64)
+SERVE_FULL = (16, 128, 32)          # requests (two a device), prompt, new
+SERVE_FULL_MODES = (("vanilla", {}), ("spec", dict(spec_k=3)),
+                    ("paged", dict(paged=True, page_slots=8)))
 
 
 def fail(msg: str) -> None:
@@ -2438,6 +2467,310 @@ def decode_phase(device, card_line, counters):
     return counts
 
 
+# -- phase 18: the serving plane ---------------------------------------------
+
+def serve_world(cfg, device):
+    """Two models of ``cfg`` (``init_lm`` of seed 0 and a clone perturbed
+    by 0.02 N(0, 1)) in a stacked registry on ``device``, and scores by
+    which devices 0-3 prefer model 0 and devices 4-7 model 1."""
+    import torch
+
+    from repro_torch.core.registry import ModelRegistry
+    from repro_torch.core.scores import init_scores, push_accuracies
+    from repro_torch.models import transformer as tf
+    init = tf.init_lm(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    clone = {k: v + 0.02 * torch.randn(v.shape, generator=gen)
+             for k, v in init.items()}
+    reg = ModelRegistry.create({k: v.to(device) for k, v in init.items()},
+                               m_cap=4, stacked=True)
+    reg.clone(0, 1, {k: v.to(device) for k, v in clone.items()})
+    state = init_scores(8, 4, ell=2)
+    state.active[:, 1] = True
+    state.alive[1] = True
+    accs = np.zeros((8, 4))
+    accs[:4, 0], accs[:4, 1] = 0.9, 0.1
+    accs[4:, 0], accs[4:, 1] = 0.1, 0.9
+    return reg, push_accuracies(state, accs)
+
+
+def lanes_free(gw):
+    """Every lane of every pool (draft pools included) is free."""
+    pools = [g.pool for g in gw.groups.values()]
+    pools += [g.draft_pool for g in gw.groups.values()
+              if g.draft_pool is not None]
+    return all(p.free_lanes == p.lanes for p in pools)
+
+
+def serve_small(cfg, device, kw):
+    """Phase 18.1, one gateway: the population of :func:`serve_world`,
+    one request a device; returns (streams, stats, lanes all free)."""
+    from repro_torch.serve import ServeGateway
+    n, prompt, new = SERVE_SMALL
+    reg, state = serve_world(cfg, device)
+    gw = ServeGateway(cfg, reg, lambda: state, **SERVE_SMALL_GW, **kw)
+    rng = np.random.default_rng(0)
+    reqs = [gw.submit(d, rng.integers(0, cfg.vocab_size, size=prompt),
+                      max_new=new) for d in range(n)]
+    gw.drain()
+    if not all(r.done and len(r.tokens) == new for r in reqs):
+        fail(f"serve {cfg.name} {kw}: a request ended short of {new} "
+             "tokens")
+    return [r.tokens for r in reqs], gw.stats(), lanes_free(gw)
+
+
+def serve_card_vs_cpu(device, drive):
+    """Phase 18.1 (module docstring)."""
+    import torch
+
+    from repro_torch.config import ArchConfig
+    from repro_torch.serve import KVPool, PagedKVPool
+    configs = {"tiny": ArchConfig(
+        name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        d_ff=128, vocab_size=64, param_dtype="float32",
+        compute_dtype="float32"), **gateway_configs()}
+    for name, cfg in configs.items():
+        runs = {}
+        for mode, kw in SERVE_MODES:
+            runs[mode] = drive(f"serve {name} {mode}",
+                               lambda: serve_small(cfg, device, kw))
+            host = serve_small(cfg, "cpu", kw)
+            if runs[mode][0] != host[0]:
+                fail(f"serve {name} {mode}: greedy streams on the card "
+                     f"differ from the CPU's: {runs[mode][0]} != {host[0]}")
+        want = runs["vanilla"][0]
+        for mode, (streams, st, free) in runs.items():
+            pages = st["pools"].get("pages", {}).get("pages_in_use", 0)
+            if streams != want or pages or not free:
+                fail(f"serve {name} {mode}: streams equal to vanilla="
+                     f"{streams == want}, pages in use after the drain="
+                     f"{pages}, every lane free={free}")
+        lanes, max_len = SERVE_SMALL_GW["lanes"], SERVE_SMALL_GW["max_len"]
+        dense = KVPool(cfg, lanes, max_len, device=device)
+        paged = PagedKVPool(cfg, lanes, max_len, page_slots=8,
+                            device=device)
+        for _ in range(lanes):
+            paged.acquire()
+        shrink = dense.nbytes() / paged.nbytes_in_use()
+        spec = runs["spec"][1]["spec"]
+        print(f"[serve card-vs-cpu] {name} ({cfg.family}, {cfg.n_layers} "
+              f"layers): {SERVE_SMALL[0]} requests, prompt {SERVE_SMALL[1]},"
+              f" {SERVE_SMALL[2]} new tokens, {lanes} lanes: greedy streams "
+              f"card == CPU in {len(runs)} modes, spec == paged == "
+              f"spec+paged == vanilla, pages in use after the drain 0, "
+              f"every lane free; dispatches="
+              f"{ {m: r[1]['dispatches'] for m, r in runs.items()} } "
+              f"tokens_out={runs['vanilla'][1]['tokens_out']} spec "
+              f"acceptance={spec['acceptance_rate']:.4f} ({spec['accepted']}"
+              f"/{spec['proposed']}); a full pool: dense float32 KV "
+              f"{dense.nbytes()} B / paged int8 {paged.nbytes_in_use()} B = "
+              f"{shrink:.3f}x", flush=True)
+        if name == "tiny" and shrink < SERVE_SHRINK:
+            fail(f"serve tiny: paged int8 shrink {shrink:.3f}x < "
+                 f"{SERVE_SHRINK}x")
+        del dense, paged
+    torch.cuda.synchronize()
+
+
+def serve_batch(gw, devices, prompts, new):
+    """Submit one request a (device, prompt) at once and step the gateway
+    until it drains; returns (requests, wall s, step walls s, the most
+    pool bytes in use at once)."""
+    import torch
+
+    def in_use():
+        out = gw.pools.nbytes_in_use()
+        if gw.draft_pools is not None:
+            out += gw.draft_pools.nbytes_in_use()
+        return out
+
+    t0 = time.perf_counter()
+    reqs = [gw.submit(d, p, new) for d, p in zip(devices, prompts)]
+    peak, steps = in_use(), []
+    while any(g.has_work() for g in gw.groups.values()):
+        t1 = time.perf_counter()
+        gw.step()
+        steps.append(time.perf_counter() - t1)
+        peak = max(peak, in_use())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(r.done and len(r.tokens) == new for r in reqs):
+        fail(f"serve: a request ended with "
+             f"{min(len(r.tokens) for r in reqs)} < {new} tokens")
+    return reqs, wall, steps, peak
+
+
+def serve_report(tag, gw, reqs, wall, steps, peak, card_line):
+    """One ``[serve ...]`` line: TTFT, tokens/s, dispatches, batching,
+    acceptance, pool bytes."""
+    st = gw.stats()
+    ttft = np.array([r.ttft_s for r in reqs]) * 1e3
+    tokens = sum(len(r.tokens) for r in reqs)
+    spec = st.get("spec")
+    acc = (f" acceptance={spec['acceptance_rate']:.4f} ({spec['accepted']}"
+           f"/{spec['proposed']}, {spec['rounds']} rounds, draft "
+           f"{spec['draft_layers']} layers, draft pool bytes in use after "
+           f"the drain={spec['draft_pool_bytes_in_use']})" if spec else "")
+    pages = st["pools"].get("pages")
+    print(f"[serve {tag}] {len(reqs)} requests: TTFT ms p50="
+          f"{np.percentile(ttft, 50):.1f} p95={np.percentile(ttft, 95):.1f}"
+          f" max={ttft.max():.1f}; {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.1f} tokens/s of wall; {len(steps)} steps, step "
+          f"ms mean={np.mean(steps) * 1e3:.1f} p50="
+          f"{np.percentile(steps, 50) * 1e3:.1f}; dispatches="
+          f"{st['dispatches']} tokens_out={st['tokens_out']} batching "
+          f"efficiency={st['batching_efficiency']}{acc}; pool bytes "
+          f"reserved={st['pools']['bytes']} most in use={peak}"
+          + (f" pages={pages}" if pages else "") + f" ({card_line})",
+          flush=True)
+    if pages and pages["pages_in_use"]:
+        fail(f"serve {tag}: {pages['pages_in_use']} pages in use after the "
+             "drain")
+    if not lanes_free(gw):
+        fail(f"serve {tag}: a lane is still held after the drain")
+
+
+def agreement(a, b):
+    """The share of positions where two runs' token streams agree."""
+    same = sum(int(x == y) for ra, rb in zip(a, b)
+               for x, y in zip(ra.tokens, rb.tokens))
+    return same / sum(len(r.tokens) for r in a)
+
+
+def serve_full_width(device, card_line, drive):
+    """Phase 18.2 (module docstring)."""
+    import gc
+
+    import torch
+
+    from repro_torch.config import FedCDConfig, override
+    from repro_torch.configs import get_arch
+    from repro_torch.federated.llm import FedLLMTrainer
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import KVPool, PagedKVPool, ServeGateway
+    t_tier = time.perf_counter()
+    arch = override(get_arch(LM_ARCH), **FULL_LM_CUT)
+    torch.cuda.reset_peak_memory_stats()
+    init = tf.init_lm(arch, torch.Generator(device=device).manual_seed(0),
+                      device=device)
+    n_params = sum(v.numel() for v in init.values())
+
+    def train(rounds):
+        tr = FedLLMTrainer(arch, FedCDConfig(**FULL_LM_FED),
+                           FULL_LM_CLIENTS, FULL_LM_PER, FULL_LM_SEQ,
+                           seed=0, spec="llm", device=device,
+                           init_params=init,
+                           draft_layers=SERVE_DRAFT_LAYERS)
+        for t in range(1, rounds + 1):
+            tr.run_round(t)
+            if len(tr.registry.live_ids()) >= 2:
+                break
+        return tr
+
+    t0 = time.perf_counter()
+    tr = drive(f"serve {LM_ARCH} train", lambda: train(FULL_LM_ROUNDS))
+    del init
+    gc.collect()
+    live = tr.registry.live_ids()
+    print(f"[serve {LM_ARCH} population] {arch.n_layers} layers (every "
+          f"width kept, {n_params} params a model, {arch.param_dtype}), "
+          f"{len(tr.metrics)} rounds of llm in "
+          f"{time.perf_counter() - t0:.2f} s: live={live}, draft rows "
+          f"{sorted(tr.draft.present)} of {tr.draft.dcfg.n_layers} layers "
+          f"({tr.draft.nbytes()} B)", flush=True)
+    if len(live) < 2:
+        fail(f"serve {LM_ARCH}: the trainer left {len(live)} live model")
+    n, prompt, new = SERVE_FULL
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, arch.vocab_size, (n, prompt))
+    devices = [i % FULL_LM_CLIENTS for i in range(n)]
+    runs, gws = {}, {}
+    for mode, kw in SERVE_FULL_MODES:
+        if "spec_k" in kw:
+            kw = dict(kw, draft=tr.draft)
+        gw = ServeGateway(arch, tr.registry, lambda: tr.state,
+                          **SERVE_FULL_GW, **kw)
+        out = drive(f"serve {LM_ARCH} {mode}", lambda: serve_batch(
+            gw, devices, prompts, new))
+        serve_report(f"{LM_ARCH} {mode}", gw, *out, card_line)
+        runs[mode], gws[mode] = out[0], gw
+    agree = {m: agreement(runs[m], runs["vanilla"])
+             for m in runs if m != "vanilla"}
+    # one vmapped decode step of a full group alone: its host cost
+    gw = gws["vanilla"]
+    group = next(iter(gw.groups.values()))
+    params = {k: v[tr.registry.params.row_of[group.model]]
+              for k, v in tr.registry.params.tree.items()}
+    toks = torch.zeros(SERVE_FULL_GW["lanes"], dtype=torch.long,
+                       device=device)
+    with torch.no_grad():
+        ops = op_count(lambda: gw._decode(params, group.pool.read(), toks))
+        walls = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            gw._decode(params, group.pool.read(), toks)[1].cpu()
+            walls.append((time.perf_counter() - t1) * 1e3)
+    print(f"[serve {LM_ARCH} step] one vmapped decode step of "
+          f"{SERVE_FULL_GW['lanes']} lanes: aten ops={ops}, wall ms="
+          f"{[round(w, 2) for w in walls]} ({card_line})", flush=True)
+    # one full pool of the tier: dense bf16 KV against paged int8
+    lanes, max_len = SERVE_FULL_GW["lanes"], SERVE_FULL_GW["max_len"]
+    dense = KVPool(arch, lanes, max_len, device=device)
+    paged = PagedKVPool(arch, lanes, max_len, page_slots=8, device=device)
+    for _ in range(lanes):
+        paged.acquire()
+    print(f"[serve {LM_ARCH} kv] one pool of {lanes} lanes x {max_len} "
+          f"slots: dense {arch.compute_dtype} KV {dense.nbytes()} B, paged "
+          f"int8 bytes_in_use {paged.nbytes_in_use()} B = "
+          f"{dense.nbytes() / paged.nbytes_in_use():.3f}x; tokens equal to "
+          f"vanilla's: spec {agree['spec']:.4f}, paged {agree['paged']:.4f}"
+          f" (bf16 near-ties and int8 KV: reported, not held)", flush=True)
+    del dense, paged, gws["spec"], gws["paged"]
+    # one more round, the gateway re-synced, a second batch
+    gw = gws["vanilla"]
+    t1 = time.perf_counter()
+    drive(f"serve {LM_ARCH} round", lambda: tr.run_round(len(tr.metrics)
+                                                          + 1))
+    out = gw.sync()
+    print(f"[serve {LM_ARCH} sync] round {len(tr.metrics)} in "
+          f"{time.perf_counter() - t1:.2f} s, live="
+          f"{tr.registry.live_ids()}; sync: {out}; routing="
+          f"{gw.stats()['routing']}", flush=True)
+    prompts = np.random.default_rng(1).integers(0, arch.vocab_size,
+                                                (n, prompt))
+    res = drive(f"serve {LM_ARCH} after sync", lambda: serve_batch(
+        gw, devices, prompts, new))
+    serve_report(f"{LM_ARCH} after sync", gw, *res, card_line)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[serve {LM_ARCH} tier] max_memory_allocated={peak} "
+          f"({peak / 2**30:.2f} GiB), wall_s="
+          f"{time.perf_counter() - t_tier:.1f} ({card_line})", flush=True)
+    del gw, gws, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_phase(device, card_line, counters):
+    """Phase 18 (module docstring); returns the launch counts of each of
+    its paths, by path name (the serving paths make none)."""
+    import torch
+    counts = {}
+
+    def drive(tag, fn):
+        for f in counters:
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts[tag] = {f.__name__: f.launches for f in counters}
+        if any(counts[tag].values()):
+            fail(f"{tag}: kernel launches {counts[tag]}, predicted none")
+        return out
+
+    serve_card_vs_cpu(device, drive)
+    serve_full_width(device, card_line, drive)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2733,6 +3066,10 @@ def main() -> int:
     # whisper-small whole, Qwen3-4B's prefill and decode)
     later.update(decode_phase(device, card_line, counters))
     elapsed(17)
+    # phase 18: the serving plane (every gateway mode card against CPU on
+    # five tiny configs; Qwen3-4B served from a trained FedCD population)
+    later.update(serve_phase(device, card_line, counters))
+    elapsed(18)
 
     # launches: kernels 1-3 on the fused main path, weighted_agg on the
     # legacy path; dequant_agg is on no path, so its count stays 0. Each

@@ -1,7 +1,6 @@
 """Elastic checkpoint/resume: the complete logical round state (port of
 ``repro/checkpoint/state.py``: the ``fedcd``, ``fedavg`` and ``fedllm``
-kinds; the ``fedllm`` kind's draft rows are the serving plane's, ROADMAP
-item 14b).
+kinds, the last with the serving plane's draft rows).
 
 ``checkpoint/io.py`` snapshots one tree; this module snapshots a RUNNING
 SERVER — everything the next round depends on, keyed by the control
@@ -322,7 +321,18 @@ def _snapshot_fedllm(server: Any) -> Tuple[dict, dict]:
          "trained_models": m.trained_models}
         for m in server.metrics]
     scalars["n_devices"] = int(server.n_clients)
-    scalars["draft"] = None          # draft rows: ROADMAP item 14b
+    # cluster-shared draft rows (speculative serving, DESIGN.md §16):
+    # population state like the target bank — keyed by model id
+    draft = server.draft
+    if draft is not None:
+        scalars["draft"] = {
+            "layers": int(draft.draft_layers),
+            "present": sorted(int(m) for m in draft.present)}
+        for m in sorted(draft.present):
+            arrays.update(_flatten(f"draft/{m}", draft.row_params(
+                draft.row(server.registry, m))))
+    else:
+        scalars["draft"] = None
     return arrays, scalars
 
 
@@ -568,6 +578,34 @@ def _restore_semisync(coord: Any, saved: Optional[dict]) -> None:
         coord.load_state(saved)
 
 
+def _restore_draft(server: Any, dmeta: Optional[dict],
+                   arrays: Dict[str, np.ndarray]) -> None:
+    """Adopt a checkpoint's draft rows into the trainer's draft bank, in
+    place at the restored bank's rows; a checkpoint without them (saved
+    by a trainer without drafts) re-derives them from the restored
+    target rows (truncation is deterministic)."""
+    draft = server.draft
+    if draft is None:
+        return
+    if not dmeta:
+        draft.present = set()
+        draft.refresh(server.registry, params_of=server.executor.params_of)
+        return
+    if int(dmeta["layers"]) != int(draft.draft_layers):
+        raise CheckpointError(
+            f"draft depth mismatch: checkpoint has {dmeta['layers']} "
+            f"layers, trainer wants {draft.draft_layers}")
+    template = {k: torch.empty(v.shape[1:], dtype=v.dtype, device="meta")
+                for k, v in draft.tree.items()}
+    draft.present = set()
+    for m in dmeta["present"]:
+        row = _unflatten(template, arrays, f"draft/{m}")
+        dst = draft.row_params(draft.row(server.registry, int(m)))
+        for k, a in row.items():
+            dst[k].copy_(to_device(a, a.dtype, dst[k].device))
+        draft.present.add(int(m))
+
+
 def restore_server_state(server: Any, path: str) -> int:
     """Restore a freshly-constructed ``server`` (same config and
     scenario) from the checkpoint at ``path``. Returns the last completed
@@ -578,10 +616,6 @@ def restore_server_state(server: Any, path: str) -> int:
     _check_config(server, manifest)
     kind = _kind(server)
     scalars = manifest["state"]
-    if kind == "fedllm" and scalars.get("draft"):
-        raise NotImplementedError(
-            "checkpoint carries draft rows (speculative serving): not "
-            "ported yet (ROADMAP item 14b)")
     _set_rng(server.rng, scalars["rng"]["rng"])
 
     if kind == "fedcd":
@@ -640,6 +674,7 @@ def restore_server_state(server: Any, path: str) -> int:
                 np.asarray(arrays["prefetch/vl"]))
         else:
             server._prefetch = None
+        _restore_draft(server, scalars.get("draft"), arrays)
         from repro_torch.federated.llm import LLMRoundMetrics
         server.metrics = [
             LLMRoundMetrics(round=s["round"], mean_loss=s["mean_loss"],

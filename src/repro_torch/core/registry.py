@@ -59,8 +59,9 @@ class StackedParamBank:
 
     ``version`` counts host-side row writes (``__setitem__``: the initial
     model and clones; :meth:`migrate`; :meth:`restore`), not the round's
-    own scatter: a pipelined executor's speculative training is stale
-    once it changed."""
+    own scatter, the LM engine's in-place training or :meth:`swap`: a
+    pipelined executor's speculative training is stale once it changed,
+    and the serving gateway re-routes when it moves."""
 
     #: EWMA decay for the observed per-shard pair load (one round's
     #: observation carries half the weight; ~4 rounds of history).
@@ -311,6 +312,20 @@ class StackedParamBank:
                 v.copy_(to_device(src, src.dtype, v.device))
             self.mark_written(r // self.rows_per_shard)
         self.version += 1
+
+    def swap(self, new_tree: Params) -> None:
+        """Adopt ``new_tree`` (``(m_cap, ...)`` tensors, every leaf of the
+        bank) as the bank's content, as the reference's ``swap`` adopts a
+        fused step's output. Row presence and placement are unchanged and
+        ``version`` does NOT move: a training write re-routes nothing
+        (the serving gateway's routing cache keys on ``version``). The
+        tensors are copied IN PLACE, so row views and the executors'
+        references stay valid; copies on other devices go stale."""
+        rps = self.rows_per_shard
+        for s, block in enumerate(self._blocks):
+            for k, v in block.items():
+                v.copy_(new_tree[k][s * rps:(s + 1) * rps])
+            self.mark_written(s)
 
 
 @dataclass

@@ -1458,6 +1458,13 @@ class LLMExecutorBase(RoundExecutor):
         result, self._result = self._result, None
         return result
 
+    def params_of(self, m: int) -> Params:
+        """Model ``m``'s current params — its dict entry (legacy) or its
+        bank row's views (stacked). The serving plane's
+        :class:`~repro_torch.serve.draft.DraftBank` refresh reads through
+        this, so draft truncation always sees post-round weights."""
+        return self.registry.params[m]
+
     def collect(self, preferred: np.ndarray
                 ) -> Tuple[np.ndarray, np.ndarray]:
         raise NotImplementedError(

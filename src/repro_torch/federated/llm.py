@@ -27,8 +27,12 @@ and the MTP head (DeepSeek-V3), xLSTM (mLSTM and sLSTM blocks) and the
 Zamba2 hybrid (Mamba2 groups, a shared attention block with per-site
 LoRA). The encoder-decoder model (``family == "audio"``) is refused at
 construction: the reference's trainer gives its step no frames and fails
-inside it. A tensor-parallel ``mesh`` is ROADMAP item 13b.4, the serving
-plane's draft rows (``draft_layers``) item 14b.
+inside it. A tensor-parallel ``mesh`` is ROADMAP item 13b.4.
+
+``draft_layers`` keeps the serving plane's cluster-shared draft rows
+(``serve.draft.DraftBank``: each live model's leading layers, refreshed
+in place after every round), which the checkpoint carries and a
+``ServeGateway(draft=trainer.draft, ...)`` serves from.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ from repro_torch.federated.executors import (FedLLMExecutor,
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import Params
+from repro_torch.serve.draft import DraftBank
 
 LLM_ENGINES = ("llm", "legacy")
 
@@ -134,7 +139,8 @@ class FedLLMTrainer:
     ``device``: where the models live (default the card).
     ``init_params``: the initial model — the reference's ``init_lm``
     pytree as numpy arrays (through :mod:`repro_torch.convert`) or a flat
-    param dict; ``None`` draws the port's own from ``seed``."""
+    param dict; ``None`` draws the port's own from ``seed``.
+    ``draft_layers``: keep draft rows of that depth (module docstring)."""
 
     def __init__(self, arch: ArchConfig, fed: FedCDConfig, n_clients: int,
                  per_client: int, seq: int, n_archetypes: int = 2,
@@ -153,10 +159,6 @@ class FedLLMTrainer:
             raise NotImplementedError(
                 "FedLLMTrainer(mesh=...): the tensor-parallel LM mesh is "
                 "not ported yet (ROADMAP item 13b.4)")
-        if draft_layers:
-            raise NotImplementedError(
-                "FedLLMTrainer(draft_layers=...): the draft rows of "
-                "speculative serving are not ported yet (ROADMAP item 14b)")
         if arch.family == "audio":
             raise ValueError(
                 f"FedLLMTrainer cannot train {arch.name}: an audio model "
@@ -189,6 +191,18 @@ class FedLLMTrainer:
         self._perms = np.zeros((n_clients, 1, 1), np.int32)
         self._prefetch = None
         self.metrics: List[LLMRoundMetrics] = []
+        # cluster-shared draft rows for speculative serving (DESIGN.md
+        # §16): population state refreshed after every round's clone/
+        # delete pass and snapshotted with the trainer checkpoint
+        self.draft_layers = draft_layers
+        if draft_layers:
+            self.draft: Optional[DraftBank] = DraftBank(
+                arch, draft_layers, fed.max_models,
+                self.executor.params_of(self.registry.live_ids()[0]))
+            self.draft.refresh(self.registry,
+                               params_of=self.executor.params_of)
+        else:
+            self.draft = None
         # elastic checkpoint/resume + fault injection (DESIGN.md §13)
         self._faults = spec.faults
         self._ckpt = (CheckpointManager(spec.checkpoint_dir,
@@ -266,6 +280,11 @@ class FedLLMTrainer:
                 self.state, self.registry, t, fed, self.rng,
                 clone_params_fn=self._clone_params)
             self.executor.on_clones(cloned)
+        if self.draft is not None:
+            # post-round draft "training": re-truncate from the freshly
+            # trained rows, pre-warm clones, drop deleted clusters
+            self.draft.refresh(self.registry,
+                               params_of=self.executor.params_of)
 
         losses = self.executor.round_losses
         cn = normalized_scores(self.state)

@@ -193,10 +193,12 @@ def write_slots(cache: torch.Tensor, slots: torch.Tensor,
                 values: torch.Tensor, dim: int) -> torch.Tensor:
     """``cache`` with ``values`` written at ``slots`` along ``dim``, where
     a slot equal to ``cache.shape[dim]`` drops its lane (the reference's
-    ``.at[slots].set(values, mode="drop")`` for slots ``<= C``)."""
+    ``.at[slots].set(values, mode="drop")`` for slots ``<= C``). Out of
+    place, so that it runs under ``torch.func.vmap`` with batched values
+    and an unbatched ``cache``."""
     spare = cache.narrow(dim, 0, 1)
-    grown = torch.cat([cache, spare], dim=dim)
-    grown.index_copy_(dim, slots.long(), values.to(cache.dtype))
+    grown = torch.cat([cache, spare], dim=dim).index_copy(
+        dim, slots.long(), values.to(cache.dtype))
     return grown.narrow(dim, 0, cache.shape[dim])
 
 

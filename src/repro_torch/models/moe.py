@@ -18,7 +18,9 @@ stable descending sort (the lower expert index first on ties, as
 ``t*k + j`` (a stable sort, as the reference's ``argsort``); the gathers
 go through ``F.embedding``, whose backward sums a repeated row in a fixed
 order; and the combine gathers each (token, choice) pair's output and
-adds a token's k pairs in choice order. No scatter-add sits on the path.
+adds a token's k pairs in choice order. No scatter-add sits on the path,
+and every write is out of place (``index_put``), so the block runs under
+``torch.func.vmap`` (the serving gateway's lanes).
 
 The reference's ``sharding_hints.constrain`` calls are the identity
 without a mesh and are left out; the expert-parallel ``shard_map`` branch
@@ -99,8 +101,8 @@ def _expert_shard(xf: torch.Tensor, ids: torch.Tensor, wts: torch.Tensor,
     le_sorted, order = torch.sort(le, stable=True)
     starts = torch.searchsorted(le_sorted,
                                 torch.arange(E_loc + 1, device=dev))
-    rank = torch.empty_like(le)
-    rank[order] = pairs - starts[le_sorted]
+    rank = torch.zeros_like(le).index_put((order,),
+                                          pairs - starts[le_sorted])
 
     valid = local & (rank < cap)
     sentinel = E_loc * cap                    # one slot past the buffers
@@ -109,8 +111,8 @@ def _expert_shard(xf: torch.Tensor, ids: torch.Tensor, wts: torch.Tensor,
     # index buffer: which token sits in each capacity slot (empty slots
     # hold token 0 with weight 0, as the reference's); the sentinel slot
     # takes every dropped pair and is cut off
-    tok_buf = torch.zeros(sentinel + 1, dtype=torch.long, device=dev)
-    tok_buf[slot] = pair_token
+    tok_buf = torch.zeros(sentinel + 1, dtype=torch.long,
+                          device=dev).index_put((slot,), pair_token)
     tok_buf = tok_buf[:sentinel]
 
     ebuf = F.embedding(tok_buf, xf).reshape(E_loc, cap, d).to(compute_dtype)

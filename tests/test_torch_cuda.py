@@ -15,7 +15,10 @@ equal to the plain versions' step). The decode path: the tiny decoder
 configs of the serving tests and reduced whisper-small on the card
 against the CPU (logits 1e-5, cache floats 1e-6 of each leaf's scale,
 ``index`` / ``pos`` equal), rollback after a verify bitwise equal to the
-prefill of the accepted prefix.
+prefill of the accepted prefix. The serving plane: every gateway mode's
+greedy streams on the card equal the CPU's and vanilla's with no kernel
+launch, the KV int8 codes and scales bit-equal to the CPU's, and the
+trainer's draft rows within the params bar.
 """
 import numpy as np
 import pytest
@@ -1436,3 +1439,121 @@ def test_whisper_grad_transport_launches_once_per_step_on_card(cuda):
         tqops.quantize_group, tqops.dequantize_group = real
     for k in pk:
         assert torch.equal(pk[k], pp[k]), k
+
+
+# -- the serving plane on the card ---------------------------------------------
+
+def _serve_world(cfg, device):
+    """Two models of ``cfg`` (``init_lm`` of seed 0 and a perturbed
+    clone) in a stacked registry on ``device``; devices 0-3 prefer model
+    0, 4-7 model 1."""
+    from repro_torch.core.registry import ModelRegistry
+    from repro_torch.core.scores import init_scores, push_accuracies
+    from repro_torch.models import transformer as tf
+    init = tf.init_lm(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    clone = {k: v + 0.02 * torch.randn(v.shape, generator=gen)
+             for k, v in init.items()}
+    reg = ModelRegistry.create({k: v.to(device) for k, v in init.items()},
+                               m_cap=4, stacked=True)
+    reg.clone(0, 1, {k: v.to(device) for k, v in clone.items()})
+    state = init_scores(8, 4, ell=2)
+    state.active[:, 1] = True
+    state.alive[1] = True
+    accs = np.zeros((8, 4))
+    accs[:4, 0], accs[:4, 1] = 0.9, 0.1
+    accs[4:, 0], accs[4:, 1] = 0.1, 0.9
+    return reg, push_accuracies(state, accs)
+
+
+SERVE_MODES = {"vanilla": {}, "spec": dict(spec_k=3, draft_layers=1),
+               "paged": dict(paged=True, page_slots=8),
+               "spec_paged": dict(spec_k=3, draft_layers=1, paged=True,
+                                  page_slots=8)}
+
+
+def _serve_streams(cfg, device, kw):
+    from repro_torch.serve import ServeGateway
+    reg, state = _serve_world(cfg, device)
+    gw = ServeGateway(cfg, reg, lambda: state, max_len=64, lanes=4,
+                      chunk=8, **kw)
+    rng = np.random.default_rng(0)
+    reqs = [gw.submit(d, rng.integers(0, 64, size=10), max_new=6)
+            for d in range(8)]
+    gw.drain()
+    assert all(r.done and len(r.tokens) == 6 for r in reqs)
+    if kw.get("paged"):
+        assert gw.stats()["pools"]["pages"]["pages_in_use"] == 0
+    return [r.tokens for r in reqs], gw.dispatches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DECODE_FAMILIES)
+def test_serve_gateway_on_card_matches_cpu(cuda, name):
+    """Greedy streams of every gateway mode on the card equal the CPU's
+    and vanilla's; the serving plane launches no kernel."""
+    cfg = _decode_config(name)
+    counters = (twops.multi_weighted_agg, twops.weighted_agg,
+                twops.dequant_agg, tqops.quantize, tqops.dequantize)
+    before = [f.launches for f in counters]
+    want, _ = _serve_streams(cfg, torch.device("cpu"), {})
+    for mode, kw in SERVE_MODES.items():
+        card, _ = _serve_streams(cfg, cuda, kw)
+        assert card == want, mode
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters] == before
+
+
+@pytest.mark.cuda
+def test_serve_kv_quantize_on_card_matches_cpu(cuda):
+    """The KV contract's int8 codes and f16 scales on the card equal the
+    CPU's bit for bit (IEEE division by a tensor, round half to even)."""
+    from repro_torch.serve import kv_pool as kv
+    rng = np.random.default_rng(0)
+    spec = kv._LeafSpec((2, 1, 20, 2, 16), -3, 8, torch.float32)
+    x = rng.standard_normal((3, 2, 1, 20, 2, 16)).astype(np.float32)
+    x *= rng.uniform(1e-3, 50.0, (3, 2, 1, 20, 1, 1)).astype(np.float32)
+    n = 3 * spec.R * spec.P
+    pt = rng.permutation(n).reshape(3, spec.R, spec.P).astype(np.int32)
+    pt[1] = kv.FREE
+    out = []
+    for dev in ("cpu", cuda):
+        pages = torch.zeros((n + 1, spec.ps, spec.T), dtype=torch.int8,
+                            device=dev)
+        scales = torch.zeros((n + 1, spec.ps), dtype=torch.float16,
+                             device=dev)
+        kv._quantize_leaf(pages, scales, pt, torch.from_numpy(x).to(dev),
+                          spec, 3)
+        dense = kv._dequantize_leaf(pages, scales, pt, spec, 3)
+        out.append((pages[:-1].cpu(), scales[:-1].cpu(), dense.cpu()))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_serve_draft_rows_on_card_match_cpu(cuda):
+    """``FedLLMTrainer(draft_layers=1)`` on the card against the CPU, 3
+    rounds: the same drafts present, rows within the trainer's card-vs-
+    CPU params bar (1e-4)."""
+    from repro_torch.config import ArchConfig, FedCDConfig
+    from repro_torch.federated.llm import FedLLMTrainer
+    from repro_torch.models import transformer as tf
+    cfg = ArchConfig(name="tiny", n_layers=2, d_model=64, n_heads=4,
+                     n_kv_heads=2, d_ff=128, vocab_size=64,
+                     param_dtype="float32", compute_dtype="float32")
+    fed = FedCDConfig(n_devices=4, devices_per_round=3, score_window=2,
+                      milestones=(2, 5), late_delete_round=6, max_models=6,
+                      lr=0.05, seed=0)
+    init = tf.init_lm(cfg, torch.Generator().manual_seed(0))
+    rows = []
+    for dev in ("cpu", cuda):
+        tr = FedLLMTrainer(cfg, fed, 4, 2, 16, seed=0, device=dev,
+                           init_params=init, draft_layers=1)
+        tr.run(3)
+        rows.append({m: {k: v.cpu() for k, v in tr.draft.row_params(
+            tr.draft.row(tr.registry, m)).items()}
+            for m in sorted(tr.draft.present)})
+    assert list(rows[0]) == list(rows[1]) and len(rows[0]) >= 2
+    for m in rows[0]:
+        for k in rows[0][m]:
+            assert float((rows[0][m][k] - rows[1][m][k]).abs().max()) <= 1e-4

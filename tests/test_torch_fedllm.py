@@ -235,17 +235,30 @@ def test_port_checkpoint_resumes_in_the_reference(tmp_path, ref):
 
 
 def test_draft_rows_in_a_checkpoint_raise(tmp_path, ref):
+    """A checkpoint without draft rows says so; one with them restores
+    them verbatim, and only into a trainer of the same draft depth."""
     tr = _run(ref[1], "llm", rounds=1)
     path = tr.save(str(tmp_path / "step"))
-    mpath = os.path.join(path, "manifest.json")
-    with open(mpath) as f:
+    with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     assert manifest["kind"] == "fedllm" and manifest["state"]["draft"] is None
-    manifest["state"]["draft"] = {"layers": 1, "present": [0]}
-    with open(mpath, "w") as f:
-        json.dump(manifest, f)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        _trainer(ref[1]).restore(path)
+    src = _trainer(ref[1], draft_layers=1)
+    src.run(1)
+    path = src.save(str(tmp_path / "draft"))
+    with open(os.path.join(path, "manifest.json")) as f:
+        assert json.load(f)["state"]["draft"] == {"layers": 1,
+                                                  "present": [0]}
+    dst = _trainer(ref[1], draft_layers=1)
+    with torch.no_grad():
+        for v in dst.draft.tree.values():
+            v.zero_()
+    assert dst.restore(path) == 1
+    assert dst.draft.present == {0}
+    for k, v in src.draft.tree.items():
+        assert torch.equal(dst.draft.tree[k][0], v[0]), k
+    from repro_torch.checkpoint.io import CheckpointError
+    with pytest.raises(CheckpointError, match="draft depth mismatch"):
+        _trainer(ref[1], draft_layers=2).restore(path)
 
 
 # -- the reference's regressions, in its order ---------------------------------
@@ -312,10 +325,18 @@ def test_run_resumes_after_restore_round_count(ref):
 
 
 def test_trainer_refuses_what_is_not_ported(ref):
+    """The mesh is still refused; draft rows are built: one 1-layer draft
+    of the initial model, a copy of its leading layer."""
     with pytest.raises(NotImplementedError, match="13b.4"):
         _trainer(ref[1], mesh=object())
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        _trainer(ref[1], draft_layers=1)
+    for spec in ("llm", "legacy"):
+        tr = _trainer(ref[1], spec, draft_layers=1)
+        assert tr.draft.present == {0} and tr.draft.dcfg.n_layers == 1
+        row = tr.draft.row_params(tr.draft.row(tr.registry, 0))
+        params = tr.executor.params_of(0)
+        assert torch.equal(row["segments.0.attn.wq"],
+                           params["segments.0.attn.wq"][:1])
+        assert torch.equal(row["embed.table"], params["embed.table"])
 
 
 def test_trainer_needs_cuda_unless_cpu_is_asked(monkeypatch, ref):

@@ -55,7 +55,10 @@ def test_port_files_found():
     for rel in ("federated/llm.py", "launch/steps.py", "launch/train.py",
                 "models/transformer.py", "models/attention.py",
                 "optim/optimizers.py", "data/tokens.py",
-                "configs/qwen3_4b.py", "models/moe.py", "models/mla.py"):
+                "configs/qwen3_4b.py", "models/moe.py", "models/mla.py",
+                # the serving plane
+                "serve/__init__.py", "serve/batcher.py", "serve/draft.py",
+                "serve/gateway.py", "serve/kv_pool.py", "launch/serve.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
@@ -65,7 +68,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.checkpoint, repro_torch.launch.mesh, "
             "repro_torch.launch.sharding, repro_torch.federated.llm, "
             "repro_torch.launch.train, repro_torch.launch.steps, "
-            "repro_torch.configs, repro_torch.optim; "
+            "repro_torch.configs, repro_torch.optim, repro_torch.serve, "
+            "repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -117,6 +121,25 @@ def test_lm_trainer_and_train_cli_need_cuda_unless_cpu_is_asked(
     assert tr.device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--rounds", "1", "--out", str(tmp_path)])
+
+
+def test_serving_plane_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.config import ArchConfig
+    from repro_torch.launch import serve
+    from repro_torch.serve import KVPoolManager, PageArena
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arch = ArchConfig(name="t", n_layers=1, d_model=16, n_heads=2,
+                      n_kv_heads=1, d_ff=32, vocab_size=32,
+                      param_dtype="float32", compute_dtype="float32")
+    for make in (lambda d: KVPoolManager(arch, 1, 8, device=d),
+                 lambda d: PageArena(16, 8, device=d)):
+        for device in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make(device)
+        assert make("cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen3-4b", "--decode", "2"])
 
 
 def test_wrappers_compute_the_plain_version_only_on_cpu(monkeypatch,

@@ -24,7 +24,9 @@ decode (``tests/test_gateway.py:58-96``, 1e-4); rollback after a verify
 bitwise equal to the prefill of the accepted prefix
 (``tests/test_specdecode.py:104-140``); decode ≡ teacher-forced forward
 on every reduced architecture (``tests/test_archs_smoke.py:77-99``, 2e-3
-of the logits' scale).
+of the logits' scale); ``torch.func.vmap`` over three lanes at different
+positions ≡ a call per lane, for decode and verify (the gateway's lane
+batching: greedy tokens and ``n_keep`` exact, logits 1e-5).
 """
 import jax
 import jax.numpy as jnp
@@ -313,6 +315,50 @@ def test_rollback_bitwise_equals_prefill_of_accepted_prefix(ref):
     assert list(rolled) == list(oracle)
     for k in oracle:
         assert torch.equal(rolled[k], oracle[k]), k
+
+
+def test_vmapped_lanes_match_per_lane_calls(ref):
+    """The serving gateway's lane batching: ``torch.func.vmap`` of
+    ``lm_decode`` and ``lm_spec_verify`` over three batch-1 lanes at
+    different positions (prompts of 5, 8 and 11 tokens), params closed
+    over, against a call per lane. Greedy tokens, verify outputs and
+    ``n_keep`` exact, logits 1e-5."""
+    tc, win = ref["tc"], ref["win"]
+    tp = _port_params(ref)
+    lanes = []
+    with torch.no_grad():
+        for n in (5, 8, 11):
+            c = ttf.init_lm_caches(tc, 1, MAXLEN, window=win)
+            _, c = ttf.lm_prefill(tc, tp, _t(ref["prompt"][:1, :n]), c,
+                                  window=win)
+            lanes.append(c)
+        stacked = {k: torch.stack([c[k] for c in lanes]) for k in lanes[0]}
+        toks = _t(ref["dec"][0, :3])
+
+        def decode(cache, tok):
+            lg, nc = ttf.lm_decode(tc, tp, tok[None, None], cache,
+                                   window=win)
+            return nc, lg[0, -1]
+
+        _, logits = torch.func.vmap(decode)(stacked, toks)
+        per = torch.stack([decode(c, toks[i])[1]
+                           for i, c in enumerate(lanes)])
+        _close(logits, per.numpy())
+        assert torch.equal(torch.argmax(logits, -1), torch.argmax(per, -1))
+
+        chunks = torch.cat([toks[:, None], _t(ref["chunk"][:1, 1:]).expand(
+            3, K)], dim=1)
+
+        def verify(cache, chunk):
+            out, nk, nc = ttf.lm_spec_verify(tc, tp, chunk[None],
+                                             chunk[None, 1:], cache,
+                                             window=win)
+            return nc, out[0], nk
+
+        _, outs, nks = torch.func.vmap(verify)(stacked, chunks)
+        for i, c in enumerate(lanes):
+            _, out, nk = verify(c, chunks[i])
+            assert torch.equal(outs[i], out) and int(nks[i]) == int(nk)
 
 
 DECODE_ARCHS = tuple(n for n in tconfigs.all_arch_names())
