@@ -35,7 +35,7 @@ DeepSeek-V3 (MLA, a shared expert, the MTP head) on the card against the
 CPU, ``legacy`` and ``llm+pipeline`` equal to ``llm`` and a crash resumed
 from its checkpoint, DeepSeek-V3's int8 gradient transport step (46
 leaves: two launches of each kernel), then Phi-3.5-MoE at every
-published width with its depth cut to 4 layers (``llm`` and ``legacy``)
+published width with its depth cut to 2 layers (``llm`` and ``legacy``)
 and DeepSeek-V3 at its widest single-card tier (4 layers, 16 of its 256
 experts; ``llm``). Phase 16 does the same for the recurrent families at
 seq 24 (two mLSTM / SSD chunks of 16, the second padded): reduced
@@ -67,8 +67,20 @@ configuration until two models are live, a gateway of 8 lanes serves 16
 requests of 128-token prompts and 32 new tokens in the vanilla, spec and
 paged modes (TTFT, tokens/s, dispatches, batching efficiency,
 acceptance, KV bytes, agreement with vanilla), then one more round, a
-``sync`` and a second batch. No serving path launches a kernel. Each
-phase ends in an ``[elapsed]`` line with the script's wall clock.
+``sync`` and a second batch. No serving path launches a kernel. Phase
+19 drives the tensor-parallel LM mesh (``FedLLMTrainer(mesh=...)``,
+every cell of the mesh on the one card): 19.1, float32, the tiny LM and
+reduced Phi-3.5-MoE over 8 rounds on ``model=2`` and ``model=2,
+data=2`` meshes against the one-device run on the card (but MoE at
+``data=2``, whose capacity follows the reference's mesh run) and the
+same mesh on the CPU, and the int8 gradient transport step of the tiny
+LM and of reduced Qwen3-4B on both meshes (launches predicted from the
+pieces' layout, codes against the plain versions and against the whole
+leaves' quantization);
+19.2, Qwen3-4B at phase 14's tier (12 of 36 layers, bf16) on ``llm`` at
+``model=2`` for 3 rounds, its step ms, round walls, peak memory and
+losses beside phase 14's one-device run. Each phase ends in an
+``[elapsed]`` line with the script's wall clock.
 
     python3 chip_smoke.py
 
@@ -204,11 +216,12 @@ FULL_LM_CUT = {"n_layers": 12}
 # the MoE / MLA / MTP families (phase 15): the reduced configs on phase
 # 14's FedCD configuration and dims; DeepSeek-V3's gradient transport
 # (46 leaves of 128 values or more, 32 a launch: 2 launches of each
-# kernel a step); then each at its widest single-card tier, as (arch,
-# what is cut, engines): every published width kept
+# kernel a step); then each at full width, as (arch, what is cut,
+# engines): every published width kept; Phi-3.5-MoE's depth 4 -> 2 since
+# phase 19 (the script's time)
 MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
 MOE_TRANSPORT = ("deepseek-v3-671b", 2)
-FULL_MOE = (("phi3.5-moe-42b-a6.6b", {"n_layers": 4}, ("llm", "legacy")),
+FULL_MOE = (("phi3.5-moe-42b-a6.6b", {"n_layers": 2}, ("llm", "legacy")),
             ("deepseek-v3-671b", {"n_layers": 4, "moe.n_experts": 16},
              ("llm",)))
 # the Mamba2 / xLSTM / hybrid families (phase 16): the reduced configs on
@@ -260,6 +273,18 @@ SERVE_SHRINK = 3.5                  # dense f32 KV over paged int8 (TINY)
 SERVE_DRAFT_LAYERS = 2              # the trainer's draft rows (phase 18.2)
 SERVE_FULL_GW = dict(max_len=256, lanes=8, chunk=64)
 SERVE_FULL = (16, 128, 32)          # requests (two a device), prompt, new
+# the tensor-parallel LM mesh (phase 19): (model, data) meshes with every
+# cell on the one card; the tiny LM of tests/test_llm_equivalence.py and
+# reduced Phi-3.5-MoE on phase 14's FedCD configuration (float32), the
+# transport step on the tiny LM (pieces that cut its 128-value blocks:
+# gathered) and on reduced Qwen3-4B (every piece whole blocks: alone),
+# then Qwen3-4B at phase 14's tier
+MESH_SHAPES = ((2, 1), (2, 2))
+MESH_ARCHS = ("tiny", "phi3.5-moe-42b-a6.6b")
+MESH_PARAM_TOL = 1e-5               # params, mesh against one device
+MESH_TRANSPORT_ARCHS = ("tiny", LM_ARCH)
+MESH_FULL_MODEL, MESH_FULL_ROUNDS = 2, 3
+MESH_LOSS_TOL = 0.05                # bf16 losses, mesh against one device
 SERVE_FULL_MODES = (("vanilla", {}), ("spec", dict(spec_k=3)),
                     ("paged", dict(paged=True, page_slots=8)))
 
@@ -1656,11 +1681,12 @@ def sharded_phase(run_path, device):
 
 # -- phase 14: the mode-B LM trainer ------------------------------------------
 
-def lm_trainer(arch, fed, dims, spec, device, init, seed=0):
+def lm_trainer(arch, fed, dims, spec, device, init, seed=0, mesh=None):
     from repro_torch.config import FedCDConfig
     from repro_torch.federated.llm import FedLLMTrainer
     return FedLLMTrainer(arch, FedCDConfig(**fed), *dims, seed=seed,
-                         spec=spec, device=device, init_params=init)
+                         spec=spec, device=device, init_params=init,
+                         mesh=mesh)
 
 
 def lm_snapshot(tr):
@@ -1676,7 +1702,7 @@ def lm_snapshot(tr):
         "history": tr.state.history.copy(),
         "losses": [m.mean_loss for m in tr.metrics],
         "params": {m: {k: v.detach().cpu()
-                       for k, v in tr.registry.params[m].items()}
+                       for k, v in tr.executor.params_of(m).items()}
                    for m in tr.registry.live_ids()},
     }
 
@@ -1882,9 +1908,13 @@ class LMTimer:
                 return out
             return call
 
-        train = timed(steps.make_train_step(tr.arch, lr=tr.fed.lr,
-                                            remat=False), "train")
-        acc = timed(make_acc_step(tr.arch, tr.n_clients,
+        from repro_torch.launch.mesh import dp_axes_of
+        mesh = tr.mesh
+        dp = ("data",) if mesh is None else dp_axes_of(mesh)
+        train = timed(steps.make_train_step(tr.arch, mesh, dp,
+                                            lr=tr.fed.lr, remat=False),
+                      "train")
+        acc = timed(make_acc_step(tr.arch, tr.n_clients, mesh, dp,
                                   batch_size=tr.n_clients * tr.per_client),
                     "eval")
         ex = tr.executor
@@ -1909,7 +1939,9 @@ def lm_full_width(device, card_line, name=LM_ARCH, cut=None,
     """Phase 14.4 (15.4): ``name`` at full width (as registered, bf16,
     but for ``cut``: config overrides, each printed), 4 rounds with a
     milestone clone on each engine of ``specs`` in turn from the same
-    random params; the engines' discrete state must agree."""
+    random params; the engines' discrete state must agree. Returns each
+    spec's per-round losses, trained models, walls and train ms and its
+    peak memory."""
     import gc
 
     import torch
@@ -1933,7 +1965,7 @@ def lm_full_width(device, card_line, name=LM_ARCH, cut=None,
           f"in {time.perf_counter() - t0:.2f} s; cut: {cuts}", flush=True)
     dims = (FULL_LM_CLIENTS, FULL_LM_PER, FULL_LM_SEQ)
     tokens_per_model = FULL_LM_CLIENTS * FULL_LM_PER * FULL_LM_SEQ
-    snaps = {}
+    snaps, records = {}, {}
     for spec in specs:
         torch.cuda.reset_peak_memory_stats()
         tr = lm_trainer(arch, FULL_LM_FED, dims, spec, device, init)
@@ -1957,6 +1989,11 @@ def lm_full_width(device, card_line, name=LM_ARCH, cut=None,
                 fail(f"LM full width {arch.name} {spec}: round {t} loss "
                      f"{m.mean_loss}")
         peak = torch.cuda.max_memory_allocated()
+        records[spec] = {
+            "losses": [m.mean_loss for m in tr.metrics],
+            "trained": [m.trained_models for m in tr.metrics],
+            "walls": [r[0] for r in rows],
+            "train_ms": [r[1]["train"] for r in rows], "peak": peak}
         later = rows[1:]
         wall = float(np.mean([r[0] for r in later]))
         tok = sum(r[2] for r in later)
@@ -1991,6 +2028,7 @@ def lm_full_width(device, card_line, name=LM_ARCH, cut=None,
               f"params max_abs_err={perr}", flush=True)
     print(f"[lm full tier] {arch.name}: wall_s="
           f"{time.perf_counter() - t_tier:.1f}", flush=True)
+    return records
 
 
 def _field(cfg, dotted):
@@ -2001,7 +2039,7 @@ def _field(cfg, dotted):
 
 def lm_phase(device, card_line, counters):
     """Phase 14 (module docstring); returns the launch counts of the
-    gradient transport's path."""
+    gradient transport's path and the full-width tier's records."""
     import torch
 
     from repro_torch.configs import get_arch, reduced
@@ -2011,8 +2049,8 @@ def lm_phase(device, card_line, counters):
     llm = lm_card_vs_cpu(device, arch, init)
     lm_engines(device, arch, init, llm)
     counts = lm_transport(device, arch, init, counters)
-    lm_full_width(device, card_line, LM_ARCH, FULL_LM_CUT)
-    return counts
+    full = lm_full_width(device, card_line, LM_ARCH, FULL_LM_CUT)
+    return counts, full
 
 
 def moe_phase(device, card_line, counters):
@@ -2771,6 +2809,299 @@ def serve_phase(device, card_line, counters):
     return counts
 
 
+# -- phase 19: the tensor-parallel LM mesh --------------------------------------
+
+def mesh_arch(name):
+    """The tiny LM of tests/test_llm_equivalence.py, or a reduced arch."""
+    from repro_torch.config import ArchConfig
+    from repro_torch.configs import get_arch, reduced
+    if name == "tiny":
+        return ArchConfig(name="tiny", n_layers=2, d_model=64, n_heads=4,
+                          n_kv_heads=2, d_ff=128, vocab_size=64,
+                          param_dtype="float32", compute_dtype="float32")
+    return reduced(get_arch(name))
+
+
+def card_mesh(device, model, data):
+    from repro_torch.launch.mesh import make_launch_mesh
+    return make_launch_mesh(model, data, devices=[device] * (model * data))
+
+
+def mesh_card_vs_cpu(device, drive):
+    """Phase 19.1: each of MESH_ARCHS over LM_ROUNDS rounds on ``llm`` on
+    each mesh of MESH_SHAPES (cells on the card) against the one-device
+    run on the card (MESH_PARAM_TOL; not for MoE at data > 1, whose
+    capacity is per data shard) and the same mesh on the CPU
+    (LM_PARAM_TOL, phase 14's card-against-CPU bar). No path launches a
+    kernel."""
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    dims = (LM_CLIENTS, LM_PER, LM_SEQ)
+
+    def run(arch, init, device=None, mesh=None):
+        t0 = time.perf_counter()
+        tr = lm_trainer(arch, LM_FED, dims, "llm", device, init, mesh=mesh)
+        tr.run(LM_ROUNDS)
+        return lm_snapshot(tr), time.perf_counter() - t0
+
+    for name in MESH_ARCHS:
+        arch = mesh_arch(name)
+        init = tf.init_lm(arch, torch.Generator().manual_seed(0))
+        one, _ = drive(f"lm mesh {name} one-device",
+                       lambda: run(arch, init, device=device))
+        for m, d in MESH_SHAPES:
+            tag = f"lm mesh {name} {m}x{d}"
+            card, wall = drive(tag, lambda: run(
+                arch, init, mesh=card_mesh(device, m, d)))
+            host, _ = run(arch, init, mesh=make_host_mesh(model=m, data=d))
+            hist, cpu_err = lm_compare(card, host, f"{tag} card vs CPU")
+            vs_one = not (arch.moe.n_experts and d > 1)
+            one_err = (lm_compare(card, one, f"{tag} vs one device")[1]
+                       if vs_one else None)
+            print(f"[{tag}] {arch.name} ({arch.n_layers}x{arch.d_model}, "
+                  f"{LM_ROUNDS} rounds, cells on the card): discrete state "
+                  f"equal to the CPU mesh's"
+                  f"{' and the one-device run' if vs_one else ''}, live="
+                  f"{card['live']}, trained={card['trained']}, history "
+                  f"max_abs_err={hist}, params max_abs_err vs CPU="
+                  f"{cpu_err}, vs one device={one_err}, wall_s="
+                  f"{wall:.2f}", flush=True)
+            if cpu_err > LM_PARAM_TOL or hist > LM_HIST_TOL or (
+                    vs_one and one_err > MESH_PARAM_TOL):
+                fail(f"{tag}: params {cpu_err} (CPU) / {one_err} (one "
+                     f"device) or history {hist} beyond the bars")
+
+
+def mesh_transport_rows(arch, init, mesh):
+    """Predicted rows of the mesh step's transport on each device: a leaf
+    of 128 values or more is one row per distinct block when every row
+    of every piece is a whole number of the whole leaf's 128-value
+    blocks, else one row (gathered) on cell (0, 0)."""
+    import torch
+
+    from repro_torch.launch.sharding import lm_bank_shardings
+    from repro_torch.launch.tensor_parallel import cell_blocks, narrow_block
+    from repro_torch.models import transformer as tf
+    rows = {}
+    for k, sh in lm_bank_shardings(arch, init, mesh).items():
+        depth = tf.stacked_depth(k)
+        shape = tuple(init[k].shape[depth:])
+        if init[k].numel() < 128:
+            continue
+        spec = sh.spec[1 + depth:]
+        idx = torch.arange(int(np.prod(shape))).reshape(shape)
+        blocks = {}
+        for blk, dev in zip(cell_blocks(mesh, spec), mesh.devices):
+            blocks.setdefault(blk, dev)
+
+        def whole_blocks(blk):
+            flat = narrow_block(idx, blk).reshape(-1)
+            if flat.numel() % 128:
+                return False
+            runs = flat.view(-1, 128)
+            return bool((runs[:, 0] % 128 == 0).all()
+                        and (runs[:, 1:] - runs[:, :-1] == 1).all())
+
+        if all(whole_blocks(b) for b in blocks):
+            for dev in blocks.values():
+                rows[dev] = rows.get(dev, 0) + 1
+        else:
+            dev = mesh.device(0, 0)
+            rows[dev] = rows.get(dev, 0) + 1
+    return rows
+
+
+def mesh_transport(device, drive):
+    """Phase 19.1: one ``grad_transport_bits=8`` step of each of
+    MESH_TRANSPORT_ARCHS on each mesh of MESH_SHAPES (cells on the
+    card): launches of each kernel predicted from the pieces' layout
+    (``mesh_transport_rows``, 32 rows a launch on each device); the
+    kernels' codes and scales against their plain versions on the same
+    rows; the transported gradient equal, bit for bit, to the transport
+    of the same gradient gathered whole (the whole leaf's blocks)."""
+    import math
+
+    import torch
+
+    from repro_torch.core.registry import StackedParamBank
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.quantize import ref as qref
+    from repro_torch.launch import steps
+    from repro_torch.launch.sharding import lm_bank_shardings
+    from repro_torch.launch.tensor_parallel import Sharded
+    from repro_torch.models import transformer as tf
+    n, per, seq = LM_TRANSPORT
+    scores = torch.rand(n, generator=torch.Generator().manual_seed(1)
+                        ).to(device)
+    cap = qops.max_leaves()
+    for name, (m, d) in ((a, md) for a in MESH_TRANSPORT_ARCHS
+                         for md in MESH_SHAPES):
+        arch = mesh_arch(name)
+        init = tf.init_lm(arch, torch.Generator().manual_seed(0))
+        tokens, labels = lm_batch(np.random.default_rng(0), n, per, seq,
+                                  arch.vocab_size)
+        tok, lab = (torch.from_numpy(a.astype(np.int64)).to(device)
+                    for a in (tokens, labels))
+        mesh = card_mesh(device, m, d)
+        tag = f"lm mesh grad transport {name} {m}x{d}"
+        bank = StackedParamBank(1, init,
+                                shardings=lm_bank_shardings(arch, init,
+                                                            mesh))
+        bank[0] = init
+        rows = mesh_transport_rows(arch, init, mesh)
+        expect = sum(math.ceil(r / cap) for r in rows.values())
+        seen, grads = [], {}
+        real_q, real_t = qops.quantize_group, steps.quantize_grads
+
+        def q(xs, bits=8):
+            qs, ss = real_q(xs, bits)
+            seen.append(([x.clone() for x in xs], [t.clone() for t in qs],
+                         [t.clone() for t in ss]))
+            return qs, ss
+
+        def t(g, bits=8):
+            grads["in"], grads["out"] = g, real_t(g, bits)
+            return grads["out"]
+
+        step = steps.make_train_step(arch, mesh, lr=0.05, remat=False,
+                                     grad_transport_bits=8)
+        qops.quantize_group, steps.quantize_grads = q, t
+        try:
+            _, counts = drive(tag, lambda: step(bank[0], tok, lab, scores),
+                              check=False)
+        finally:
+            qops.quantize_group, steps.quantize_grads = real_q, real_t
+        got = (counts["quantize"], counts["dequantize"])
+        off = frac_n = frac_d = 0
+        srel = 0.0
+        for xs, qs, ss in seen:
+            for x, qk, sk in zip(xs, qs, ss):
+                qp, sp = qref.quantize_ref(x, 8)
+                off = max(off, int((qk.int() - qp.int()).abs().max()))
+                frac_n += int((qk != qp).sum())
+                frac_d += qk.numel()
+                srel = max(srel, float(((sk - sp).abs()
+                                        / sp.abs().clamp(min=1e-30)).max()))
+        home = mesh.device(0, 0)
+
+        def whole(v):
+            parts = v if isinstance(v, list) else [v]
+            return [p.full(home) if isinstance(p, Sharded) else p
+                    for p in parts]
+
+        ref = steps.quantize_grads({k: whole(v) for k, v in
+                                    grads["in"].items()})
+        same = all(torch.equal(a, b) for k in ref
+                   for a, b in zip(whole(grads["out"][k]), ref[k]))
+        print(f"[{tag}] {arch.name} ({arch.n_layers}x{arch.d_model}), "
+              f"one step of {n}x{per}x{seq} tokens: rows per device="
+              f"{ {str(k): v for k, v in rows.items()} } "
+              f"launches (quantize, dequantize)={got} predicted="
+              f"{(expect, expect)}; codes max_off={off} "
+              f"code_mismatch_share={frac_n / max(frac_d, 1)} "
+              f"scale_rel_err={srel}; equal to the whole leaves' "
+              f"transport={same}", flush=True)
+        if got != (expect, expect):
+            fail(f"{tag}: launches {got}, predicted {expect} of each")
+        if off > 1 or frac_n >= 1e-3 * frac_d or srel > 1e-6 or not same:
+            fail(f"{tag}: codes or scales disagree")
+
+
+def mesh_full_width(device, card_line, drive, ref):
+    """Phase 19.2: Qwen3-4B at phase 14's tier on ``llm`` at
+    ``model=MESH_FULL_MODEL`` (cells on the card) for MESH_FULL_ROUNDS
+    rounds from phase 14's params: step ms, round walls, peak memory,
+    and the losses and trained models beside phase 14's one-device
+    ``llm`` run (``ref``)."""
+    import gc
+
+    import torch
+
+    from repro_torch.config import override
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    arch = override(get_arch(LM_ARCH), **FULL_LM_CUT)
+    init = tf.init_lm(arch, torch.Generator(device=device).manual_seed(0),
+                      device=device)
+    init = {k: v.cpu() for k, v in init.items()}
+    torch.cuda.empty_cache()
+    dims = (FULL_LM_CLIENTS, FULL_LM_PER, FULL_LM_SEQ)
+    mesh = card_mesh(device, MESH_FULL_MODEL, 1)
+    tag = f"lm mesh full {arch.name} model={MESH_FULL_MODEL}"
+
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        tr = lm_trainer(arch, FULL_LM_FED, dims, "llm", None, init,
+                        mesh=mesh)
+        timer = LMTimer(tr)
+        rows = []
+        for t in range(1, MESH_FULL_ROUNDS + 1):
+            t1 = time.perf_counter()
+            m = tr.run_round(t)
+            torch.cuda.synchronize()
+            rows.append((time.perf_counter() - t1, timer.take(), m))
+        return tr, rows, torch.cuda.max_memory_allocated()
+
+    tr, rows, peak = drive(tag, run)
+    losses = [r[2].mean_loss for r in rows]
+    trained = [r[2].trained_models for r in rows]
+    one = ref["llm"]
+    n = len(rows)
+    step_ms = [r[1]["train"] / max(r[2].trained_models, 1) for r in rows]
+    one_ms = [ms / max(k, 1) for ms, k in zip(one["train_ms"][:n],
+                                              one["trained"][:n])]
+    pairs = list(zip(losses, one["losses"][:n]))
+    if any(np.isnan(a) != np.isnan(b) for a, b in pairs):
+        fail(f"{tag}: losses {losses} trained in other rounds than the "
+             f"one-device run's {one['losses'][:n]}")
+    dl = max((abs(a - b) for a, b in pairs if not np.isnan(a)),
+             default=0.0)
+    print(f"[{tag}] {arch.n_layers}x{arch.d_model} vocab "
+          f"{arch.vocab_size} {arch.param_dtype}, {n} rounds: step ms="
+          f"{[round(x, 3) for x in step_ms]} (one device, phase 14: "
+          f"{[round(x, 3) for x in one_ms]}), round walls_s="
+          f"{[round(r[0], 4) for r in rows]} (one device: "
+          f"{[round(w, 4) for w in one['walls'][:n]]}), train_ms="
+          f"{[round(r[1]['train'], 3) for r in rows]}, eval_ms="
+          f"{[round(r[1]['eval'], 3) for r in rows]}, trained={trained} "
+          f"(one device {one['trained'][:n]}), losses={losses} (one "
+          f"device {one['losses'][:n]}), max loss diff={dl}, "
+          f"max_memory_allocated={peak} ({peak / 2**30:.2f} GiB; one "
+          f"device {one['peak'] / 2**30:.2f} GiB) ({card_line})",
+          flush=True)
+    if trained != one["trained"][:n] or not dl <= MESH_LOSS_TOL:
+        fail(f"{tag}: trained {trained} / losses {losses} against the one-"
+             f"device run's {one['trained'][:n]} / {one['losses'][:n]}")
+    del tr, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_phase(device, card_line, counters, qwen_full):
+    """Phase 19 (module docstring); returns each path's launch counts,
+    by path name."""
+    import torch
+    counts = {}
+
+    def drive(tag, fn, check=True):
+        for f in counters:
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts[tag] = {f.__name__: f.launches for f in counters}
+        if check and any(counts[tag].values()):
+            fail(f"{tag}: kernel launches {counts[tag]}, predicted none")
+        return out if check else (out, counts[tag])
+
+    mesh_card_vs_cpu(device, drive)
+    mesh_transport(device, drive)
+    mesh_full_width(device, card_line, drive, qwen_full)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3051,7 +3382,8 @@ def main() -> int:
 
     # phase 14: the mode-B LM trainer (card against CPU, engines, the
     # gradient transport's kernels, Qwen3-4B at full width)
-    later["lm grad transport"] = lm_phase(device, card_line, counters)
+    later["lm grad transport"], qwen_full = lm_phase(device, card_line,
+                                                     counters)
     elapsed(14)
     # phase 15: the MoE / MLA / MTP families (the same checks; Phi-3.5-MoE
     # and DeepSeek-V3 at their widest single-card tiers)
@@ -3070,6 +3402,11 @@ def main() -> int:
     # five tiny configs; Qwen3-4B served from a trained FedCD population)
     later.update(serve_phase(device, card_line, counters))
     elapsed(18)
+    # phase 19: the tensor-parallel LM mesh (the trainer on model=2 and
+    # model=2,data=2 meshes against one device and the CPU, the mesh's
+    # transport launches, Qwen3-4B at phase 14's tier on model=2)
+    later.update(mesh_phase(device, card_line, counters, qwen_full))
+    elapsed(19)
 
     # launches: kernels 1-3 on the fused main path, weighted_agg on the
     # legacy path; dequant_agg is on no path, so its count stays 0. Each

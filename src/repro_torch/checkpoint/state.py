@@ -37,7 +37,11 @@ server was built with. When the shard layout matches the checkpoint's,
 placement (``row_of``, used rows, load EWMA) restores verbatim and the
 resumed run is bit-identical to the uninterrupted one; otherwise ids
 re-place through the banks' least-loaded allocators and the runs agree
-in discrete state with params equal to reduction order.
+in discrete state with params equal to reduction order. A
+tensor-parallel LM bank (``FedLLMTrainer(mesh=...)``) snapshots each row
+gathered into whole leaves, in the reference's format; a restore splits
+them onto the new bank by its ``lm_bank_shardings``, so a checkpoint
+crosses meshes as it crosses packages.
 
 **Device state.** A snapshot is a barrier: it copies the banks, the
 stale updates and (under churn) the data rows to the host, waiting for
@@ -63,6 +67,7 @@ from repro_torch.checkpoint.io import (CheckpointError, _crc,
 from repro_torch.config import to_dict
 from repro_torch.core.registry import StackedParamBank
 from repro_torch.federated.simulation import to_device
+from repro_torch.launch.tensor_parallel import Sharded
 
 SCHEMA = 1
 ARRAYS = "arrays.npz"
@@ -163,7 +168,10 @@ def _snapshot_params(arrays: dict, scalars: dict, registry: Any) -> None:
     stacked = isinstance(registry.params, StackedParamBank)
     scalars["stacked"] = stacked
     for m in registry.live_ids():
-        arrays.update(_flatten(f"params/{m}", registry.params[m]))
+        # a tensor-parallel bank's row: its pieces gathered whole
+        row = {k: v.full(v.device) if isinstance(v, Sharded) else v
+               for k, v in registry.params[m].items()}
+        arrays.update(_flatten(f"params/{m}", row))
     if stacked:
         pb = registry.params
         scalars["bank"] = {

@@ -11,7 +11,12 @@ models in M). Two parameter storage modes:
   ``(m_cap, ...)`` rows, split into contiguous blocks over the model
   shards of the launch mesh (one block without a mesh). ``row_of``
   places each model id on a row; liveness is a mask over rows, and dead
-  rows stay allocated.
+  rows stay allocated. With ``shardings`` (the LM trainer on a
+  tensor-parallel mesh, ``launch.sharding.lm_bank_shardings``) each
+  leaf's ``(m_cap, ...)`` tensor is a
+  :class:`~repro_torch.launch.tensor_parallel.Sharded` leaf instead: the
+  row axis replicated, the inner dims split by the LM specs, so every
+  cell keeps all ``m_cap`` rows of its piece.
 
 The genealogy serialises to the reference's JSON (``to_json`` /
 ``load_json``), which checkpoints carry.
@@ -29,6 +34,7 @@ import torch
 
 from repro_torch.federated.simulation import to_device
 from repro_torch.launch.sharding import Replicas
+from repro_torch.launch.tensor_parallel import Sharded
 from repro_torch.models.common import Params
 
 
@@ -68,7 +74,8 @@ class StackedParamBank:
     LOAD_DECAY = 0.5
 
     def __init__(self, m_cap: int, template: Params, n_shards: int = 1,
-                 devices: Optional[Sequence[torch.device]] = None):
+                 devices: Optional[Sequence[torch.device]] = None,
+                 shardings: Optional[Dict[str, Any]] = None):
         self.m_cap = m_cap
         self.n_shards = n_shards
         self.rows_per_shard = m_cap // max(n_shards, 1)
@@ -86,7 +93,17 @@ class StackedParamBank:
                                device=device)
 
         self._colocated = len(set(self.devices)) == 1
-        if self._colocated:
+        if shardings is not None:
+            # the tensor-parallel LM bank (module docstring): one block
+            if n_shards != 1:
+                raise ValueError("a sharded LM bank has one row block")
+            self._tree = {
+                k: Sharded.zeros(shardings[k].mesh, shardings[k].spec,
+                                 (m_cap,) + tuple(v.shape), v.dtype)
+                for k, v in template.items()}
+            self._blocks = [self._tree]
+            self.devices = [shardings[next(iter(template))].mesh.device(0)]
+        elif self._colocated:
             self._tree: Optional[Params] = {
                 k: zeros(v, m_cap, self.devices[0])
                 for k, v in template.items()}
@@ -204,7 +221,8 @@ class StackedParamBank:
             self.row_of[m] = r
             self._used_rows.add(r)
         for k, v in self._row_views(r).items():
-            v.copy_(torch.as_tensor(row[k]))
+            src = row[k]
+            v.copy_(src if isinstance(src, Sharded) else torch.as_tensor(src))
         self._present.add(m)
         self.mark_written(r // self.rows_per_shard)
         self.version += 1
@@ -346,14 +364,16 @@ class ModelRegistry:
     @classmethod
     def create(cls, initial_params: Params, m_cap: int = 16,
                stacked: bool = False, n_shards: int = 1,
-               devices: Optional[Sequence[torch.device]] = None
+               devices: Optional[Sequence[torch.device]] = None,
+               shardings: Optional[Dict[str, Any]] = None
                ) -> "ModelRegistry":
         """``devices``: the owner device of each of the ``n_shards``
-        shards of a stacked bank (default: the params' device)."""
+        shards of a stacked bank (default: the params' device);
+        ``shardings``: a tensor-parallel LM bank's leaf shardings."""
         reg = cls(m_cap=m_cap)
         if stacked:
             reg.params = StackedParamBank(m_cap, initial_params, n_shards,
-                                          devices)
+                                          devices, shardings)
         reg.entries[0] = ModelEntry(0, None, 0)
         reg.params[0] = initial_params
         return reg

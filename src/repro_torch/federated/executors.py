@@ -83,6 +83,7 @@ from repro_torch.federated.simulation import (
 from repro_torch.launch.mesh import (LaunchMesh, data_axis_size,
                                      model_axis_size)
 from repro_torch.launch.sharding import Replicas, bank_rows_per_shard
+from repro_torch.launch.tensor_parallel import Sharded
 from repro_torch.models.common import Params
 
 
@@ -1460,10 +1461,13 @@ class LLMExecutorBase(RoundExecutor):
 
     def params_of(self, m: int) -> Params:
         """Model ``m``'s current params — its dict entry (legacy) or its
-        bank row's views (stacked). The serving plane's
+        bank row's views (stacked); a tensor-parallel bank's row gathered
+        whole on cell ``(0, 0)`` (a copy). The serving plane's
         :class:`~repro_torch.serve.draft.DraftBank` refresh reads through
         this, so draft truncation always sees post-round weights."""
-        return self.registry.params[m]
+        row = self.registry.params[m]
+        return {k: v.full(v.device) if isinstance(v, Sharded) else v
+                for k, v in row.items()}
 
     def collect(self, preferred: np.ndarray
                 ) -> Tuple[np.ndarray, np.ndarray]:

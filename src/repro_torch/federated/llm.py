@@ -27,7 +27,17 @@ and the MTP head (DeepSeek-V3), xLSTM (mLSTM and sLSTM blocks) and the
 Zamba2 hybrid (Mamba2 groups, a shared attention block with per-site
 LoRA). The encoder-decoder model (``family == "audio"``) is refused at
 construction: the reference's trainer gives its step no frames and fails
-inside it. A tensor-parallel ``mesh`` is ROADMAP item 13b.4.
+inside it.
+
+``mesh`` (a :class:`~repro_torch.launch.mesh.LaunchMesh`) runs the
+steps tensor-parallel (``launch/tensor_parallel.py``). On ``llm`` and
+``llm+pipeline`` the bank follows ``lm_bank_shardings``: each leaf split
+by the LM specs, the row axis replicated, so every cell keeps all
+``max_models`` rows of its piece. ``legacy`` keeps unsharded params on
+cell ``(0, 0)`` and passes the mesh to its steps, as the reference's
+does. The trainer's device is cell ``(0, 0)``'s: host batches, losses
+and accuracies live there, and ``params_of`` (hence the draft rows)
+returns rows gathered there. Serving takes no mesh.
 
 ``draft_layers`` keeps the serving plane's cluster-shared draft rows
 (``serve.draft.DraftBank``: each live model's leading layers, refreshed
@@ -61,6 +71,8 @@ from repro_torch.device import resolve_device
 from repro_torch.federated.executors import (FedLLMExecutor,
                                              LLMLegacyExecutor)
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import LaunchMesh, dp_axes_of
+from repro_torch.launch.sharding import lm_bank_shardings
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import Params
 from repro_torch.serve.draft import DraftBank
@@ -115,6 +127,23 @@ def make_acc_step(cfg: ArchConfig, n_clients: int, mesh=None,
     return step
 
 
+def _trainer_device(device: Optional[Union[str, torch.device]],
+                    mesh: Optional[LaunchMesh]) -> torch.device:
+    """The trainer's device: ``device`` (default the card), or cell
+    ``(0, 0)`` of ``mesh``; given both, they must name one device."""
+    if mesh is None:
+        return resolve_device(device)
+    home = mesh.device(0, 0)
+    if device is not None:
+        dev = resolve_device(device)
+        idx = (lambda d: d.index or 0) if dev.type == "cuda" else \
+            (lambda d: None)
+        if dev.type != home.type or idx(dev) != idx(home):
+            raise ValueError(f"device={dev} and the mesh's cell (0, 0) on "
+                             f"{home} disagree")
+    return home
+
+
 def _adopt_init(arch: ArchConfig, init_params: Any,
                 device: torch.device) -> Params:
     """``init_params`` (the reference's pytree as numpy, or a flat param
@@ -140,7 +169,9 @@ class FedLLMTrainer:
     ``init_params``: the initial model — the reference's ``init_lm``
     pytree as numpy arrays (through :mod:`repro_torch.convert`) or a flat
     param dict; ``None`` draws the port's own from ``seed``.
-    ``draft_layers``: keep draft rows of that depth (module docstring)."""
+    ``draft_layers``: keep draft rows of that depth (module docstring).
+    ``mesh``: a tensor-parallel launch mesh (module docstring); with
+    ``device`` too, the two must agree on cell ``(0, 0)``."""
 
     def __init__(self, arch: ArchConfig, fed: FedCDConfig, n_clients: int,
                  per_client: int, seq: int, n_archetypes: int = 2,
@@ -155,10 +186,9 @@ class FedLLMTrainer:
                 f"FedLLMTrainer supports engine='llm' (stacked) or "
                 f"'legacy' (per-model loop oracle): got {spec.engine!r} "
                 "— the mode-A engines live on FedCDServer")
-        if mesh is not None:
-            raise NotImplementedError(
-                "FedLLMTrainer(mesh=...): the tensor-parallel LM mesh is "
-                "not ported yet (ROADMAP item 13b.4)")
+        if mesh is not None and not isinstance(mesh, LaunchMesh):
+            raise TypeError(f"mesh must be a LaunchMesh, got "
+                            f"{type(mesh).__name__}")
         if arch.family == "audio":
             raise ValueError(
                 f"FedLLMTrainer cannot train {arch.name}: an audio model "
@@ -168,19 +198,25 @@ class FedLLMTrainer:
         self.arch, self.fed = arch, fed
         self.n_clients, self.per_client, self.seq = n_clients, per_client, seq
         self.n_archetypes = n_archetypes
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _trainer_device(device, mesh)
         self.pipeline = spec.pipeline
         self.rng = np.random.default_rng(seed)
         init = (tf.init_lm(arch, torch.Generator().manual_seed(seed),
                            device=self.device)
                 if init_params is None
                 else _adopt_init(arch, init_params, self.device))
+        stacked = spec.engine == "llm"
+        shardings = (lm_bank_shardings(arch, init, mesh)
+                     if stacked and mesh is not None else None)
         self.registry = ModelRegistry.create(
-            init, fed.max_models, stacked=spec.engine == "llm")
+            init, fed.max_models, stacked=stacked, shardings=shardings)
         del init                     # the bank holds its own copy
         self.state = init_scores(n_clients, fed.max_models, fed.score_window)
-        train_fn = steps_mod.make_train_step(arch, lr=fed.lr, remat=False)
-        acc_fn = make_acc_step(arch, n_clients,
+        dp = ("data",) if mesh is None else dp_axes_of(mesh)
+        train_fn = steps_mod.make_train_step(arch, mesh, dp, lr=fed.lr,
+                                             remat=False)
+        acc_fn = make_acc_step(arch, n_clients, mesh, dp,
                                batch_size=n_clients * per_client)
         cls = FedLLMExecutor if spec.engine == "llm" else LLMLegacyExecutor
         self.executor = cls(fed, self.registry, n_clients, train_fn, acc_fn,

@@ -18,12 +18,14 @@ the first ``model * data`` CUDA devices and raises when there are fewer,
 as ``jax.make_mesh`` does beyond ``jax.device_count()``: it never
 shrinks and never moves to the CPU.
 
-The production meshes (``make_production_mesh``, the ``dp_*`` helpers)
-belong to the dry-run tooling and are not ported here.
+``dp_axes_of`` / ``dp_size`` name the data-parallel axes of a mesh, as
+the LM sharding rules (``launch/sharding.py``) read them. The production
+meshes (``make_production_mesh``) belong to the dry-run tooling (ROADMAP
+item 15b) and are not ported here.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -116,3 +118,17 @@ def model_axis_size(mesh: LaunchMesh) -> int:
 
 def data_axis_size(mesh: LaunchMesh) -> int:
     return mesh.shape.get("data", 1)
+
+
+def dp_axes_of(mesh: LaunchMesh) -> Tuple[str, ...]:
+    """The mesh's data-parallel axes (``pod`` and ``data`` where present:
+    ``("data",)`` on a launch mesh)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def dp_size(mesh: LaunchMesh) -> int:
+    """Cells along the data-parallel axes."""
+    n = 1
+    for a in dp_axes_of(mesh):
+        n *= mesh.shape[a]
+    return n

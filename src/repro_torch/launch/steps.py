@@ -2,7 +2,8 @@
 decode (port of ``repro/launch/steps.py``, whole: ``client_weights_per_row``,
 ``_lm_loss`` with its audio and MTP branches, ``quantize_grads``,
 ``make_train_step``, ``make_eval_step``, ``make_prefill_step`` and
-``make_serve_step``; a ``mesh`` is ROADMAP item 13b.4).
+``make_serve_step``; a ``mesh`` on the prefill and serve steps is ROADMAP
+item 15b).
 
 ``make_train_step`` is the cluster-scale FedCD round (DESIGN.md §3):
 clients are contiguous row-groups of the global batch; eq 1's
@@ -21,21 +22,42 @@ memory order: ``transformer.stacked_depth``), so no stacked gradient is
 ever assembled; the values are the reference's, since every layer's
 slice of a stacked gradient is that layer's gradient. The encoder-decoder
 model's ``enc_blocks.*`` and ``dec_blocks.*`` split per row too.
+
+On a tensor-parallel ``mesh`` the train and eval steps run the model's
+mesh forward (``transformer.lm_forward(mesh=...)``). Params may be whole
+tensors (the ``legacy`` engine's: laid out per step, their gradients
+whole) or sharded leaves (the LM bank's rows,
+``launch/tensor_parallel.Sharded``): then the gradient of each piece is
+taken on the piece's device, copies of one block (over the data axis, or
+a replicated leaf's on several devices) take the sum of their gradients
+in cell order, and the float32 SGD runs in place per piece.
+``quantize_grads`` cuts each leaf's 128-value blocks from the WHOLE
+leaf's flattened row, so its codes and scales are the one-device step's:
+a piece goes to the kernels alone where every row of it is a whole
+number of blocks; a leaf whose blocks cross pieces is gathered to cell
+``(0, 0)``, quantized there and split back. One grouped call of each
+kernel per device (per 32 leaves).
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.quantize import ops as q_ops
+from repro_torch.launch.tensor_parallel import (Block, Sharded, narrow_block,
+                                                reduce_replicas)
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import Params
 from repro_torch.optim import sgd_update_
+from repro_torch.sharding_hints import sharding_hints
 
-GradTree = Dict[str, Union[torch.Tensor, List[torch.Tensor]]]
+Part = Union[torch.Tensor, Sharded]
+GradTree = Dict[str, Union[Part, List[Part]]]
+QUANT_BLOCK = 128                # values of one transport block
 
 
 def client_weights_per_row(client_scores: torch.Tensor, batch: int
@@ -48,14 +70,17 @@ def client_weights_per_row(client_scores: torch.Tensor, batch: int
     return w / torch.clamp(torch.sum(w), min=1e-12)
 
 
-def _forward(cfg: ArchConfig, params, tokens, frames, remat=False):
+def _forward(cfg: ArchConfig, params, tokens, frames, remat=False,
+             mesh=None, dp_axes=("data",)):
     """(logits, hidden, aux): the encoder-decoder model on ``frames``
-    for an audio config (aux 0), else the decoder-only LM."""
+    for an audio config (aux 0; it takes no mesh, as the reference's),
+    else the decoder-only LM."""
     if cfg.family == "audio":
         logits, hidden = ed.encdec_forward(cfg, params, frames, tokens,
                                            remat=remat)
         return logits, hidden, torch.zeros((), device=logits.device)
-    return tf.lm_forward(cfg, params, tokens, remat=remat)
+    return tf.lm_forward(cfg, params, tokens, mesh=mesh, dp_axes=dp_axes,
+                         remat=remat)
 
 
 def _lm_loss(cfg: ArchConfig, params, tokens, labels, row_w, mesh=None,
@@ -63,16 +88,15 @@ def _lm_loss(cfg: ArchConfig, params, tokens, labels, row_w, mesh=None,
     """Score-weighted next-token loss, plus DeepSeek's MTP loss (weight
     0.3) where the model has an MTP head. Returns (loss + aux, (loss,
     aux))."""
-    if mesh is not None:
-        raise NotImplementedError(tf.MESH_13B4)
-    logits, hidden, aux = _forward(cfg, params, tokens, frames, remat)
+    logits, hidden, aux = _forward(cfg, params, tokens, frames, remat,
+                                   mesh, dp_axes)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = (logz - gold).mean(dim=-1)                           # (B,)
     loss = torch.sum(nll * row_w)
     if cfg.mtp and any(k.startswith("mtp.") for k in params):
         # predict t+2: condition on emb(t+1)=labels, target labels shifted
-        mtp_lg = tf.mtp_logits(cfg, params, hidden, labels)
+        mtp_lg = tf.mtp_logits(cfg, params, hidden, labels, mesh, dp_axes)
         mtp_labels = torch.roll(labels, -1, 1).long()
         lz = torch.logsumexp(mtp_lg, dim=-1)
         gd = torch.gather(mtp_lg, -1, mtp_labels[..., None])[..., 0]
@@ -84,9 +108,67 @@ def _lm_loss(cfg: ArchConfig, params, tokens, labels, row_w, mesh=None,
     return loss + aux, (loss, aux)
 
 
-def _parts(g: Union[torch.Tensor, Sequence[torch.Tensor]]
-           ) -> List[torch.Tensor]:
-    return [g] if isinstance(g, torch.Tensor) else list(g)
+def _parts(g: Union[Part, Sequence[Part]]) -> List[Part]:
+    return [g] if isinstance(g, (torch.Tensor, Sharded)) else list(g)
+
+
+def _tensors(part: Part) -> List[torch.Tensor]:
+    return [part] if isinstance(part, torch.Tensor) else part.distinct()
+
+
+def _aligned(shape: Sequence[int], blk: Block) -> bool:
+    """Whether every row of the block ``blk`` of a leaf (layer) of
+    ``shape`` is a whole number of transport blocks of the whole leaf's
+    flattened row: its runs start and end on block boundaries."""
+    cut = [d for d, (_, c) in enumerate(blk) if c > 1]
+    if not cut:
+        return True
+    j = cut[-1]
+    inner = math.prod(shape[j + 1:])
+    n = shape[j] // blk[j][1]
+    return all(v % QUANT_BLOCK == 0 for v in
+               (blk[j][0] * n * inner, n * inner, shape[j] * inner))
+
+
+def _sharded_jobs(layers: List[Sharded], jobs: list) -> List[list]:
+    """Transport jobs of a sharded leaf (its per-layer parts ``layers``):
+    one per block where each piece's rows are whole blocks, else one for
+    the leaf gathered to cell ``(0, 0)``. Returns, per layer, the list
+    the jobs fill with the new distinct tensors."""
+    s0 = layers[0]
+    new: List[list] = [[None] * len(s.distinct()) for s in layers]
+    index = {id(p): i for i, p in enumerate(s0.distinct())}
+    groups = [(blk, [index[id(t)] for t in ts]) for blk, ts in s0.groups()]
+    if all(_aligned(s0.shape, blk) for blk, _ in groups):
+        for _, idx in groups:
+            first = [s.distinct()[idx[0]] for s in layers]
+            row = torch.cat([p.reshape(-1).float() for p in first])[None]
+
+            def write(flat, idx=idx, first=first):
+                o = 0
+                for li, (s, p) in enumerate(zip(layers, first)):
+                    v = flat[0, o:o + p.numel()].reshape(p.shape).to(p.dtype)
+                    o += p.numel()
+                    for i in idx:
+                        new[li][i] = v.to(s.distinct()[i].device)
+            jobs.append((row, write))
+        return new
+    dev = s0.mesh.device(0, 0)
+    wholes = [s.full(dev) for s in layers]
+    row = torch.cat([w.reshape(-1).float() for w in wholes])[None]
+
+    def write(flat):
+        o = 0
+        for li, (s, w) in enumerate(zip(layers, wholes)):
+            v = flat[0, o:o + w.numel()].reshape(w.shape).to(w.dtype)
+            o += w.numel()
+            pos = {id(p): i for i, p in enumerate(s.distinct())}
+            for blk, ts in s.groups():
+                for t in ts:
+                    new[li][pos[id(t)]] = \
+                        narrow_block(v, blk).to(t.device).contiguous()
+    jobs.append((row, write))
+    return new
 
 
 def quantize_grads(grads: GradTree, bits: int = 8) -> GradTree:
@@ -95,68 +177,118 @@ def quantize_grads(grads: GradTree, bits: int = 8) -> GradTree:
     round). Each leaf — a stacked leaf given as its per-layer parts too —
     is flattened to ONE float32 row (exact for bfloat16) in the stacked
     leaf's memory order; leaves of fewer than 128 values and scalars pass
-    through. Every other leaf goes through one ``quantize_group`` and one
-    ``dequantize_group`` call: on the card one launch of each kernel (per
-    32 leaves), on CPU tensors their plain versions. The result has each
-    part's shape and dtype."""
-    names, rows = [], []
+    through. A sharded leaf keeps those blocks (module docstring). The
+    rows go through one ``quantize_group`` and one ``dequantize_group``
+    call per device: on the card one launch of each kernel (per 32
+    leaves), on CPU tensors their plain versions. The result has each
+    part's shape, dtype and layout."""
+    jobs: list = []
+    pending = []
+    out: GradTree = dict(grads)
     for k, g in grads.items():
         parts = _parts(g)
         n = sum(p.numel() for p in parts)
         if (len(parts) == 1 and parts[0].dim() == 0) or n < 128:
             continue
-        names.append(k)
-        rows.append(torch.cat([p.reshape(-1).float() for p in parts])[None]
-                    if len(parts) > 1 else
-                    parts[0].reshape(1, -1).float().contiguous())
-    qs, ss = q_ops.quantize_group(rows, bits)
-    outs = q_ops.dequantize_group(qs, ss, [r.shape[1] for r in rows])
-    out: GradTree = dict(grads)
-    for k, flat in zip(names, outs):
-        parts, pieces, o = _parts(grads[k]), [], 0
-        for p in parts:
-            pieces.append(flat[0, o:o + p.numel()].reshape(p.shape)
-                          .to(p.dtype))
-            o += p.numel()
-        out[k] = pieces[0] if isinstance(grads[k], torch.Tensor) else pieces
+        if isinstance(parts[0], Sharded):
+            pending.append((k, parts, _sharded_jobs(parts, jobs)))
+            continue
+        row = (torch.cat([p.reshape(-1).float() for p in parts])[None]
+               if len(parts) > 1 else
+               parts[0].reshape(1, -1).float().contiguous())
+
+        def write(flat, k=k, parts=parts):
+            pieces, o = [], 0
+            for p in parts:
+                pieces.append(flat[0, o:o + p.numel()].reshape(p.shape)
+                              .to(p.dtype))
+                o += p.numel()
+            out[k] = pieces[0] if isinstance(grads[k], torch.Tensor) \
+                else pieces
+        jobs.append((row, write))
+    by_device: Dict[torch.device, List[int]] = {}
+    for i, (row, _) in enumerate(jobs):
+        # the tensor's own device: a mesh may name one card as "cuda"
+        # and as "cuda:0"
+        by_device.setdefault(row.device, []).append(i)
+    for idx in by_device.values():
+        rows = [jobs[i][0] for i in idx]
+        qs, ss = q_ops.quantize_group(rows, bits)
+        flats = q_ops.dequantize_group(qs, ss, [r.shape[1] for r in rows])
+        for i, flat in zip(idx, flats):
+            jobs[i][1](flat)
+    for k, parts, new in pending:
+        done = [s.with_pieces(t) for s, t in zip(parts, new)]
+        out[k] = done[0] if isinstance(grads[k], Sharded) else done
     return out
 
 
-def _targets(params: Params) -> GradTree:
+def _targets(params) -> GradTree:
     """``params`` with each stacked leaf as its per-layer views."""
     out: GradTree = {}
     for k, v in params.items():
         depth = tf.stacked_depth(k)
-        out[k] = tf.layer_views(v, depth) if depth else v
+        if not depth:
+            out[k] = v
+        elif isinstance(v, Sharded):
+            out[k] = v.layers(depth)
+        else:
+            out[k] = tf.layer_views(v, depth)
     return out
 
 
-def _grad_leaves(params: Params) -> GradTree:
+def _detached(p: Part) -> Part:
+    if isinstance(p, Sharded):
+        return p.map(lambda t: t.detach().requires_grad_())
+    return p.detach().requires_grad_()
+
+
+def _grad_leaves(params) -> GradTree:
     """Leaves to differentiate: detached views of ``params`` that require
-    grad, a stacked leaf as its per-layer views."""
-    return {k: ([p.detach().requires_grad_() for p in v]
-                if isinstance(v, list) else v.detach().requires_grad_())
+    grad, a stacked leaf as its per-layer views (a sharded leaf's
+    distinct pieces each)."""
+    return {k: ([_detached(p) for p in v] if isinstance(v, list)
+                else _detached(v))
             for k, v in _targets(params).items()}
 
 
 def _flat(tree: GradTree) -> List[torch.Tensor]:
-    return [p for g in tree.values() for p in _parts(g)]
+    return [t for g in tree.values() for p in _parts(g)
+            for t in _tensors(p)]
 
 
 def _unflat(tree: GradTree, flat: Sequence[torch.Tensor]) -> GradTree:
-    out, i = {}, 0
+    """``flat`` (aligned with ``_flat(tree)``) in ``tree``'s structure; a
+    sharded part's copies of one block take their group's summed
+    gradient."""
+    out: GradTree = {}
+    i = 0
     for k, g in tree.items():
-        n = len(_parts(g))
-        out[k] = flat[i] if isinstance(g, torch.Tensor) else \
-            list(flat[i:i + n])
-        i += n
+        parts = []
+        for p in _parts(g):
+            n = len(_tensors(p))
+            if isinstance(p, Sharded):
+                parts.append(reduce_replicas(p.with_pieces(flat[i:i + n])))
+            else:
+                parts.append(flat[i])
+            i += n
+        out[k] = parts if isinstance(g, list) else parts[0]
     return out
+
+
+def _grads(total: torch.Tensor, flat: Sequence[torch.Tensor]
+           ) -> List[torch.Tensor]:
+    """d total / d flat; a piece no cell computed with (a replicated
+    leaf's copy on a device that only holds it) gets zeros."""
+    gs = torch.autograd.grad(total, flat, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(flat, gs)]
 
 
 def make_train_step(cfg: ArchConfig, mesh=None,
                     dp_axes: Tuple[str, ...] = ("data",),
                     lr: float = 1e-2, remat: bool = True,
-                    microbatches: int = 1,
+                    microbatches: int = 1, hints: bool = False,
                     grad_transport_bits: int = 0) -> Callable:
     """FedCD mode-B round step.
 
@@ -167,19 +299,24 @@ def make_train_step(cfg: ArchConfig, mesh=None,
     recomputes each layer in the backward pass; ``microbatches`` splits
     the batch and sums the float32 gradients, as the reference's scan;
     ``grad_transport_bits=8`` compresses the aggregated update before the
-    parameter update (transport-compressed FedCD round, paper §3.4)."""
-    if mesh is not None:
-        raise NotImplementedError(tf.MESH_13B4)
+    parameter update (transport-compressed FedCD round, paper §3.4).
+    ``mesh``: the tensor-parallel forward (module docstring); ``hints``
+    sets the sharding-hint context for the step."""
 
     def step(params: Params, tokens, labels, client_scores, frames=None):
+        with sharding_hints(mesh if hints else None, dp_axes):
+            return _step_body(params, tokens, labels, client_scores, frames)
+
+    def _step_body(params, tokens, labels, client_scores, frames):
         B = tokens.shape[0]
         row_w = client_weights_per_row(client_scores, B)
         leaves = _grad_leaves(params)
         flat = _flat(leaves)
         if microbatches == 1:
             total, (loss, aux) = _lm_loss(cfg, leaves, tokens, labels,
-                                          row_w, frames=frames, remat=remat)
-            grads = list(torch.autograd.grad(total, flat))
+                                          row_w, mesh, dp_axes,
+                                          frames=frames, remat=remat)
+            grads = _grads(total, flat)
         else:
             mb = B // microbatches
             grads = [torch.zeros(p.shape, device=p.device) for p in flat]
@@ -187,10 +324,10 @@ def make_train_step(cfg: ArchConfig, mesh=None,
             for i in range(microbatches):
                 sl = slice(i * mb, (i + 1) * mb)
                 total, (l_mb, a) = _lm_loss(
-                    cfg, leaves, tokens[sl], labels[sl], row_w[sl],
-                    frames=None if frames is None else frames[sl],
+                    cfg, leaves, tokens[sl], labels[sl], row_w[sl], mesh,
+                    dp_axes, frames=None if frames is None else frames[sl],
                     remat=remat)
-                gs = torch.autograd.grad(total, flat)
+                gs = _grads(total, flat)
                 grads = [acc + g for acc, g in zip(grads, gs)]
                 loss, aux = loss + l_mb.detach(), aux + a.detach()
         gtree = _unflat(leaves, grads)
@@ -205,12 +342,11 @@ def make_train_step(cfg: ArchConfig, mesh=None,
 def make_eval_step(cfg: ArchConfig, n_clients: int, mesh=None,
                    dp_axes: Tuple[str, ...] = ("data",)) -> Callable:
     """Per-client validation loss — feeds the FedCD score update (eq 2)."""
-    if mesh is not None:
-        raise NotImplementedError(tf.MESH_13B4)
 
     @torch.no_grad()
     def step(params, tokens, labels, frames=None):
-        logits, _, _ = _forward(cfg, params, tokens, frames)
+        logits, _, _ = _forward(cfg, params, tokens, frames, mesh=mesh,
+                                dp_axes=dp_axes)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
         nll = (logz - gold).mean(dim=-1)                       # (B,)
@@ -235,7 +371,7 @@ def make_prefill_step(cfg: ArchConfig, window: int = 0, mesh=None,
     if cfg.family == "audio":
         raise ValueError("audio uses the encdec driver paths in examples/")
     if mesh is not None:
-        raise NotImplementedError(tf.MESH_13B4)
+        raise NotImplementedError(tf.MESH_15B)
 
     @torch.no_grad()
     def step(params, caches, tokens, n_valid):
@@ -257,7 +393,7 @@ def make_serve_step(cfg: ArchConfig, window: int = 0, mesh=None,
 
     step(params, caches, tokens (B,1)) -> (logits (B,V), caches)"""
     if mesh is not None:
-        raise NotImplementedError(tf.MESH_13B4)
+        raise NotImplementedError(tf.MESH_15B)
 
     @torch.no_grad()
     def step(params, caches, tokens):

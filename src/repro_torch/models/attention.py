@@ -23,18 +23,28 @@ mask, float32 softmax, and the probabilities multiplied with float32 v
 before the output is cast back. ``scaled_dot_product_attention`` is not
 used: flash attention rounds the probabilities to bfloat16 before the PV
 product, and the reference does not.
+
+On a tensor-parallel mesh (``attention_forward_mesh``) the heads split
+over the model cells: ``wq`` / ``wk`` / ``wv`` are column pieces, each
+cell runs its own query and KV heads through the same float32 math, and
+``wo`` is a row piece whose partial outputs are summed in cell order.
+That needs the heads and the KV heads to divide over the cells; else the
+block runs whole on the data shard's home cell.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.config import ArchConfig
+from repro_torch.launch.tensor_parallel import MeshRun, splits_on
 from repro_torch.models.common import (Params, apply_rope, init_rmsnorm,
                                        normal_init, prefixed, rmsnorm,
                                        subtree)
+from repro_torch.sharding_hints import constrain
 
 NEG_INF = -1e30
 CHUNKED_THRESHOLD = 2048
@@ -76,6 +86,10 @@ def _project_qkv(params: Params, cfg: ArchConfig, x: torch.Tensor,
         k = rmsnorm(subtree(params, "k_norm"), k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    # keep heads on the model axis through the reshape
+    q = constrain(q, ("dp", None, "tp", None))
+    k = constrain(k, ("dp", None, "tp", None))
+    v = constrain(v, ("dp", None, "tp", None))
     return q, k, v
 
 
@@ -175,6 +189,35 @@ def attention_forward(params: Params, cfg: ArchConfig, x: torch.Tensor,
                                cfg.sliding_window)
     B_, S_, H, hd = out.shape
     return torch.matmul(out.reshape(B_, S_, H * hd), params["wo"])
+
+
+def heads_per_cell(cfg: ArchConfig, tp: int) -> ArchConfig:
+    """``cfg`` with one cell's share of the heads (the head size kept)."""
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                               n_kv_heads=cfg.n_kv_heads // tp,
+                               head_dim=cfg.resolved_head_dim())
+
+
+def attention_forward_mesh(params, cfg: ArchConfig, x: torch.Tensor,
+                           positions: Optional[torch.Tensor], run: MeshRun,
+                           sd: int) -> torch.Tensor:
+    """:func:`attention_forward` of data shard ``sd``'s rows ``x`` (on
+    its home cell) with the heads split over the model cells (module
+    docstring)."""
+    tp = run.tp
+    if not (all(splits_on(params[k], 1) for k in ("wq", "wk", "wv"))
+            and splits_on(params["wo"], 0)
+            and cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0):
+        return attention_forward(run.whole(params, sd), cfg, x, positions)
+    sub = heads_per_cell(cfg, tp)
+    parts = []
+    for sm in range(tp):
+        dev = run.device(sm, sd)
+        pos = None if positions is None else positions.to(dev)
+        parts.append(attention_forward(
+            run.cell(params, sm, sd, ("wk", "wo", "wq", "wv")), sub,
+            x.to(dev), pos))
+    return run.reduce(parts, sd)
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,

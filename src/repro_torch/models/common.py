@@ -13,6 +13,13 @@ back; a product the reference asks for with
 ``preferred_element_type=float32`` (the tied unembedding) takes float32
 operands here, since ``torch.matmul`` of bfloat16 operands returns
 bfloat16. Every other product keeps the operands' dtype.
+
+On a tensor-parallel mesh (``launch/tensor_parallel.py``) the embedding,
+the tied unembedding / ``lm_head`` and the SwiGLU MLP run split over the
+model cells (``embed_mesh``, ``unembed_mesh``, ``lm_head_mesh``,
+``apply_mlp_mesh``): each cell computes its vocabulary block or its
+columns of ``d_ff`` with the same math, where the leaf's spec splits it
+that way; otherwise the op runs whole on the data shard's home cell.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+
+from repro_torch.launch.tensor_parallel import MeshRun, splits_on
 
 Params = Dict[str, torch.Tensor]
 
@@ -176,6 +185,75 @@ def apply_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
     g = torch.matmul(x, params["w_gate"])
     u = torch.matmul(x, params["w_up"])
     return torch.matmul(torch.nn.functional.silu(g) * u, params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Split over the model cells of a mesh
+# ---------------------------------------------------------------------------
+def embed_mesh(table, tokens: torch.Tensor, run: MeshRun, sd: int
+               ) -> torch.Tensor:
+    """Vocab-parallel lookup of data shard ``sd``'s ``tokens``: each cell
+    looks up the ids of its vocabulary block (``F.embedding``), the other
+    positions are zero, and the cells are summed, exactly (one cell
+    contributes per id)."""
+    if not splits_on(table, 0):
+        return embed(run.whole({"table": table}, sd), tokens)
+    n = table.shape[0] // run.tp
+    parts = []
+    for sm in range(run.tp):
+        dev = run.device(sm, sd)
+        ids = tokens.to(dev).long() - sm * n
+        ok = (ids >= 0) & (ids < n)
+        e = torch.nn.functional.embedding(
+            torch.where(ok, ids, torch.zeros((), dtype=ids.dtype,
+                                             device=dev)),
+            table.local(sm, sd))
+        parts.append(torch.where(ok[..., None], e,
+                                 torch.zeros((), dtype=e.dtype,
+                                             device=dev)))
+    return run.reduce(parts, sd)
+
+
+def _vocab_blocks(parts, run: MeshRun, sd: int) -> torch.Tensor:
+    return torch.cat([p.to(run.home(sd)) for p in parts], dim=-1)
+
+
+def unembed_mesh(table, x: torch.Tensor, run: MeshRun, sd: int
+                 ) -> torch.Tensor:
+    """Tied unembedding: each cell's float32 logits of its vocabulary
+    block, concatenated into the full logits on the home cell."""
+    if not splits_on(table, 0):
+        return unembed(run.whole({"table": table}, sd), x)
+    return _vocab_blocks(
+        [unembed({"table": table.local(sm, sd)}, x.to(run.device(sm, sd)))
+         for sm in range(run.tp)], run, sd)
+
+
+def lm_head_mesh(head, x: torch.Tensor, run: MeshRun, sd: int
+                 ) -> torch.Tensor:
+    """Untied head ``(d, V)``, its vocabulary columns split as
+    :func:`unembed_mesh`'s rows."""
+    if not splits_on(head, 1):
+        w = run.whole({"w": head}, sd)["w"]
+        return torch.matmul(x.float(), w.float())
+    return _vocab_blocks(
+        [torch.matmul(x.to(run.device(sm, sd)).float(),
+                      head.local(sm, sd).float()) for sm in range(run.tp)],
+        run, sd)
+
+
+def apply_mlp_mesh(params, x: torch.Tensor, run: MeshRun, sd: int
+                   ) -> torch.Tensor:
+    """SwiGLU split by ``d_ff`` (Megatron): ``w_gate`` / ``w_up`` column
+    pieces and ``w_down`` row pieces on each cell; the cells' partial
+    outputs summed in cell order."""
+    if not (splits_on(params["w_gate"], 1) and splits_on(params["w_up"], 1)
+            and splits_on(params["w_down"], 0)):
+        return apply_mlp(run.whole(params, sd), x)
+    keys = ("w_down", "w_gate", "w_up")
+    return run.reduce(
+        [apply_mlp(run.cell(params, sm, sd, keys), x.to(run.device(sm, sd)))
+         for sm in range(run.tp)], sd)
 
 
 # ---------------------------------------------------------------------------

@@ -16,16 +16,21 @@ as the reference's. A cache is a flat dict ``{"c_kv", "k_rope", "pos",
 "index"}``; the scatters the reference drops out of bounds write to one
 extra slot here, which is cut off (``attention.write_slots``).
 
-The reference's ``sharding_hints.constrain`` calls are the identity
-without a mesh and are left out (ROADMAP item 13b.4).
+On a tensor-parallel mesh (``mla_forward_mesh``) the heads split over
+the model cells: ``wq_b`` / ``wk_b`` / ``wv_b`` are column pieces and
+``wo`` a row piece, as GQA's; the latent projections (``wq_a``,
+``wkv_a`` and their norms) are gathered and computed whole on each cell.
+The reference's ``sharding_hints.constrain`` calls sit at its points.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.config import ArchConfig
+from repro_torch.launch.tensor_parallel import MeshRun, splits_on
 from repro_torch.models.attention import (CHUNKED_THRESHOLD, NEG_INF,
                                           _chunked_attention,
                                           _naive_attention, rollback_keep,
@@ -33,6 +38,7 @@ from repro_torch.models.attention import (CHUNKED_THRESHOLD, NEG_INF,
 from repro_torch.models.common import (Params, apply_rope, init_rmsnorm,
                                        normal_init, prefixed, rmsnorm,
                                        subtree)
+from repro_torch.sharding_hints import constrain
 
 
 def init_mla(generator: torch.Generator, cfg: ArchConfig, dtype,
@@ -70,7 +76,10 @@ def _queries(params: Params, cfg: ArchConfig, x: torch.Tensor,
     q = torch.matmul(cq, params["wq_b"]).reshape(
         B, S, H, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
-    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_nope = constrain(q_nope, ("dp", None, "tp", None))
+    q_rope = constrain(q_rope, ("dp", None, "tp", None))
+    return q_nope, q_rope
 
 
 def _latents(params: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -96,11 +105,35 @@ def mla_forward(params: Params, cfg: ArchConfig, x: torch.Tensor,
     k_nope = torch.matmul(c_kv, params["wk_b"]).reshape(
         B, S, H, m.qk_nope_dim)
     v = torch.matmul(c_kv, params["wv_b"]).reshape(B, S, H, m.v_head_dim)
+    k_nope = constrain(k_nope, ("dp", None, "tp", None))
+    v = constrain(v, ("dp", None, "tp", None))
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_dim)], dim=-1)
     attn = _chunked_attention if S > CHUNKED_THRESHOLD else _naive_attention
     out = attn(q, k, v, positions, positions, cfg.sliding_window)
     return torch.matmul(out.reshape(B, S, H * m.v_head_dim), params["wo"])
+
+
+MLA_HEAD_SPLIT = ("wk_b", "wo", "wq_b", "wv_b")
+
+
+def mla_forward_mesh(params, cfg: ArchConfig, x: torch.Tensor,
+                     positions: Optional[torch.Tensor], run: MeshRun,
+                     sd: int) -> torch.Tensor:
+    """:func:`mla_forward` of data shard ``sd``'s rows ``x`` with the
+    heads split over the model cells (module docstring)."""
+    tp = run.tp
+    if not (all(splits_on(params[k], 1) for k in ("wk_b", "wq_b", "wv_b"))
+            and splits_on(params["wo"], 0) and cfg.n_heads % tp == 0):
+        return mla_forward(run.whole(params, sd), cfg, x, positions)
+    sub = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp)
+    parts = []
+    for sm in range(tp):
+        dev = run.device(sm, sd)
+        pos = None if positions is None else positions.to(dev)
+        parts.append(mla_forward(run.cell(params, sm, sd, MLA_HEAD_SPLIT),
+                                 sub, x.to(dev), pos))
+    return run.reduce(parts, sd)
 
 
 # ---------------------------------------------------------------------------

@@ -22,20 +22,31 @@ adds a token's k pairs in choice order. No scatter-add sits on the path,
 and every write is out of place (``index_put``), so the block runs under
 ``torch.func.vmap`` (the serving gateway's lanes).
 
-The reference's ``sharding_hints.constrain`` calls are the identity
-without a mesh and are left out; the expert-parallel ``shard_map`` branch
-of ``apply_moe`` (a ``mesh=``) is ROADMAP item 13b.4.
+On a mesh (``apply_moe(..., mesh=...)``, and ``apply_moe_mesh`` inside
+the tensor-parallel forward) the experts split over the model cells, as
+the reference's ``shard_map`` branch: cell ``(sm, sd)`` owns experts
+``e0 = sm * E / ep`` onward (the data pieces of their weights gathered
+first), recomputes the routing of data shard ``sd``'s tokens, and takes
+capacity from the tokens of one data shard, ``capacity(max(1, B*S //
+dp))``; each cell's partial combine (in choice order, in the compute
+dtype) is summed over the model cells in cell order, and ``aux`` is
+averaged over the data shards. So with ``data > 1`` the capacity drops
+follow the reference's mesh run, not its one-device run. When the tokens
+do not split over dp (or the experts do not split over the model axis)
+the single-shard path runs whole, as the reference's fallback.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig
-from repro_torch.models.common import (Params, apply_mlp, init_mlp,
-                                       normal_init, prefixed, subtree)
+from repro_torch.launch.tensor_parallel import MeshRun, splits_on
+from repro_torch.models.common import (Params, apply_mlp, apply_mlp_mesh,
+                                       init_mlp, normal_init, prefixed,
+                                       subtree)
 
 
 def init_moe(generator: torch.Generator, cfg: ArchConfig, dtype,
@@ -136,11 +147,18 @@ def apply_moe(params: Params, cfg: ArchConfig, x: torch.Tensor,
               mesh=None, dp_axes: Tuple[str, ...] = ("data",),
               ep_axis: str = "model"
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE FFN. x (B,S,d) -> (y (B,S,d), aux_loss)."""
+    """MoE FFN. x (B,S,d) -> (y (B,S,d), aux_loss). With a ``mesh`` the
+    experts run expert-parallel (module docstring); ``params`` may be
+    whole tensors (laid out here by the LM specs) or sharded leaves."""
     if mesh is not None:
-        raise NotImplementedError(
-            "apply_moe(mesh=...): the expert-parallel shard_map branch is "
-            "not ported yet (ROADMAP item 13b.4)")
+        if ep_axis != "model":
+            raise ValueError(f"expert axis {ep_axis!r}: a launch mesh "
+                             "splits experts over 'model'")
+        from repro_torch.models.transformer import shard_params
+        run = MeshRun(mesh, dp_axes)
+        sharded = shard_params(cfg, prefixed("moe", params), mesh)
+        ys, aux = apply_moe_mesh(subtree(sharded, "moe"), cfg, [x], run)
+        return ys[0], aux
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     ids, wts, aux = _route(params, cfg, xf)
@@ -151,3 +169,76 @@ def apply_moe(params: Params, cfg: ArchConfig, x: torch.Tensor,
         y = y + apply_mlp(subtree(params, "shared"), xf)
     return y.reshape(B, S, d), aux
 
+
+def apply_moe_mesh(params, cfg: ArchConfig, xs: Sequence[torch.Tensor],
+                   run: MeshRun
+                   ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The expert-parallel MoE over the data shards' activations ``xs``
+    (each ``(b, S, d)`` on its home cell; one entry when the batch did
+    not split over dp). Returns (the shards' outputs, aux on cell
+    ``(0, 0)``)."""
+    m = cfg.moe
+    d = xs[0].shape[-1]
+    T = sum(x.shape[0] * x.shape[1] for x in xs)
+    dp, ep = run.dp, run.tp
+    experts = all(splits_on(params[k], 0)
+                  for k in ("w_down", "w_gate", "w_up"))
+    if T % dp or not experts or m.n_experts % ep:
+        # single-shard path (tokens that do not split over dp): whole
+        x = run.join(xs)
+        p = run.whole({k: v for k, v in params.items()
+                       if not k.startswith("shared.")})
+        xf = x.reshape(T, d)
+        ids, wts, aux = _route(p, cfg, xf)
+        y = _expert_shard(xf, ids, wts, p["w_gate"], p["w_up"],
+                          p["w_down"], e0=0, cap=capacity(T, cfg),
+                          compute_dtype=x.dtype).reshape(x.shape)
+        ys = ([y] if len(xs) == 1 else
+              [t.to(xi.device) for t, xi in zip(
+                  y.split([xi.shape[0] for xi in xs]), xs)])
+        return _add_shared(params, cfg, xs, ys, run), aux
+    cap = capacity(max(1, T // dp), cfg)
+    if len(xs) == dp:
+        chunks = [x.reshape(-1, d) for x in xs]
+    else:                      # rows that did not split: cut the tokens
+        xf = xs[0].reshape(T, d)
+        n = T // dp
+        chunks = [xf.narrow(0, sd * n, n).to(run.home(sd))
+                  for sd in range(dp)]
+    keys = ("router", "w_down", "w_gate", "w_up")
+    outs, auxs = [], []
+    for sd, xf in enumerate(chunks):
+        parts = []
+        for sm in range(ep):
+            dev = run.device(sm, sd)
+            xc = xf.to(dev)
+            p = run.cell({k: params[k] for k in keys}, sm, sd,
+                         ("w_down", "w_gate", "w_up"))
+            # routing recomputed per cell, on its data shard's tokens
+            ids, wts, aux = _route(p, cfg, xc)
+            if sm == 0:
+                auxs.append(aux)
+            parts.append(_expert_shard(
+                xc, ids, wts, p["w_gate"], p["w_up"], p["w_down"],
+                e0=sm * (m.n_experts // ep), cap=cap, compute_dtype=xc.dtype))
+        outs.append(run.reduce(parts, sd))
+    home = run.home(0)
+    aux = auxs[0].to(home)
+    for a in auxs[1:]:
+        aux = aux + a.to(home)
+    aux = aux / torch.full((), float(dp), device=home)
+    if len(xs) == dp:
+        ys = [y.reshape(x.shape) for y, x in zip(outs, xs)]
+    else:
+        ys = [run.join(outs).reshape(xs[0].shape)]
+    return _add_shared(params, cfg, xs, ys, run), aux
+
+
+def _add_shared(params, cfg: ArchConfig, xs, ys, run: MeshRun
+                ) -> List[torch.Tensor]:
+    """The shared expert (if any), added after the routed combine."""
+    if not cfg.moe.n_shared:
+        return list(ys)
+    shared = subtree(params, "shared")
+    return [y + apply_mlp_mesh(shared, x, run, sd if len(xs) > 1 else 0)
+            for sd, (x, y) in enumerate(zip(xs, ys))]

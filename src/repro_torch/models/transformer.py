@@ -32,8 +32,20 @@ reference's, the hybrid path takes no ``remat``.
 A stacked leaf may also be given as a sequence of per-layer tensors
 (``launch.steps`` does so, to take one gradient per layer instead of a
 stacked one): ``mamba_groups.*`` as ``n_sites * every`` tensors in
-memory order, the others one per row (``stacked_depth``). A
-tensor-parallel mesh is ROADMAP item 13b.4.
+memory order, the others one per row (``stacked_depth``).
+
+``lm_forward(mesh=...)`` and ``mtp_logits(mesh=...)`` run on a
+tensor-parallel :class:`~repro_torch.launch.mesh.LaunchMesh`
+(``launch/tensor_parallel.py``): every leaf is laid out by the LM specs
+of ``launch/sharding.py`` (a whole tensor is split here; a sharded leaf,
+the LM bank's, is used as it lies), the batch rows split over the data
+cells, and the attention heads (GQA and MLA), the SwiGLU MLP, the MoE
+experts and the vocabulary split over the model cells. Every other
+op — the recurrent blocks, the hybrid's shared block and LoRA, MLA's
+latent projections, the MTP projection — gathers the leaves its spec
+cuts across and runs whole. The values are the one-device forward's but
+for MoE capacity with ``data > 1``, which follows the reference's mesh
+run (``moe.py``). The decode path takes no mesh yet (ROADMAP item 15b).
 
 Caches are flat dicts of the reference's cache tree, stacked per
 segment like the params: ``0.k`` ``(n_layers, B, C, Kv, hd)``, ``0.pos``
@@ -63,21 +75,28 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import config as C
 from repro_torch.config import ArchConfig
+from repro_torch.launch.sharding import leaf_sharding
+from repro_torch.launch.tensor_parallel import MeshRun, Sharded
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as mb
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xl
-from repro_torch.models.common import (Params, apply_mlp, canonical,
-                                       dtype_of, embed, init_embedding,
-                                       init_mlp, init_rmsnorm, normal_init,
-                                       prefixed, rmsnorm, subtree, unembed)
+from repro_torch.models.common import (Params, apply_mlp, apply_mlp_mesh,
+                                       canonical, dtype_of, embed,
+                                       embed_mesh, init_embedding, init_mlp,
+                                       init_rmsnorm, lm_head_mesh,
+                                       normal_init, prefixed, rmsnorm,
+                                       subtree, unembed, unembed_mesh)
+from repro_torch.sharding_hints import constrain
 
-Leaf = Union[torch.Tensor, Sequence[torch.Tensor]]
+Leaf = Union[torch.Tensor, Sharded, Sequence[torch.Tensor],
+             Sequence[Sharded]]
 
 ATTENTION_KINDS = (C.ATTN_MLP, C.ATTN_MOE, C.MLA_MLP, C.MLA_MOE)
 RECURRENT_KINDS = (C.MAMBA2, C.MLSTM, C.SLSTM)
-MESH_13B4 = "a tensor-parallel mesh is not ported yet (ROADMAP item 13b.4)"
+MESH_15B = ("a tensor-parallel mesh on the decode path is not ported yet "
+            "(ROADMAP item 15b)")
 # leaves that are float32 in every model (a bfloat16 one included)
 FLOAT32_LEAVES = ("moe.router", "core.A_log", "core.D", "core.dt_bias",
                   "core.f_bias")
@@ -113,8 +132,11 @@ def layer_views(leaf: torch.Tensor, depth: int) -> List[torch.Tensor]:
 
 
 def _layers(leaf: Leaf, depth: int = 1) -> Sequence[torch.Tensor]:
-    return layer_views(leaf, depth) if isinstance(leaf, torch.Tensor) \
-        else leaf
+    if isinstance(leaf, torch.Tensor):
+        return layer_views(leaf, depth)
+    if isinstance(leaf, Sharded):
+        return leaf.layers(depth)
+    return leaf
 
 
 def layer_params(stacked: Dict[str, Leaf], depth: int = 1
@@ -184,10 +206,47 @@ def _apply_block(params: Params, cfg: ArchConfig, kind: str,
     x = x + a
     h = rmsnorm(subtree(params, "norm2"), x, cfg.norm_eps)
     if kind in (C.ATTN_MOE, C.MLA_MOE):
+        h = constrain(h, ("dp", None, None))
         f, aux = moe_mod.apply_moe(subtree(params, "moe"), cfg, h)
+        f = constrain(f, ("dp", None, None))
     else:
         f = apply_mlp(subtree(params, "mlp"), h)
     return x + f, aux
+
+
+def _apply_block_mesh(params: Dict[str, Sharded], cfg: ArchConfig,
+                      kind: str, xs: List[torch.Tensor], positions,
+                      run: MeshRun
+                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``_apply_block`` over the data shards' rows ``xs`` (each on its
+    home cell), split over the model cells (module docstring)."""
+    aux = torch.zeros((), device=run.home(0))
+    if kind in RECURRENT_KINDS:
+        return [_apply_block(run.whole(params, sd), cfg, kind, x,
+                             _at(positions, x))[0]
+                for sd, x in enumerate(xs)], aux
+    if kind not in ATTENTION_KINDS:
+        raise ValueError(kind)
+    mla = kind in (C.MLA_MLP, C.MLA_MOE)
+    forward = mla_mod.mla_forward_mesh if mla else attn.attention_forward_mesh
+    xs, hs = list(xs), []
+    for sd, x in enumerate(xs):
+        h = rmsnorm(run.whole(subtree(params, "norm1"), sd), x, cfg.norm_eps)
+        xs[sd] = x + forward(subtree(params, "attn"), cfg, h,
+                             _at(positions, x), run, sd)
+        hs.append(rmsnorm(run.whole(subtree(params, "norm2"), sd), xs[sd],
+                          cfg.norm_eps))
+    if kind in (C.ATTN_MOE, C.MLA_MOE):
+        fs, aux = moe_mod.apply_moe_mesh(subtree(params, "moe"), cfg, hs,
+                                         run)
+    else:
+        fs = [apply_mlp_mesh(subtree(params, "mlp"), h, run, sd)
+              for sd, h in enumerate(hs)]
+    return [x + f for x, f in zip(xs, fs)], aux
+
+
+def _at(positions: Optional[torch.Tensor], x: torch.Tensor):
+    return None if positions is None else positions.to(x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +396,9 @@ def _scan_segment(stacked: Dict[str, Leaf], cfg: ArchConfig, kind: str,
     for layer in layer_params(stacked):
 
         def body(h, layer=layer):
-            return _apply_block(layer, cfg, kind, h, positions)
+            h = constrain(h, ("dp", None, None))
+            y, a = _apply_block(layer, cfg, kind, h, positions)
+            return constrain(y, ("dp", None, None)), a
 
         if remat:
             x, a = checkpoint(body, x, use_reentrant=False)
@@ -380,9 +441,12 @@ def lm_forward(cfg: ArchConfig, params: Dict[str, Leaf],
                mesh=None, dp_axes: Tuple[str, ...] = ("data",),
                remat: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (logits float32, final_hidden, aux_loss)."""
+    """Returns (logits float32, final_hidden, aux_loss). With a ``mesh``
+    (module docstring) the logits, hidden and aux come back whole on cell
+    ``(0, 0)``."""
     if mesh is not None:
-        raise NotImplementedError(MESH_13B4)
+        return _mesh_forward(cfg, params, tokens, embeds, positions,
+                             MeshRun(mesh, dp_axes), remat)
     x = embed(subtree(params, "embed"), tokens) if embeds is None else embeds
     x = x.to(dtype_of(cfg.compute_dtype))
     S = x.shape[1]
@@ -405,7 +469,8 @@ def mtp_logits(cfg: ArchConfig, params: Dict[str, Leaf],
     """DeepSeek MTP depth-1 head: predict token t+2 from (h_t,
     emb(t+1)). The block's aux loss is discarded, as the reference's."""
     if mesh is not None:
-        raise NotImplementedError(MESH_13B4)
+        return _mesh_mtp_logits(cfg, params, hidden, next_tokens,
+                                MeshRun(mesh, dp_axes))
     m = subtree(params, "mtp")
     e = embed(subtree(params, "embed"), next_tokens).to(hidden.dtype)
     h = torch.cat([rmsnorm(subtree(m, "norm"), hidden, cfg.norm_eps), e],
@@ -413,6 +478,128 @@ def mtp_logits(cfg: ArchConfig, params: Dict[str, Leaf],
     h = torch.matmul(h, m["proj"])
     h, _ = _apply_block(subtree(m, "block"), cfg, cfg.layout()[-1], h, None)
     return _logits(cfg, params, h)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel mesh (module docstring)
+# ---------------------------------------------------------------------------
+def shard_params(cfg: ArchConfig, params: Dict[str, Leaf], mesh
+                 ) -> Dict[str, Leaf]:
+    """Every leaf laid out on ``mesh`` by its LM spec: a whole tensor
+    (stacked leaves included) split into pieces (views where a piece
+    stays on its device; differentiable), per-layer tensors one by one;
+    sharded leaves as they are."""
+    out: Dict[str, Leaf] = {}
+    for k, v in params.items():
+        if isinstance(v, Sharded) or (
+                not isinstance(v, torch.Tensor) and isinstance(v[0],
+                                                               Sharded)):
+            out[k] = v
+        elif isinstance(v, torch.Tensor):
+            spec = leaf_sharding(cfg, k, tuple(v.shape), mesh).spec
+            out[k] = Sharded.place(v, mesh, spec)
+        else:
+            depth = stacked_depth(k)
+            spec = leaf_sharding(cfg, k, (1,) * depth + tuple(v[0].shape),
+                                 mesh).spec[depth:]
+            out[k] = [Sharded.place(t, mesh, spec) for t in v]
+    return out
+
+
+def _embed_mesh(cfg: ArchConfig, sp, tokens, embeds, run: MeshRun
+                ) -> List[torch.Tensor]:
+    if embeds is not None:
+        xs = run.split_batch(embeds)
+    else:
+        xs = [embed_mesh(sp["embed.table"], t, run, sd)
+              for sd, t in enumerate(run.split_batch(tokens))]
+    return [x.to(dtype_of(cfg.compute_dtype)) for x in xs]
+
+
+def _logits_mesh(cfg: ArchConfig, sp, xs: List[torch.Tensor], run: MeshRun
+                 ) -> torch.Tensor:
+    out = []
+    for sd, x in enumerate(xs):
+        h = rmsnorm(run.whole(subtree(sp, "final_norm"), sd), x,
+                    cfg.norm_eps)
+        out.append(unembed_mesh(sp["embed.table"], h, run, sd)
+                   if cfg.tie_embeddings else
+                   lm_head_mesh(sp["lm_head"], h, run, sd))
+    return run.join(out)
+
+
+def _hybrid_forward_mesh(cfg: ArchConfig, sp, xs: List[torch.Tensor],
+                         positions, run: MeshRun) -> List[torch.Tensor]:
+    """:func:`_hybrid_forward` on a mesh: the Mamba2 layers and the
+    shared block (with the site's LoRA) gathered and run whole on each
+    data shard's home cell."""
+    x0s = xs
+    n_sites, every, _ = hybrid_sites(cfg)
+    groups = layer_params(subtree(sp, "mamba_groups"), 2)
+    shared = subtree(sp, "shared")
+    loras = layer_params(subtree(sp, "lora")) if subtree(sp, "lora") \
+        else None
+    for s in range(n_sites):
+        for layer in groups[s * every:(s + 1) * every]:
+            xs, _ = _apply_block_mesh(layer, cfg, C.MAMBA2, xs, positions,
+                                      run)
+        out = []
+        for sd, (x, x0) in enumerate(zip(xs, x0s)):
+            p = run.whole(shared, sd)
+            if loras is not None:
+                p = _shared_block_params(p, run.whole(loras[s], sd))
+            out.append(_apply_shared_block(p, cfg, x, x0,
+                                           _at(positions, x))[0])
+        xs = out
+    for layer in layer_params(subtree(sp, "mamba_tail")) \
+            if subtree(sp, "mamba_tail") else []:
+        xs, _ = _apply_block_mesh(layer, cfg, C.MAMBA2, xs, positions, run)
+    return xs
+
+
+def _mesh_forward(cfg: ArchConfig, params, tokens, embeds, positions,
+                  run: MeshRun, remat):
+    sp = shard_params(cfg, params, run.mesh)
+    xs = _embed_mesh(cfg, sp, tokens, embeds, run)
+    if positions is None:
+        positions = torch.arange(xs[0].shape[1], dtype=torch.int32,
+                                 device=run.home(0))
+    aux = torch.zeros((), device=run.home(0))
+    if cfg.family == "hybrid":
+        xs = _hybrid_forward_mesh(cfg, sp, xs, positions, run)
+    else:
+        for i, (kind, _n) in enumerate(segments(cfg)):
+            for layer in layer_params(subtree(sp, f"segments.{i}")):
+
+                def body(*hs, layer=layer, kind=kind):
+                    ys, a = _apply_block_mesh(layer, cfg, kind, list(hs),
+                                              positions, run)
+                    return (*ys, a)
+
+                if remat:
+                    *xs, a = checkpoint(body, *xs, use_reentrant=False)
+                else:
+                    *xs, a = body(*xs)
+                aux = aux + a
+    return _logits_mesh(cfg, sp, xs, run), run.join(xs), aux
+
+
+def _mesh_mtp_logits(cfg: ArchConfig, params, hidden, next_tokens,
+                     run: MeshRun) -> torch.Tensor:
+    sp = shard_params(cfg, params, run.mesh)
+    m = subtree(sp, "mtp")
+    hs = []
+    for sd, (h, t) in enumerate(zip(run.split_batch(hidden),
+                                    run.split_batch(next_tokens))):
+        w = run.whole({k: v for k, v in m.items()
+                       if k.startswith("norm.") or k == "proj"}, sd)
+        e = embed_mesh(sp["embed.table"], t, run, sd).to(h.dtype)
+        hc = torch.cat([rmsnorm(subtree(w, "norm"), h, cfg.norm_eps), e],
+                       dim=-1)
+        hs.append(torch.matmul(hc, w["proj"]))
+    hs, _ = _apply_block_mesh(subtree(m, "block"), cfg, cfg.layout()[-1],
+                              hs, None, run)
+    return _logits_mesh(cfg, sp, hs, run)
 
 
 # ---------------------------------------------------------------------------
@@ -587,7 +774,7 @@ def _cached_pass(cfg: ArchConfig, params: Dict[str, Leaf], x: torch.Tensor,
 def _embed_in(cfg: ArchConfig, params, tokens, embeds, mesh
               ) -> torch.Tensor:
     if mesh is not None:
-        raise NotImplementedError(MESH_13B4)
+        raise NotImplementedError(MESH_15B)
     x = embed(subtree(params, "embed"), tokens) if embeds is None else embeds
     return x.to(dtype_of(cfg.compute_dtype))
 

@@ -65,6 +65,7 @@ from repro_torch.config import ArchConfig
 from repro_torch.core.registry import StackedParamBank
 from repro_torch.core.scores import normalized_scores
 from repro_torch.federated.simulation import to_device
+from repro_torch.launch.tensor_parallel import Sharded
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import Params
 from repro_torch.serve.batcher import ModelGroup, Request
@@ -180,6 +181,11 @@ class ServeGateway:
             raise ValueError(
                 "ServeGateway needs a stacked param bank "
                 "(ModelRegistry.create(..., stacked=True))")
+        if any(isinstance(v, Sharded)
+               for v in registry.params.tree.values()):
+            raise NotImplementedError(
+                "serving a tensor-parallel bank: the decode path takes no "
+                "mesh yet (ROADMAP item 15b)")
         self.cfg = cfg
         self.registry = registry
         self.device = registry.params.devices[0]

@@ -18,7 +18,11 @@ against the CPU (logits 1e-5, cache floats 1e-6 of each leaf's scale,
 prefill of the accepted prefix. The serving plane: every gateway mode's
 greedy streams on the card equal the CPU's and vanilla's with no kernel
 launch, the KV int8 codes and scales bit-equal to the CPU's, and the
-trainer's draft rows within the params bar.
+trainer's draft rows within the params bar. The tensor-parallel LM
+mesh: the trainer on mesh cells of the card against the same mesh on
+the CPU, the mesh transport step's launches and its params equal to the
+plain versions' step, and (with 2 / 4 cards) cells on distinct cards
+against one card.
 """
 import numpy as np
 import pytest
@@ -981,6 +985,118 @@ def test_cells_on_distinct_cards_match_one_card(cuda, shape, variant):
 
 # -- the mode-B LM trainer on the card ------------------------------------------
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", [2, 4], ids=["model2", "model4"])
+def test_lm_mesh_on_distinct_cards_matches_one_card(cuda, model):
+    """The tensor-parallel LM trainer (the tiny LM of
+    tests/test_llm_equivalence.py, ``llm``, 8 rounds) on a ``model=2`` /
+    ``model=4`` mesh with every cell on its own card against the same
+    mesh with every cell on one card: each leaf's pieces on their cells'
+    cards, the heads' partial sums and the vocabulary blocks crossing
+    cards. Discrete state equal, params to 1e-5. Needs ``model`` cards;
+    skips with fewer."""
+    from repro_torch.config import ArchConfig
+    from repro_torch.launch.mesh import make_launch_mesh
+    from repro_torch.models import transformer as tf
+    if torch.cuda.device_count() < model:
+        pytest.skip(f"needs {model} CUDA devices")
+    init = tf.init_lm(ArchConfig(**LM_KW), torch.Generator().manual_seed(0))
+    one = _lm_run(None, "llm", init,
+                  mesh=make_launch_mesh(model, 1, devices=["cuda:0"] * model))
+    apart = _lm_run(None, "llm", init, mesh=make_launch_mesh(model, 1))
+    wq = apart.registry.params.tree["segments.0.attn.wq"]
+    assert {p.device for p in wq.pieces} == {
+        torch.device("cuda", i) for i in range(model)}
+    np.testing.assert_array_equal(apart.state.active, one.state.active)
+    np.testing.assert_array_equal(apart.state.alive, one.state.alive)
+    assert apart.registry.live_ids() == one.registry.live_ids()
+    assert [m.trained_models for m in apart.metrics] == \
+        [m.trained_models for m in one.metrics]
+    np.testing.assert_allclose(apart.state.history, one.state.history,
+                               atol=1e-6, equal_nan=True)
+    for m in one.registry.live_ids():
+        want = one.executor.params_of(m)
+        for k, v in apart.executor.params_of(m).items():
+            np.testing.assert_allclose(v.cpu(), want[k].cpu(), atol=1e-5,
+                                       rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)], ids=["2x1", "2x2"])
+def test_lm_mesh_on_card_matches_cpu(cuda, shape):
+    """The tensor-parallel LM trainer with every cell on the card against
+    the same mesh on the CPU (the tiny LM, 8 rounds): discrete state
+    equal, params to 1e-4 (the card-against-CPU bar), no kernel launch."""
+    from repro_torch.config import ArchConfig
+    from repro_torch.launch.mesh import make_host_mesh, make_launch_mesh
+    from repro_torch.models import transformer as tf
+    sm, sd = shape
+    init = tf.init_lm(ArchConfig(**LM_KW), torch.Generator().manual_seed(0))
+    before = tqops.quantize.launches
+    card = _lm_run(None, "llm", init, mesh=make_launch_mesh(
+        sm, sd, devices=[cuda] * (sm * sd)))
+    host = _lm_run(None, "llm", init, mesh=make_host_mesh(sm, sd))
+    assert tqops.quantize.launches == before
+    np.testing.assert_array_equal(card.state.active, host.state.active)
+    assert card.registry.live_ids() == host.registry.live_ids()
+    for m in host.registry.live_ids():
+        want = host.executor.params_of(m)
+        for k, v in card.executor.params_of(m).items():
+            np.testing.assert_allclose(v.cpu(), want[k], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,launches", [("tiny", 1), ("qwen3-4b", 2)])
+def test_lm_mesh_transport_on_card(cuda, arch, launches):
+    """``grad_transport_bits=8`` on a ``model=2, data=2`` mesh of the
+    card: the tiny LM (its 64-wide leaves cut their 128-value blocks
+    into pieces, so they are gathered: 12 rows, one launch of each
+    kernel) and reduced Qwen3-4B (every piece whole blocks, so each goes
+    alone: 35 rows, two launches, 32 rows a launch); the params equal to
+    the step with the plain versions of both."""
+    from repro_torch.config import ArchConfig
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.registry import StackedParamBank
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_launch_mesh
+    from repro_torch.launch.sharding import lm_bank_shardings
+    from repro_torch.models import transformer as tf
+    cfg = (ArchConfig(**LM_KW) if arch == "tiny"
+           else reduced(get_arch(arch)))
+    init = tf.init_lm(cfg, torch.Generator().manual_seed(0))
+    mesh = make_launch_mesh(2, 2, devices=[cuda] * 4)
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 17))).to(cuda)
+    scores = torch.tensor([0.4, 0.1, 0.3, 0.2], device=cuda)
+    step = steps.make_train_step(cfg, mesh, lr=0.05, remat=False,
+                                 grad_transport_bits=8)
+
+    def run():
+        bank = StackedParamBank(1, init, shardings=lm_bank_shardings(
+            cfg, init, mesh))
+        bank[0] = init
+        step(bank[0], tok[:, :-1], tok[:, 1:], scores)
+        return {k: v.full(cuda) for k, v in bank[0].items()}
+
+    before = tqops.quantize.launches, tqops.dequantize.launches
+    pk = run()
+    torch.cuda.synchronize()
+    assert (tqops.quantize.launches - before[0],
+            tqops.dequantize.launches - before[1]) == (launches, launches)
+    real = tqops.quantize_group, tqops.dequantize_group
+    try:
+        tqops.quantize_group = lambda xs, bits=8: tuple(
+            map(list, zip(*[tqref.quantize_ref(x, bits) for x in xs])))
+        tqops.dequantize_group = lambda qs, ss, ns: [
+            tqref.dequantize_ref(q, s, (q.shape[0], n), torch.float32)
+            for q, s, n in zip(qs, ss, ns)]
+        pp = run()
+    finally:
+        tqops.quantize_group, tqops.dequantize_group = real
+    for k in pk:
+        assert torch.equal(pk[k], pp[k]), k
+
+
 LM_KW = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
              d_ff=128, vocab_size=64, param_dtype="float32",
              compute_dtype="float32")
@@ -989,11 +1105,12 @@ LM_FED = dict(n_devices=4, devices_per_round=3, score_window=2,
               lr=0.05, seed=0)
 
 
-def _lm_run(device, spec, init, rounds=8):
+def _lm_run(device, spec, init, rounds=8, mesh=None):
     from repro_torch.config import ArchConfig, FedCDConfig
     from repro_torch.federated.llm import FedLLMTrainer
     tr = FedLLMTrainer(ArchConfig(**LM_KW), FedCDConfig(**LM_FED), 4, 2, 16,
-                       seed=0, spec=spec, device=device, init_params=init)
+                       seed=0, spec=spec, device=device, init_params=init,
+                       mesh=mesh)
     tr.run(rounds)
     return tr
 

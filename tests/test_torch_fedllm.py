@@ -325,10 +325,17 @@ def test_run_resumes_after_restore_round_count(ref):
 
 
 def test_trainer_refuses_what_is_not_ported(ref):
-    """The mesh is still refused; draft rows are built: one 1-layer draft
-    of the initial model, a copy of its leading layer."""
-    with pytest.raises(NotImplementedError, match="13b.4"):
-        _trainer(ref[1], mesh=object())
+    """A trainer takes a tensor-parallel mesh (ROADMAP item 13b.4; its
+    bars are in ``tests/test_torch_lm_mesh.py``), but serving it does
+    not: the decode-side steps refuse the trainer's mesh, naming item
+    15b. Draft rows are built: one 1-layer draft of the initial model, a
+    copy of its leading layer."""
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.mesh import make_host_mesh
+    tr = _trainer(ref[1], mesh=make_host_mesh(model=2))
+    for make in (TS.make_prefill_step, TS.make_serve_step):
+        with pytest.raises(NotImplementedError, match="15b"):
+            make(CFG, mesh=tr.mesh)
     for spec in ("llm", "legacy"):
         tr = _trainer(ref[1], spec, draft_layers=1)
         assert tr.draft.present == {0} and tr.draft.dcfg.n_layers == 1

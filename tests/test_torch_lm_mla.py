@@ -129,12 +129,23 @@ def test_lm_forward_and_mtp_logits_match(ref):
 
 
 def test_lm_and_mtp_refuse_a_mesh():
-    with pytest.raises(NotImplementedError, match="13b.4"):
-        ttf.lm_forward(TCFG, {}, torch.zeros((1, 4), dtype=torch.long),
-                       mesh=object())
-    with pytest.raises(NotImplementedError, match="13b.4"):
-        ttf.mtp_logits(TCFG, {}, torch.zeros((1, 4, TCFG.d_model)),
-                       torch.zeros((1, 4), dtype=torch.long), mesh=object())
+    """The forward and the MTP head take a tensor-parallel mesh (ROADMAP
+    item 13b.4; bars in ``tests/test_torch_lm_mesh.py``): at ``data=1``
+    they keep the one-device values. The decode path refuses one, naming
+    item 15b."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(model=2)
+    p = ttf.init_lm(TCFG, torch.Generator().manual_seed(0))
+    tok = torch.zeros((1, 4), dtype=torch.long)
+    lg, h, _ = ttf.lm_forward(TCFG, p, tok, mesh=mesh)
+    lg0, h0, _ = ttf.lm_forward(TCFG, p, tok)
+    np.testing.assert_allclose(lg.numpy(), lg0.numpy(), atol=1e-5)
+    np.testing.assert_allclose(
+        ttf.mtp_logits(TCFG, p, h, tok, mesh=mesh).numpy(),
+        ttf.mtp_logits(TCFG, p, h0, tok).numpy(), atol=1e-5)
+    with pytest.raises(NotImplementedError, match="15b"):
+        ttf.lm_decode(TCFG, p, tok[:, :1], ttf.init_lm_caches(TCFG, 1, 8),
+                      mesh=mesh)
 
 
 def test_train_step_matches_reference(ref):

@@ -269,7 +269,20 @@ def test_other_families_raise_not_implemented(name):
 
 
 def test_mesh_raises_not_implemented():
+    """The forward takes a mesh (ROADMAP item 13b.4, held in
+    ``tests/test_torch_lm_mesh.py``); the decode path does not yet, and
+    its raises name item 15b."""
+    from repro_torch.launch.mesh import make_host_mesh
     _, tc = _arch_pair("qwen3-4b")
-    with pytest.raises(NotImplementedError, match="13b.4"):
-        ttf.lm_forward(tc, {}, torch.zeros((1, 4), dtype=torch.long),
-                       mesh=object())
+    params = ttf.init_lm(tc, torch.Generator().manual_seed(0))
+    tok = torch.zeros((1, 4), dtype=torch.long)
+    mesh = make_host_mesh(model=2)
+    lg, _, _ = ttf.lm_forward(tc, params, tok, mesh=mesh)
+    np.testing.assert_allclose(lg.numpy(),
+                               ttf.lm_forward(tc, params, tok)[0].numpy(),
+                               atol=1e-5)
+    caches = ttf.init_lm_caches(tc, 1, 8)
+    with pytest.raises(NotImplementedError, match="15b"):
+        ttf.lm_decode(tc, params, tok[:, :1], caches, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="15b"):
+        ttf.lm_prefill(tc, params, tok, caches, mesh=mesh)

@@ -297,16 +297,16 @@ def test_quantize_grads_is_one_group_call(monkeypatch):
 
 
 def test_steps_refuse_what_is_not_ported():
-    """A mesh (ROADMAP item 13b.4) raises in every step builder. The
-    audio step is ported: its train step on reduced whisper-small moves
-    the reference's way (the parity bars are in
-    ``tests/test_torch_encdec.py``)."""
-    for make in (TS.make_train_step, TS.make_prefill_step,
-                 TS.make_serve_step):
-        with pytest.raises(NotImplementedError, match="13b.4"):
+    """A mesh on the decode-side step builders raises, naming ROADMAP
+    item 15b (the train and eval steps take one since item 13b.4: their
+    bars are in ``tests/test_torch_lm_mesh.py``). The audio step is
+    ported: its train step on reduced whisper-small moves the reference's
+    way (the parity bars are in ``tests/test_torch_encdec.py``)."""
+    for make in (TS.make_prefill_step, TS.make_serve_step):
+        with pytest.raises(NotImplementedError, match="15b"):
             make(TCFG, mesh=object())
-    with pytest.raises(NotImplementedError, match="13b.4"):
-        TS.make_eval_step(TCFG, N_CLIENTS, mesh=object())
+    TS.make_train_step(TCFG, mesh=object())
+    TS.make_eval_step(TCFG, N_CLIENTS, mesh=object())
     from repro import configs as jconfigs
     from repro_torch import configs as tconfigs
     from repro.models import encdec as jed

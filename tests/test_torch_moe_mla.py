@@ -208,10 +208,22 @@ def test_apply_moe_gradients_match(moe_params, name, cf):
 
 
 def test_apply_moe_mesh_raises(moe_params):
+    """``apply_moe(mesh=...)`` runs expert-parallel (ROADMAP item 13b.4;
+    the mesh bars are in ``tests/test_torch_lm_mesh.py``): at ``data=1``
+    it keeps the one-device values. An expert axis other than the launch
+    mesh's ``model`` raises."""
+    from repro_torch.launch.mesh import make_host_mesh
     _, tc = _pair(PHI)
-    with pytest.raises(NotImplementedError, match="13b.4"):
-        tmoe.apply_moe(_port(moe_params[PHI]), tc,
-                       torch.zeros((1, 4, tc.d_model)), mesh=object())
+    params = _port(moe_params[PHI])
+    x = torch.randn((2, 4, tc.d_model), generator=torch.Generator()
+                    .manual_seed(0))
+    y0, a0 = tmoe.apply_moe(params, tc, x)
+    y, a = tmoe.apply_moe(params, tc, x, mesh=make_host_mesh(model=2))
+    np.testing.assert_allclose(y.numpy(), y0.numpy(), atol=1e-6)
+    assert float(a) == float(a0)
+    with pytest.raises(ValueError, match="model"):
+        tmoe.apply_moe(params, tc, x, mesh=make_host_mesh(model=2),
+                       ep_axis="data")
 
 
 # -- MLA -----------------------------------------------------------------------
