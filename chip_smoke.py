@@ -79,8 +79,23 @@ pieces' layout, codes against the plain versions and against the whole
 leaves' quantization);
 19.2, Qwen3-4B at phase 14's tier (12 of 36 layers, bf16) on ``llm`` at
 ``model=2`` for 3 rounds, its step ms, round walls, peak memory and
-losses beside phase 14's one-device run. Each phase ends in an
-``[elapsed]`` line with the script's wall clock.
+losses beside phase 14's one-device run. Phase 20 drives the decode
+path on the mesh (``mesh=`` on the prefill, serve, verify and propose
+steps and the gateway over a sharded bank, every cell on the one card):
+20.1, float32, reduced Qwen3-4B, Phi-3.5-MoE, DeepSeek-V3, xLSTM and
+Zamba2 through a chunked prefill (the last chunk padded), decode steps,
+a verify with a partial accept and a propose on ``model=2`` and
+``model=2, data=2`` against the one-device run on the card and the same
+mesh on the CPU, and a tiny population trained on ``model=2`` served in
+the four gateway modes, its streams equal to the one-device gateway's on
+the bank gathered; 20.2, Qwen3-4B at phase 14's tier from the bank phase
+19.2 trained, a 512-token prompt at B=8 and 32 greedy decode steps on
+``model=2`` and on one device, then one gateway batch from the mesh bank
+and from the bank gathered (prefill tokens/s, decode ms and aten
+operators a token, peak memory, the share of greedy tokens equal, each
+differing token classified by its top-2 logit gap against the bf16
+noise). Each phase ends in an ``[elapsed]`` line with the script's wall
+clock.
 
     python3 chip_smoke.py
 
@@ -287,6 +302,28 @@ MESH_FULL_MODEL, MESH_FULL_ROUNDS = 2, 3
 MESH_LOSS_TOL = 0.05                # bf16 losses, mesh against one device
 SERVE_FULL_MODES = (("vanilla", {}), ("spec", dict(spec_k=3)),
                     ("paged", dict(paged=True, page_slots=8)))
+# the decode path on the mesh (phase 20): the five reduced families on
+# MESH_SHAPES (float32; 4 rows and chunks of 4: no MoE capacity drops a
+# token, so data=2 keeps the one-device values) against one device and
+# the CPU mesh at phase 17's bars; the tiny LM trained on model=2 and
+# served in the four gateway modes; then Qwen3-4B at phase 14's tier
+MESH_DECODE_ARCHS = ("qwen3-4b", "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b",
+                     "xlstm-125m", "zamba2-7b")
+MESH_DECODE = (4, 11, 4, 4, 24)     # batch, prompt, chunk, decodes, max len
+# reduced Zamba2's caches, card mesh against the CPU mesh: the port's CPU
+# run sits 1.06e-6 of the scale of ``shared.k`` from the card's and from
+# the reference's (float32 rounding of the shared block at d_model 256;
+# phase 17's bar was set on d_model 64); against one device on the card
+# every family is held at DECODE_CACHE_TOL
+MESH_DECODE_CPU_CACHE_TOL = {"zamba2-7b": 2e-6}
+MESH_SERVE_ROUNDS = 5
+MESH_SERVE_MODES = (("vanilla", {}), ("spec", dict(spec_k=3)),
+                    ("paged", dict(paged=True, page_slots=8)),
+                    ("spec+paged", dict(spec_k=3, paged=True,
+                                        page_slots=8)))
+MESH_QWEN = (8, 512, 32)            # batch, prompt, greedy decode steps
+MESH_QWEN_GW = dict(max_len=256, lanes=8, chunk=64)
+MESH_QWEN_SERVE = (8, 128, 32)      # requests, prompt, new tokens
 
 
 def fail(msg: str) -> None:
@@ -3075,14 +3112,15 @@ def mesh_full_width(device, card_line, drive, ref):
     if trained != one["trained"][:n] or not dl <= MESH_LOSS_TOL:
         fail(f"{tag}: trained {trained} / losses {losses} against the one-"
              f"device run's {one['trained'][:n]} / {one['losses'][:n]}")
-    del tr, rows
+    del rows
     gc.collect()
     torch.cuda.empty_cache()
+    return tr
 
 
 def mesh_phase(device, card_line, counters, qwen_full):
     """Phase 19 (module docstring); returns each path's launch counts,
-    by path name."""
+    by path name, and 19.2's trainer (phase 20 serves its bank)."""
     import torch
     counts = {}
 
@@ -3098,7 +3136,315 @@ def mesh_phase(device, card_line, counters, qwen_full):
 
     mesh_card_vs_cpu(device, drive)
     mesh_transport(device, drive)
-    mesh_full_width(device, card_line, drive, qwen_full)
+    tr = mesh_full_width(device, card_line, drive, qwen_full)
+    return counts, tr
+
+
+# -- phase 20: the decode path on the mesh ------------------------------------
+
+def mesh_decode_run(cfg, params, toks, device, mesh=None):
+    """Phase 20.1, one run: the prompt's chunked prefill (the last chunk
+    padded), decode steps, a verify whose draft is rejected at its second
+    token and a propose of 3 from its accepted prefix. Returns the
+    logits of each call, the caches after the decodes, the verify's
+    (outputs, n_keep, caches) and the propose's (proposals, caches), on
+    the host."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    B, P, CH, N, L = MESH_DECODE
+    prompt, dec, chunk = (t.to(device) for t in toks)
+    params = {k: v.to(device) for k, v in params.items()}
+    prefill = steps.make_prefill_step(cfg, mesh=mesh)
+    serve = steps.make_serve_step(cfg, mesh=mesh)
+
+    def host(c):
+        return {k: v.cpu() for k, v in c.items()}
+
+    with torch.no_grad():
+        c = tf.init_lm_caches(cfg, B, L, device=device)
+        logits = []
+        for s in range(0, P, CH):
+            part = prompt[:, s:s + CH]
+            nv = part.shape[1]
+            part = torch.nn.functional.pad(part, (0, CH - nv))
+            last, c = prefill(params, c, part, nv)
+            logits.append(last)
+        for t in range(N):
+            last, c = serve(params, c, dec[:, t:t + 1])
+            logits.append(last)
+        probe, _ = tf.lm_prefill(cfg, params, chunk, c, mesh=mesh)
+        draft = torch.argmax(probe, -1).to(torch.int32)[:, :-1]
+        draft[:, 1] = (draft[:, 1] + 1) % cfg.vocab_size
+        out, nk, vc = tf.lm_spec_verify(cfg, params, chunk, draft, c,
+                                        mesh=mesh)
+        cur = torch.index_select(out, 1, (nk - 1).long().reshape(1))
+        props, pc = tf.lm_spec_propose(cfg, params, chunk, nk, cur, 3, c,
+                                       mesh=mesh)
+    return ([x.cpu() for x in logits], host(c),
+            (out.cpu(), int(nk), host(vc)), (props.cpu(), host(pc)))
+
+
+def mesh_decode_gaps(a, b, tag):
+    """Fail unless two :func:`mesh_decode_run` results agree on every
+    discrete output; return (logits max_abs_err, cache max_err/scale)."""
+    import torch
+    lgap = max(float((x - y).abs().max()) for x, y in zip(a[0], b[0]))
+    cgap = max(cache_gaps(a[1], b[1], tag), cache_gaps(a[2][2], b[2][2], tag),
+               cache_gaps(a[3][1], b[3][1], tag))
+    if not (torch.equal(a[2][0], b[2][0]) and a[2][1] == b[2][1]
+            and torch.equal(a[3][0], b[3][0])):
+        fail(f"{tag}: verify outputs, n_keep or proposals differ")
+    return lgap, cgap
+
+
+def mesh_decode_card_vs_cpu(device, drive):
+    """Phase 20.1: the decode path of each of MESH_DECODE_ARCHS on each
+    mesh of MESH_SHAPES (cells on the card) against the one-device run on
+    the card and the same mesh on the CPU, at phase 17's bars."""
+    import torch
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    B, P, CH, N, L = MESH_DECODE
+    for name in MESH_DECODE_ARCHS:
+        cfg = reduced(get_arch(name))
+        params = tf.init_lm(cfg, torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, n)))
+                for n in (P, N, 4)]
+        one = drive(f"mesh decode {name} one-device",
+                    lambda: mesh_decode_run(cfg, params, toks, device))
+        for m, d in MESH_SHAPES:
+            tag = f"mesh decode {name} {m}x{d}"
+            t0 = time.perf_counter()
+            card = drive(tag, lambda: mesh_decode_run(
+                cfg, params, toks, device, card_mesh(device, m, d)))
+            wall = time.perf_counter() - t0
+            host = mesh_decode_run(cfg, params, toks, "cpu",
+                                   make_host_mesh(model=m, data=d))
+            l_one, c_one = mesh_decode_gaps(card, one, tag + " vs one")
+            l_cpu, c_cpu = mesh_decode_gaps(card, host, tag + " vs CPU")
+            finite = all(bool(torch.isfinite(x).all()) for x in card[0])
+            print(f"[{tag}] {cfg.name} ({cfg.family}, {cfg.n_layers} layers, "
+                  f"d_model {cfg.d_model}), B={B}: prefill of {P} tokens in "
+                  f"chunks of {CH} (the last padded), {N} decode steps, a "
+                  f"verify kept {card[2][1]} of 4, a propose of 3: against "
+                  f"one device logits max_abs_err={l_one} cache max_err/"
+                  f"scale={c_one}; against the CPU mesh {l_cpu} / {c_cpu}; "
+                  f"index/pos, verify outputs and proposals equal, finite="
+                  f"{finite}, wall_s={wall:.2f}", flush=True)
+            if not (max(l_one, l_cpu) <= DECODE_LOGIT_TOL
+                    and c_one <= DECODE_CACHE_TOL and finite
+                    and c_cpu <= MESH_DECODE_CPU_CACHE_TOL.get(
+                        name, DECODE_CACHE_TOL)):
+                fail(f"{tag}: logits {l_one} / {l_cpu} or caches {c_one} / "
+                     f"{c_cpu} beyond the bars, or non-finite logits")
+
+
+def mesh_serve(cfg, registry, state, draft, kw):
+    """One gateway over ``registry`` serving SERVE_SMALL's requests;
+    returns the greedy streams."""
+    from repro_torch.serve import ServeGateway
+    if "spec_k" in kw:
+        kw = dict(kw, draft=draft)
+    n, prompt, new = SERVE_SMALL
+    gw = ServeGateway(cfg, registry, lambda: state, **SERVE_SMALL_GW, **kw)
+    rng = np.random.default_rng(0)
+    reqs = [gw.submit(d, rng.integers(0, cfg.vocab_size, size=prompt),
+                      max_new=new) for d in range(n)]
+    gw.drain()
+    if not (all(r.done and len(r.tokens) == new for r in reqs)
+            and lanes_free(gw)):
+        fail(f"mesh serve {kw}: a request ended short of {new} tokens or "
+             "a lane is still held")
+    return [r.tokens for r in reqs]
+
+
+def mesh_serve_card(device, drive):
+    """Phase 20.1: the tiny LM trained on ``model=2`` (cells on the card,
+    1-layer draft rows) for MESH_SERVE_ROUNDS rounds, served from its
+    sharded bank in the four gateway modes; the streams must equal the
+    one-device gateway's on the bank gathered, mode by mode."""
+    import copy
+
+    import torch
+
+    from repro_torch.config import FedCDConfig
+    from repro_torch.federated.llm import FedLLMTrainer
+    from repro_torch.models import transformer as tf
+    cfg = mesh_arch("tiny")
+    init = tf.init_lm(cfg, torch.Generator().manual_seed(0))
+    tr = FedLLMTrainer(cfg, FedCDConfig(**dict(LM_FED, n_devices=8)), 8,
+                       LM_PER, LM_SEQ, n_archetypes=2, seed=0, spec="llm",
+                       mesh=card_mesh(device, 2, 1), init_params=init,
+                       draft_layers=1)
+    tr.run(MESH_SERVE_ROUNDS)
+    one = copy.copy(tr.registry)
+    one.params = tr.registry.params.gathered()
+    same = {}
+    for mode, kw in MESH_SERVE_MODES:
+        streams = drive(f"mesh serve tiny {mode}", lambda: mesh_serve(
+            cfg, tr.registry, tr.state, tr.draft, kw))
+        want = mesh_serve(cfg, one, tr.state, tr.draft, kw)
+        same[mode] = streams == want
+    print(f"[mesh serve tiny] {cfg.name} trained {MESH_SERVE_ROUNDS} rounds "
+          f"on model=2 (cells on the card), live="
+          f"{tr.registry.live_ids()}: {SERVE_SMALL[0]} requests, prompt "
+          f"{SERVE_SMALL[1]}, {SERVE_SMALL[2]} new tokens, greedy streams "
+          f"equal to the one-device gateway on the bank gathered: {same}",
+          flush=True)
+    if not all(same.values()):
+        fail(f"mesh serve tiny: streams differ from one device: {same}")
+
+
+def flip_gaps(ref_logits, other_logits, ref_toks, other_toks):
+    """Classify greedy flips between two streams of one batch (lists of
+    (B, V) logits and (B,) tokens a step): the bf16 noise bar is the
+    largest logit difference of the two runs at the steps where each
+    lane's context is still the same and its tokens agree; each lane's
+    first differing token (later ones follow from its context) gets the
+    reference logits' top-2 gap. Returns (bar, [(lane, step, gap)])."""
+    import torch
+    B = ref_toks[0].shape[0]
+    bar, flips = 0.0, []
+    for lane in range(B):
+        for t, (ra, oa) in enumerate(zip(ref_toks, other_toks)):
+            if int(ra[lane]) != int(oa[lane]):
+                top = torch.topk(ref_logits[t][lane].float(), 2).values
+                flips.append((lane, t, float(top[0] - top[1])))
+                break
+            bar = max(bar, float((ref_logits[t][lane].float()
+                                  - other_logits[t][lane].float()
+                                  ).abs().max()))
+    return bar, flips
+
+
+def mesh_qwen_decode(arch, params, device, mesh, prompt):
+    """Phase 20.2, one run: MESH_QWEN's prompt in one prefill, then greedy
+    decode steps; returns (prefill ms, decode ms, aten ops a token, peak
+    bytes, logits a step, tokens a step)."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    B, P, N = MESH_QWEN
+    prefill = steps.make_prefill_step(arch, mesh=mesh)
+    serve = steps.make_serve_step(arch, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    caches = tf.init_lm_caches(arch, B, P + N, device=device)
+    (last, caches), pre_ms = timed(lambda: prefill(params, caches, prompt,
+                                                   P))
+    logits, toks = [last], [torch.argmax(last, -1)]
+
+    def loop(caches):
+        for _ in range(N):
+            lg, caches = serve(params, caches, toks[-1][:, None])
+            logits.append(lg)
+            toks.append(torch.argmax(lg, -1))
+        return caches
+
+    caches, dec_ms = timed(lambda: loop(caches))
+    ops = op_count(lambda: serve(params, caches, toks[-1][:, None]))
+    peak = torch.cuda.max_memory_allocated()
+    return (pre_ms, dec_ms, ops, peak, [x.cpu() for x in logits],
+            [x.cpu() for x in toks])
+
+
+def mesh_qwen_phase(device, card_line, drive, tr):
+    """Phase 20.2 (module docstring): Qwen3-4B at phase 14's tier from
+    the bank phase 19.2 trained on ``model=MESH_FULL_MODEL``."""
+    import copy
+    import gc
+
+    import torch
+
+    from repro_torch.serve import ServeGateway
+    arch = tr.arch
+    bank = tr.registry.params
+    mesh = bank.tree["embed.table"].mesh
+    m0 = tr.registry.live_ids()[0]
+    row = bank[m0]
+    whole = {k: v.full(device) for k, v in row.items()}
+    B, P, N = MESH_QWEN
+    gen = torch.Generator(device=device).manual_seed(0)
+    prompt = torch.randint(0, arch.vocab_size, (B, P), generator=gen,
+                           device=device)
+    runs = {}
+    for tag, params, m in (("model=2", row, mesh), ("one device", whole,
+                                                    None)):
+        runs[tag] = drive(f"mesh qwen decode {tag}", lambda: mesh_qwen_decode(
+            arch, params, device, m, prompt))
+    bar, flips = flip_gaps(runs["one device"][4], runs["model=2"][4],
+                           runs["one device"][5], runs["model=2"][5])
+    agree = float(np.mean([bool((a == b).all()) for a, b in zip(
+        torch.stack(runs["one device"][5], 1).unbind(0),
+        torch.stack(runs["model=2"][5], 1).unbind(0))]))
+    equal = float((torch.stack(runs["one device"][5])
+                   == torch.stack(runs["model=2"][5])).float().mean())
+    for tag, (pre_ms, dec_ms, ops, peak, lg, _) in runs.items():
+        finite = all(bool(torch.isfinite(x).all()) for x in lg)
+        print(f"[mesh qwen decode {tag}] {arch.name} at {arch.n_layers} "
+              f"layers ({arch.param_dtype}, model {m0} of the bank phase "
+              f"19.2 trained), B={B}: prefill of {P} tokens device ms="
+              f"{pre_ms:.3f} ({B * P / pre_ms * 1e3:.1f} tokens/s), {N} "
+              f"greedy decode steps device ms/token={dec_ms / N:.3f} (aten "
+              f"ops/token={ops}), max_memory_allocated={peak} "
+              f"({peak / 2**30:.2f} GiB), finite={finite} ({card_line})",
+              flush=True)
+        if not finite:
+            fail(f"mesh qwen decode {tag}: non-finite logits")
+    above = [f for f in flips if f[2] > bar]
+    print(f"[mesh qwen flips] model=2 against one device: greedy tokens "
+          f"equal={equal:.4f}, whole lanes equal={agree:.4f}; bf16 noise "
+          f"bar (largest logit difference while a lane's tokens agree)="
+          f"{bar}; first flips (lane, step, one device's top-2 gap)="
+          f"{flips}; above the bar: {above}", flush=True)
+    del whole
+    # one gateway batch from the mesh bank and from the bank gathered
+    one = copy.copy(tr.registry)
+    one.params = bank.gathered(device)
+    n, plen, new = MESH_QWEN_SERVE
+    prompts = np.random.default_rng(0).integers(0, arch.vocab_size,
+                                                (n, plen))
+    devices = [i % FULL_LM_CLIENTS for i in range(n)]
+    reqs = {}
+    for tag, reg in (("model=2", tr.registry), ("one device", one)):
+        gw = ServeGateway(arch, reg, lambda: tr.state, **MESH_QWEN_GW)
+        out = drive(f"mesh qwen serve {tag}", lambda: serve_batch(
+            gw, devices, prompts, new))
+        serve_report(f"mesh qwen {tag}", gw, *out, card_line)
+        reqs[tag] = out[0]
+    print(f"[mesh qwen serve] tokens equal to the one-device gateway's="
+          f"{agreement(reqs['model=2'], reqs['one device']):.4f}",
+          flush=True)
+    del one, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_decode_phase(device, card_line, counters, tr):
+    """Phase 20 (module docstring); returns each path's launch counts,
+    by path name (the decode paths on the mesh make none)."""
+    import torch
+    counts = {}
+
+    def drive(tag, fn):
+        for f in counters:
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts[tag] = {f.__name__: f.launches for f in counters}
+        if any(counts[tag].values()):
+            fail(f"{tag}: kernel launches {counts[tag]}, predicted none")
+        return out
+
+    mesh_decode_card_vs_cpu(device, drive)
+    mesh_serve_card(device, drive)
+    mesh_qwen_phase(device, card_line, drive, tr)
     return counts
 
 
@@ -3405,8 +3751,16 @@ def main() -> int:
     # phase 19: the tensor-parallel LM mesh (the trainer on model=2 and
     # model=2,data=2 meshes against one device and the CPU, the mesh's
     # transport launches, Qwen3-4B at phase 14's tier on model=2)
-    later.update(mesh_phase(device, card_line, counters, qwen_full))
+    mesh_counts, mesh_tr = mesh_phase(device, card_line, counters,
+                                      qwen_full)
+    later.update(mesh_counts)
     elapsed(19)
+    # phase 20: the decode path on the mesh (five reduced families on
+    # model=2 and model=2,data=2 against one device and the CPU, the
+    # gateway over a mesh-trained bank, Qwen3-4B from phase 19.2's bank)
+    later.update(mesh_decode_phase(device, card_line, counters, mesh_tr))
+    del mesh_tr
+    elapsed(20)
 
     # launches: kernels 1-3 on the fused main path, weighted_agg on the
     # legacy path; dequant_agg is on no path, so its count stays 0. Each

@@ -331,6 +331,19 @@ class StackedParamBank:
             self.mark_written(r // self.rows_per_shard)
         self.version += 1
 
+    def gathered(self, device: Any = None) -> "StackedParamBank":
+        """A one-block bank on ``device`` (default the first device) with
+        this bank's rows gathered whole, the same row placement, presence
+        and ``version``: a tensor-parallel bank served on one device."""
+        dev = torch.device(device) if device is not None else self.devices[0]
+        tree = {k: v.full(dev) if isinstance(v, Sharded) else v.to(dev)
+                for k, v in self.tree.items()}
+        out = StackedParamBank(self.m_cap, {k: v[0] for k, v in tree.items()})
+        out.swap(tree)
+        out._present, out._used_rows = set(self._present), set(self._used_rows)
+        out.row_of, out.version = dict(self.row_of), self.version
+        return out
+
     def swap(self, new_tree: Params) -> None:
         """Adopt ``new_tree`` (``(m_cap, ...)`` tensors, every leaf of the
         bank) as the bank's content, as the reference's ``swap`` adopts a

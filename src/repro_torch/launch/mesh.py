@@ -21,7 +21,7 @@ shrinks and never moves to the CPU.
 ``dp_axes_of`` / ``dp_size`` name the data-parallel axes of a mesh, as
 the LM sharding rules (``launch/sharding.py``) read them. The production
 meshes (``make_production_mesh``) belong to the dry-run tooling (ROADMAP
-item 15b) and are not ported here.
+item 15b.2) and are not ported here.
 """
 from __future__ import annotations
 

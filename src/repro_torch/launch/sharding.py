@@ -30,14 +30,29 @@ reference's ``/``-joined leaf path (the port's flat ``.`` name with
 ``/``), so its tag quirks carry over unchanged, and so does the
 divisibility re-check of :func:`param_shardings`. The runtime that lays
 leaves out by these specs is ``launch/tensor_parallel.py``.
+
+Decoder caches on the mesh are laid out by the port's own
+:func:`cache_shardings`, not by the reference's :func:`auto_shardings`.
+The latter is a placement rule for XLA's partitioner: on the keys
+``0.k`` / ``0.v`` ``(L, B, C, Kv, hd)``, which carry no stack tag, it
+puts ``data`` on the layer axis where ``L`` divides and ``model`` on
+``hd``, cutting every head in half. The port's cells compute whole heads
+(``attention.heads_per_cell``), so that layout would gather every cache
+at every token. :func:`cache_shardings` puts ``Kv`` on ``model`` where
+the attention heads split, the batch on ``data`` where the rows split,
+and replicates everything else. Both are placements only: the values are
+the same. :func:`auto_shardings` stays, unchanged, for the dry run
+(ROADMAP item 15b.2).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Hashable, List, Tuple
+from itertools import groupby
+from typing import Any, Dict, Hashable, List, Sequence, Tuple
 
 import torch
 
+from repro_torch import config as C
 from repro_torch.config import ArchConfig
 from repro_torch.launch.mesh import (LaunchMesh, data_axis_size, dp_axes_of,
                                      dp_size, model_axis_size)
@@ -269,6 +284,45 @@ def auto_shardings(tree_shape: Dict[str, Any], mesh: LaunchMesh,
         return NamedSharding(mesh, P(*spec))
 
     return {k: spec_for(k, v) for k, v in tree_shape.items()}
+
+
+def heads_split(cfg: ArchConfig, tp: int) -> bool:
+    """Whether a GQA block's heads split over ``tp`` model cells (under
+    the 'train' specs, whose ``wq`` / ``wk`` / ``wv`` / ``wo`` split
+    exactly when the heads and the KV heads divide)."""
+    return cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
+
+
+def cache_shardings(cfg: ArchConfig, caches: Dict[str, Any],
+                    mesh: LaunchMesh,
+                    dp_axes: Sequence[str] = ("data",)
+                    ) -> Dict[str, NamedSharding]:
+    """The port's layout of ``init_lm_caches(cfg, ...)`` on ``mesh``
+    (module docstring): ``k`` / ``v`` of a GQA segment keep their KV
+    heads on ``model`` where the heads split (the hybrid's shared block
+    runs gathered, MLA's latents have no head axis); every leaf but
+    ``index`` / ``pos`` keeps its batch on ``data`` where the rows split
+    over the data-parallel axes ``dp_axes`` (the batch divides)."""
+    kinds = [k for k, _ in groupby(cfg.layout())]
+    tpn = mesh.shape["model"]
+    dpn = mesh.shape["data"] if "data" in dp_axes else 1
+
+    def spec_for(name, leaf):
+        shape = _shape_of(leaf)
+        prefix, _, leaf_name = name.rpartition(".")
+        nstack = 2 if name.startswith("groups.") else 1
+        spec: List[Any] = [None] * len(shape)
+        if leaf_name in ("index", "pos") or len(shape) <= nstack:
+            return NamedSharding(mesh, P(*spec))
+        if dpn > 1 and shape[nstack] % dpn == 0:
+            spec[nstack] = "data"
+        if (cfg.family != "hybrid" and leaf_name in ("k", "v")
+                and kinds[int(prefix)] in (C.ATTN_MLP, C.ATTN_MOE)
+                and heads_split(cfg, tpn)):
+            spec[nstack + 2] = "model"
+        return NamedSharding(mesh, P(*spec))
+
+    return {k: spec_for(k, v) for k, v in caches.items()}
 
 
 def lm_bank_shardings(cfg: ArchConfig, template: Dict[str, Any],

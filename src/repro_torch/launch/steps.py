@@ -2,8 +2,8 @@
 decode (port of ``repro/launch/steps.py``, whole: ``client_weights_per_row``,
 ``_lm_loss`` with its audio and MTP branches, ``quantize_grads``,
 ``make_train_step``, ``make_eval_step``, ``make_prefill_step`` and
-``make_serve_step``; a ``mesh`` on the prefill and serve steps is ROADMAP
-item 15b).
+``make_serve_step``, each with the reference's ``mesh``, ``dp_axes`` and
+``hints``).
 
 ``make_train_step`` is the cluster-scale FedCD round (DESIGN.md §3):
 clients are contiguous row-groups of the global batch; eq 1's
@@ -31,6 +31,11 @@ whole) or sharded leaves (the LM bank's rows,
 taken on the piece's device, copies of one block (over the data axis, or
 a replicated leaf's on several devices) take the sum of their gradients
 in cell order, and the float32 SGD runs in place per piece.
+The prefill and serve steps run the decode path on the mesh
+(``transformer.lm_prefill`` / ``lm_decode`` with ``mesh=``: caches
+sharded or whole, as ``transformer``'s docstring says); the audio serve
+step runs the encoder-decoder decode on the params gathered whole on
+cell ``(0, 0)``, as the reference passes no mesh there.
 ``quantize_grads`` cuts each leaf's 128-value blocks from the WHOLE
 leaf's flattened row, so its codes and scales are the one-device step's:
 a piece goes to the kernels alone where every row of it is a whole
@@ -357,7 +362,8 @@ def make_eval_step(cfg: ArchConfig, n_clients: int, mesh=None,
 
 
 def make_prefill_step(cfg: ArchConfig, window: int = 0, mesh=None,
-                      dp_axes: Tuple[str, ...] = ("data",)) -> Callable:
+                      dp_axes: Tuple[str, ...] = ("data",),
+                      hints: bool = False) -> Callable:
     """Chunked cache-filling prefill: one call appends a whole token
     chunk to every layer cache.
 
@@ -367,42 +373,51 @@ def make_prefill_step(cfg: ArchConfig, window: int = 0, mesh=None,
     Callers loop fixed-shape chunks over the prompt, padding the ragged
     tail and passing ``n_valid`` (an int or a 0-d tensor; read on the
     device, as the reference's clamped ``dynamic_slice``). With a
-    ring-buffer window the chunk must satisfy S <= window."""
+    ring-buffer window the chunk must satisfy S <= window. ``mesh`` /
+    ``dp_axes``: the decode path on a tensor-parallel mesh (module
+    docstring); ``hints`` sets the sharding-hint context."""
     if cfg.family == "audio":
         raise ValueError("audio uses the encdec driver paths in examples/")
-    if mesh is not None:
-        raise NotImplementedError(tf.MESH_15B)
 
     @torch.no_grad()
     def step(params, caches, tokens, n_valid):
-        S = tokens.shape[1]
-        nv = torch.as_tensor(n_valid, dtype=torch.int32,
-                             device=tokens.device)
-        logits, caches = tf.lm_prefill(cfg, params, tokens, caches,
-                                       window=window, n_valid=nv)
-        last = torch.clamp(nv - 1, 0, S - 1).long().reshape(1)
-        return torch.index_select(logits, 1, last)[:, 0, :], caches
+        with sharding_hints(mesh if hints else None, dp_axes):
+            S = tokens.shape[1]
+            nv = torch.as_tensor(n_valid, dtype=torch.int32,
+                                 device=tokens.device)
+            logits, caches = tf.lm_prefill(cfg, params, tokens, caches,
+                                           window=window, n_valid=nv,
+                                           mesh=mesh, dp_axes=dp_axes)
+            last = torch.clamp(nv - 1, 0, S - 1).long().reshape(1)
+            return torch.index_select(logits, 1, last.to(logits.device)
+                                      )[:, 0, :], caches
 
     return step
 
 
 def make_serve_step(cfg: ArchConfig, window: int = 0, mesh=None,
-                    dp_axes: Tuple[str, ...] = ("data",)) -> Callable:
+                    dp_axes: Tuple[str, ...] = ("data",),
+                    hints: bool = False) -> Callable:
     """One-token batched decode against a KV/state cache (the
-    encoder-decoder model's for an audio config).
+    encoder-decoder model's for an audio config; on a ``mesh`` with its
+    params gathered whole on cell ``(0, 0)``).
 
     step(params, caches, tokens (B,1)) -> (logits (B,V), caches)"""
-    if mesh is not None:
-        raise NotImplementedError(tf.MESH_15B)
 
     @torch.no_grad()
     def step(params, caches, tokens):
-        if cfg.family == "audio":
-            logits, caches = ed.encdec_decode(cfg, params, tokens, caches,
-                                              window)
-        else:
-            logits, caches = tf.lm_decode(cfg, params, tokens, caches,
-                                          window=window)
-        return logits[:, -1, :], caches
+        with sharding_hints(mesh if hints else None, dp_axes):
+            if cfg.family == "audio":
+                if mesh is not None:
+                    home = mesh.device(0, 0)
+                    params = {k: v.full(home) if isinstance(v, Sharded)
+                              else v.to(home) for k, v in params.items()}
+                logits, caches = ed.encdec_decode(cfg, params, tokens,
+                                                  caches, window)
+            else:
+                logits, caches = tf.lm_decode(cfg, params, tokens, caches,
+                                              window=window, mesh=mesh,
+                                              dp_axes=dp_axes)
+            return logits[:, -1, :], caches
 
     return step

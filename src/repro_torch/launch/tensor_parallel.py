@@ -38,6 +38,9 @@ from repro_torch.launch.mesh import LaunchMesh
 from repro_torch.launch.sharding import PartitionSpec, batch_spec
 
 Block = Tuple[Tuple[int, int], ...]      # (index, count) per dim
+COMBINED_AXES = ("a spec over combined axes ({}) is a decode_2d layout, "
+                 "not ported yet (ROADMAP item 15b.2); the tensor-parallel "
+                 "runtime runs 'train' specs")
 
 
 def axes_of(entry: Any) -> Tuple[str, ...]:
@@ -137,6 +140,48 @@ class Sharded:
             return torch.zeros([s // c for s, (_, c) in zip(shape, blk)],
                                dtype=dtype, device=dev)
         return cls._layout(mesh, spec, shape, make)
+
+    @classmethod
+    def from_cells(cls, mesh: LaunchMesh, spec, shape: Sequence[int],
+                   values: Dict[int, torch.Tensor]) -> "Sharded":
+        """A leaf laid out by ``spec`` from values computed on some cells
+        (by cell index, model-major): a cell takes its own value where it
+        computed one, else that of a computed cell holding its block (on
+        its own device where there is one), moved to its device. Cells
+        with one block on one device share the first one's tensor."""
+        blocks = cell_blocks(mesh, spec)
+        by_block: Dict[Block, List[torch.Tensor]] = {}
+        for cell, t in values.items():
+            by_block.setdefault(blocks[cell], []).append(t)
+        made: Dict[Tuple[Block, torch.device], torch.Tensor] = {}
+        pieces = []
+        for cell, (blk, dev) in enumerate(zip(blocks, mesh.devices)):
+            if (blk, dev) not in made:
+                _check(shape, blk, spec)
+                t = values.get(cell)
+                if t is None:
+                    ts = by_block[blk]
+                    t = next((u for u in ts if u.device == dev), ts[0])
+                made[(blk, dev)] = t.to(dev)
+            pieces.append(made[(blk, dev)])
+        return cls(mesh, spec, shape, pieces)
+
+    @classmethod
+    def stack(cls, layers: Sequence["Sharded"], *shape: int) -> "Sharded":
+        """Leaves of one layout stacked on new leading (replicated) axes
+        ``shape`` (default ``(len(layers),)``), piece by piece."""
+        first = layers[0]
+        shape = shape or (len(layers),)
+        values, seen = {}, set()
+        for cell, p in enumerate(first.pieces):
+            if id(p) not in seen:
+                seen.add(id(p))
+                values[cell] = torch.stack(
+                    [lay.pieces[cell] for lay in layers]).reshape(
+                        *shape, *p.shape)
+        return cls.from_cells(first.mesh,
+                              (None,) * len(shape) + tuple(first.spec),
+                              (*shape, *first.shape), values)
 
     def with_pieces(self, tensors: Sequence[torch.Tensor]) -> "Sharded":
         """The same layout over new tensors, one per :meth:`distinct`
@@ -259,10 +304,7 @@ class Sharded:
         dev = self.mesh.device(sm, sd)
         data_dims = [d for d in self.split_dims()
                      if "model" not in axes_of(self.spec[d])]
-        if any(len(axes_of(self.spec[d])) > 1 for d in self.split_dims()):
-            raise NotImplementedError(
-                f"a spec over combined axes ({self.spec}) is a decode "
-                "layout; the tensor-parallel runtime runs 'train' specs")
+        refuse_combined(self)
         if not data_dims:
             return self.piece(sm, sd).to(dev)
         D = self.mesh.shape["data"]
@@ -303,6 +345,13 @@ class Sharded:
     def __repr__(self) -> str:
         return (f"Sharded(shape={tuple(self.shape)}, spec={self.spec}, "
                 f"dtype={self.dtype}, pieces={len(self.distinct())})")
+
+
+def refuse_combined(leaf: Sharded) -> None:
+    """Raise for a leaf whose spec splits a dim over combined axes (the
+    ``decode_2d`` policy's), which the runtime does not run."""
+    if any(len(axes_of(leaf.spec[d])) > 1 for d in leaf.split_dims()):
+        raise NotImplementedError(COMBINED_AXES.format(leaf.spec))
 
 
 # -- collectives --------------------------------------------------------------

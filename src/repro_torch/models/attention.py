@@ -29,7 +29,10 @@ over the model cells: ``wq`` / ``wk`` / ``wv`` are column pieces, each
 cell runs its own query and KV heads through the same float32 math, and
 ``wo`` is a row piece whose partial outputs are summed in cell order.
 That needs the heads and the KV heads to divide over the cells; else the
-block runs whole on the data shard's home cell.
+block runs whole on the data shard's home cell. The cache paths
+(``attention_prefill`` / ``attention_decode``) split the same way on the
+mesh (``transformer.lm_decode(mesh=...)``): each cell runs them on its
+share of the heads, against its own KV heads of the cache.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.config import ArchConfig
+from repro_torch.launch.sharding import heads_split
 from repro_torch.launch.tensor_parallel import MeshRun, splits_on
 from repro_torch.models.common import (Params, apply_rope, init_rmsnorm,
                                        normal_init, prefixed, rmsnorm,
@@ -198,6 +202,17 @@ def heads_per_cell(cfg: ArchConfig, tp: int) -> ArchConfig:
                                head_dim=cfg.resolved_head_dim())
 
 
+HEAD_SPLIT = ("wk", "wo", "wq", "wv")
+
+
+def attention_splits(params, cfg: ArchConfig, tp: int) -> bool:
+    """Whether the heads split over ``tp`` model cells: ``wq`` / ``wk``
+    / ``wv`` column pieces, ``wo`` a row piece, and the heads and KV
+    heads dividing."""
+    return (all(splits_on(params[k], 1) for k in ("wq", "wk", "wv"))
+            and splits_on(params["wo"], 0) and heads_split(cfg, tp))
+
+
 def attention_forward_mesh(params, cfg: ArchConfig, x: torch.Tensor,
                            positions: Optional[torch.Tensor], run: MeshRun,
                            sd: int) -> torch.Tensor:
@@ -205,9 +220,7 @@ def attention_forward_mesh(params, cfg: ArchConfig, x: torch.Tensor,
     its home cell) with the heads split over the model cells (module
     docstring)."""
     tp = run.tp
-    if not (all(splits_on(params[k], 1) for k in ("wq", "wk", "wv"))
-            and splits_on(params["wo"], 0)
-            and cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0):
+    if not attention_splits(params, cfg, tp):
         return attention_forward(run.whole(params, sd), cfg, x, positions)
     sub = heads_per_cell(cfg, tp)
     parts = []
@@ -215,8 +228,7 @@ def attention_forward_mesh(params, cfg: ArchConfig, x: torch.Tensor,
         dev = run.device(sm, sd)
         pos = None if positions is None else positions.to(dev)
         parts.append(attention_forward(
-            run.cell(params, sm, sd, ("wk", "wo", "wq", "wv")), sub,
-            x.to(dev), pos))
+            run.cell(params, sm, sd, HEAD_SPLIT), sub, x.to(dev), pos))
     return run.reduce(parts, sd)
 
 

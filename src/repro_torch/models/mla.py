@@ -20,6 +20,10 @@ On a tensor-parallel mesh (``mla_forward_mesh``) the heads split over
 the model cells: ``wq_b`` / ``wk_b`` / ``wv_b`` are column pieces and
 ``wo`` a row piece, as GQA's; the latent projections (``wq_a``,
 ``wkv_a`` and their norms) are gathered and computed whole on each cell.
+The absorbed cache paths split the same way on the mesh
+(``transformer.lm_decode(mesh=...)``): each cell attends its heads to
+the whole latent cache of its rows and writes the chunk's latents into
+its own copy, so every cell of a data shard holds the same latents.
 The reference's ``sharding_hints.constrain`` calls sit at its points.
 """
 from __future__ import annotations
@@ -117,16 +121,27 @@ def mla_forward(params: Params, cfg: ArchConfig, x: torch.Tensor,
 MLA_HEAD_SPLIT = ("wk_b", "wo", "wq_b", "wv_b")
 
 
+def mla_splits(params, cfg: ArchConfig, tp: int) -> bool:
+    """Whether the heads split over ``tp`` model cells (module
+    docstring)."""
+    return (all(splits_on(params[k], 1) for k in ("wk_b", "wq_b", "wv_b"))
+            and splits_on(params["wo"], 0) and cfg.n_heads % tp == 0)
+
+
+def mla_per_cell(cfg: ArchConfig, tp: int) -> ArchConfig:
+    """``cfg`` with one cell's share of the heads."""
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp)
+
+
 def mla_forward_mesh(params, cfg: ArchConfig, x: torch.Tensor,
                      positions: Optional[torch.Tensor], run: MeshRun,
                      sd: int) -> torch.Tensor:
     """:func:`mla_forward` of data shard ``sd``'s rows ``x`` with the
     heads split over the model cells (module docstring)."""
     tp = run.tp
-    if not (all(splits_on(params[k], 1) for k in ("wk_b", "wq_b", "wv_b"))
-            and splits_on(params["wo"], 0) and cfg.n_heads % tp == 0):
+    if not mla_splits(params, cfg, tp):
         return mla_forward(run.whole(params, sd), cfg, x, positions)
-    sub = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp)
+    sub = mla_per_cell(cfg, tp)
     parts = []
     for sm in range(tp):
         dev = run.device(sm, sd)

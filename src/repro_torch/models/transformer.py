@@ -45,7 +45,21 @@ op — the recurrent blocks, the hybrid's shared block and LoRA, MLA's
 latent projections, the MTP projection — gathers the leaves its spec
 cuts across and runs whole. The values are the one-device forward's but
 for MoE capacity with ``data > 1``, which follows the reference's mesh
-run (``moe.py``). The decode path takes no mesh yet (ROADMAP item 15b).
+run (``moe.py``).
+
+The decode path takes the same ``mesh=`` (``lm_prefill``, ``lm_decode``,
+``lm_spec_verify``, ``lm_spec_propose``; ``lm_cache_rollback`` follows
+its caches' layout). Each cell runs the one-device cache step on its
+share, with the same split rules: a GQA or MLA block's heads against its
+own KV heads of the cache (MLA: against the whole latent cache of its
+rows, which every cell of a data shard writes alike), the MLP, experts
+and vocabulary as the forward; the recurrent blocks and the hybrid's
+shared block run whole on each data shard's home cell. The caches are
+laid out by ``launch.sharding.cache_shardings``: a :class:`Sharded`
+cache is used as it lies and returned sharded; whole caches (a serving
+pool's) are cut per cell on entry and returned whole on cell ``(0, 0)``.
+A spec over combined axes (the ``decode_2d`` policy) is refused, naming
+ROADMAP item 15b.2.
 
 Caches are flat dicts of the reference's cache tree, stacked per
 segment like the params: ``0.k`` ``(n_layers, B, C, Kv, hd)``, ``0.pos``
@@ -68,15 +82,17 @@ API:
 from __future__ import annotations
 
 from itertools import groupby
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import config as C
 from repro_torch.config import ArchConfig
-from repro_torch.launch.sharding import leaf_sharding
-from repro_torch.launch.tensor_parallel import MeshRun, Sharded
+from repro_torch.launch.sharding import cache_shardings, leaf_sharding
+from repro_torch.launch.tensor_parallel import (MeshRun, Sharded,
+                                                refuse_combined)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as mb
 from repro_torch.models import mla as mla_mod
@@ -95,8 +111,6 @@ Leaf = Union[torch.Tensor, Sharded, Sequence[torch.Tensor],
 
 ATTENTION_KINDS = (C.ATTN_MLP, C.ATTN_MOE, C.MLA_MLP, C.MLA_MOE)
 RECURRENT_KINDS = (C.MAMBA2, C.MLSTM, C.SLSTM)
-MESH_15B = ("a tensor-parallel mesh on the decode path is not ported yet "
-            "(ROADMAP item 15b)")
 # leaves that are float32 in every model (a bfloat16 one included)
 FLOAT32_LEAVES = ("moe.router", "core.A_log", "core.D", "core.dt_bias",
                   "core.f_bias")
@@ -152,8 +166,12 @@ def stack_layers(layers: Sequence[Params], *shape: int) -> Params:
     """Per-layer dicts -> one dict of leaves stacked on a leading layer
     axis, or on the axes ``shape`` (in memory order) where given."""
     shape = shape or (len(layers),)
-    return {k: torch.stack([c[k] for c in layers]).reshape(
-        *shape, *layers[0][k].shape) for k in layers[0]}
+    out = {}
+    for k, v in layers[0].items():
+        vs = [c[k] for c in layers]
+        out[k] = (Sharded.stack(vs, *shape) if isinstance(v, Sharded) else
+                  torch.stack(vs).reshape(*shape, *v.shape))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -488,12 +506,14 @@ def shard_params(cfg: ArchConfig, params: Dict[str, Leaf], mesh
     """Every leaf laid out on ``mesh`` by its LM spec: a whole tensor
     (stacked leaves included) split into pieces (views where a piece
     stays on its device; differentiable), per-layer tensors one by one;
-    sharded leaves as they are."""
+    sharded leaves as they are (a spec over combined axes raises)."""
     out: Dict[str, Leaf] = {}
     for k, v in params.items():
         if isinstance(v, Sharded) or (
                 not isinstance(v, torch.Tensor) and isinstance(v[0],
                                                                Sharded)):
+            for leaf in ([v] if isinstance(v, Sharded) else v):
+                refuse_combined(leaf)
             out[k] = v
         elif isinstance(v, torch.Tensor):
             spec = leaf_sharding(cfg, k, tuple(v.shape), mesh).spec
@@ -724,13 +744,13 @@ def _run_group(block: BlockFn, kind: str, x: torch.Tensor,
     return x, new, states
 
 
-def _cached_pass(cfg: ArchConfig, params: Dict[str, Leaf], x: torch.Tensor,
-                 caches: Params, block: BlockFn, shared_fn
-                 ) -> Tuple[torch.Tensor, Params, Params]:
+def _cached_pass(cfg: ArchConfig, params: Dict[str, Leaf], x, caches,
+                 block: BlockFn, shared_fn) -> Tuple[Any, Params, Params]:
     """Every layer over ``x`` against its cache: ``block(lp, kind, x,
-    lc) -> (x, cache, states)`` a layer, ``shared_fn(sp, x, x0, cache)
-    -> (x, cache)`` at each hybrid site. Returns (x, caches, states),
-    both flat and stacked as the caches."""
+    lc) -> (x, cache, states)`` a layer, ``shared_fn(s, x, x0, cache)
+    -> (x, cache)`` at hybrid site ``s``. Returns (x, caches, states),
+    both flat and stacked as the caches. On a mesh ``x`` is the data
+    shards' rows and the caches are :class:`Sharded`."""
     new: Params = {}
     states: Params = {}
 
@@ -752,7 +772,7 @@ def _cached_pass(cfg: ArchConfig, params: Dict[str, Leaf], x: torch.Tensor,
                                    gcaches[sl])
             gnew += nc
             gstates += st
-            x, sc = shared_fn(_site_params(params, s), x, x0, scaches[s])
+            x, sc = shared_fn(s, x, x0, scaches[s])
             snew.append(sc)
         keep("groups", gnew, gstates, n_sites, every)
         new.update(prefixed("shared", stack_layers(snew)))
@@ -771,12 +791,33 @@ def _cached_pass(cfg: ArchConfig, params: Dict[str, Leaf], x: torch.Tensor,
     return x, canonical(new), canonical(states)
 
 
-def _embed_in(cfg: ArchConfig, params, tokens, embeds, mesh
-              ) -> torch.Tensor:
+def _cached(cfg: ArchConfig, params: Dict[str, Leaf], tokens, embeds,
+            caches: Params, window: int, n_valid, prefill: bool,
+            collect: bool, mesh, dp_axes) -> Tuple[torch.Tensor, Params,
+                                                  Params]:
+    """``lm_prefill`` (``prefill``) or ``lm_decode``: (logits, caches,
+    states)."""
     if mesh is not None:
-        raise NotImplementedError(MESH_15B)
+        return _cached_mesh(cfg, params, tokens, embeds, caches, window,
+                            n_valid, prefill, collect, MeshRun(mesh, dp_axes))
     x = embed(subtree(params, "embed"), tokens) if embeds is None else embeds
-    return x.to(dtype_of(cfg.compute_dtype))
+    x = x.to(dtype_of(cfg.compute_dtype))
+    w_shared = window or cfg.sliding_window
+
+    def block(lp, kind, h, lc):
+        if prefill:
+            return _prefill_block(lp, cfg, kind, h, lc, window, n_valid,
+                                  collect=collect)
+        return (*_decode_block(lp, cfg, kind, h, lc, window), {})
+
+    def shared_fn(s, h, x0, sc):
+        return _apply_shared_block(_site_params(params, s), cfg, h, x0,
+                                   None, cache=sc, window=w_shared,
+                                   prefill=prefill, n_valid=n_valid)
+
+    x, caches, states = _cached_pass(cfg, params, x, caches, block,
+                                     shared_fn)
+    return _logits(cfg, params, x), caches, states
 
 
 def lm_decode(cfg: ArchConfig, params: Dict[str, Leaf],
@@ -785,19 +826,10 @@ def lm_decode(cfg: ArchConfig, params: Dict[str, Leaf],
               dp_axes: Tuple[str, ...] = ("data",)
               ) -> Tuple[torch.Tensor, Params]:
     """One decode step. tokens (B,1) -> (logits (B,1,V) float32,
-    caches)."""
-    x = _embed_in(cfg, params, tokens, embeds, mesh)
-    w_shared = window or cfg.sliding_window
-
-    def block(lp, kind, h, lc):
-        return (*_decode_block(lp, cfg, kind, h, lc, window), {})
-
-    def shared_fn(sp, h, x0, sc):
-        return _apply_shared_block(sp, cfg, h, x0, None, cache=sc,
-                                   window=w_shared)
-
-    x, caches, _ = _cached_pass(cfg, params, x, caches, block, shared_fn)
-    return _logits(cfg, params, x), caches
+    caches). With a ``mesh`` see the module docstring."""
+    logits, caches, _ = _cached(cfg, params, tokens, embeds, caches, window,
+                                None, False, False, mesh, dp_axes)
+    return logits, caches
 
 
 def lm_prefill(cfg: ArchConfig, params: Dict[str, Leaf],
@@ -814,23 +846,131 @@ def lm_prefill(cfg: ArchConfig, params: Dict[str, Leaf],
     past it are not written, recurrent updates are gated off.
     ``collect_states=True`` returns ``(logits, caches, states)``, the
     per-step recurrent states ``lm_cache_rollback`` selects from."""
-    x = _embed_in(cfg, params, tokens, embeds, mesh)
-    w_shared = window or cfg.sliding_window
-
-    def block(lp, kind, h, lc):
-        return _prefill_block(lp, cfg, kind, h, lc, window, n_valid,
-                              collect=collect_states)
-
-    def shared_fn(sp, h, x0, sc):
-        return _apply_shared_block(sp, cfg, h, x0, None, cache=sc,
-                                   window=w_shared, prefill=True,
-                                   n_valid=n_valid)
-
-    x, caches, states = _cached_pass(cfg, params, x, caches, block,
-                                     shared_fn)
+    logits, caches, states = _cached(cfg, params, tokens, embeds, caches,
+                                     window, n_valid, True, collect_states,
+                                     mesh, dp_axes)
     if collect_states:
-        return _logits(cfg, params, x), caches, states
-    return _logits(cfg, params, x), caches
+        return logits, caches, states
+    return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# The decode path on a tensor-parallel mesh (module docstring)
+# ---------------------------------------------------------------------------
+def _cell(caches: Dict[str, Sharded], sm: int, sd: int) -> Params:
+    """Cell ``(sm, sd)``'s pieces of a layer's caches."""
+    return {k: v.piece(sm, sd) for k, v in caches.items()}
+
+
+def _laid_out(like: Dict[str, Sharded], values: Dict[int, Params],
+              lead: Tuple[int, ...] = ()) -> Dict[str, Sharded]:
+    """Caches computed on some cells (by cell index) laid out as
+    ``like``'s leaves, with new leading axes ``lead`` (a verify's time
+    axis)."""
+    return {k: Sharded.from_cells(
+        v.mesh, (None,) * len(lead) + tuple(v.spec), (*lead, *v.shape),
+        {c: r[k] for c, r in values.items()}) for k, v in like.items()}
+
+
+def _mesh_caches(cfg: ArchConfig, caches: Params, run: MeshRun
+                 ) -> Dict[str, Sharded]:
+    """``caches`` laid out by ``cache_shardings``: a whole tensor cut per
+    cell, a sharded leaf as it lies."""
+    specs = cache_shardings(cfg, caches, run.mesh, run.dp_axes)
+    return {k: v if isinstance(v, Sharded) else
+            Sharded.place(v, run.mesh, specs[k].spec)
+            for k, v in caches.items()}
+
+
+def _mesh_block(lp: Dict[str, Sharded], cfg: ArchConfig, kind: str,
+                xs: List[torch.Tensor], lc: Dict[str, Sharded],
+                run: MeshRun, window: int, n_valid, prefill: bool,
+                collect: bool):
+    """One layer of a cached pass over the data shards' rows ``xs``
+    against its caches ``lc``, split as ``_apply_block_mesh``. Returns
+    (xs, caches, states) as ``_prefill_block``."""
+    D = run.mesh.shape["data"]
+    xs, vals, sts = list(xs), {}, {}
+    if kind in RECURRENT_KINDS:
+        for sd, x in enumerate(xs):
+            p, c = run.whole(lp, sd), _cell(lc, 0, sd)
+            if prefill:
+                xs[sd], vals[sd], sts[sd] = _prefill_block(
+                    p, cfg, kind, x, c, window, n_valid, collect)
+            else:
+                xs[sd], vals[sd] = _decode_block(p, cfg, kind, x, c, window)
+        states = _laid_out(lc, sts, (xs[0].shape[1],)) if collect else {}
+        return xs, _laid_out(lc, vals), states
+    if kind not in ATTENTION_KINDS:
+        raise ValueError(kind)
+    ap = subtree(lp, "attn")
+    if kind in (C.MLA_MLP, C.MLA_MOE):
+        split = mla_mod.mla_splits(ap, cfg, run.tp)
+        sub, keys = mla_mod.mla_per_cell(cfg, run.tp), mla_mod.MLA_HEAD_SPLIT
+        step = mla_mod.mla_prefill if prefill else mla_mod.mla_decode
+    else:
+        split = attn.attention_splits(ap, cfg, run.tp)
+        sub, keys = attn.heads_per_cell(cfg, run.tp), attn.HEAD_SPLIT
+        step = attn.attention_prefill if prefill else attn.attention_decode
+    extra = (window, n_valid) if prefill else (window,)
+    hs = []
+    for sd, x in enumerate(xs):
+        h = rmsnorm(run.whole(subtree(lp, "norm1"), sd), x, cfg.norm_eps)
+        if split:
+            parts = []
+            for sm in range(run.tp):
+                a, vals[sm * D + sd] = step(
+                    run.cell(ap, sm, sd, keys), sub,
+                    h.to(run.device(sm, sd)), _cell(lc, sm, sd), *extra)
+                parts.append(a)
+            a = run.reduce(parts, sd)
+        else:
+            a, vals[sd] = step(run.whole(ap, sd), cfg, h, _cell(lc, 0, sd),
+                               *extra)
+        xs[sd] = x + a
+        hs.append(rmsnorm(run.whole(subtree(lp, "norm2"), sd), xs[sd],
+                          cfg.norm_eps))
+    if kind in (C.ATTN_MOE, C.MLA_MOE):
+        fs = moe_mod.apply_moe_mesh(subtree(lp, "moe"), cfg, hs, run)[0]
+    else:
+        fs = [apply_mlp_mesh(subtree(lp, "mlp"), h, run, sd)
+              for sd, h in enumerate(hs)]
+    return [x + f for x, f in zip(xs, fs)], _laid_out(lc, vals), {}
+
+
+def _cached_mesh(cfg: ArchConfig, params, tokens, embeds, caches: Params,
+                 window: int, n_valid, prefill: bool, collect: bool,
+                 run: MeshRun):
+    sp = shard_params(cfg, params, run.mesh)
+    xs = _embed_mesh(cfg, sp, tokens, embeds, run)
+    whole = not any(isinstance(v, Sharded) for v in caches.values())
+    cs = _mesh_caches(cfg, caches, run)
+    w_shared = window or cfg.sliding_window
+    loras = (layer_params(subtree(sp, "lora")) if subtree(sp, "lora")
+             else None)
+
+    def block(lp, kind, hs, lc):
+        return _mesh_block(lp, cfg, kind, hs, lc, run, window, n_valid,
+                           prefill, collect)
+
+    def shared_fn(s, hs, x0s, sc):
+        vals, out = {}, []
+        for sd, (x, x0) in enumerate(zip(hs, x0s)):
+            p = run.whole(subtree(sp, "shared"), sd)
+            if loras is not None:
+                p = _shared_block_params(p, run.whole(loras[s], sd))
+            y, vals[sd] = _apply_shared_block(
+                p, cfg, x, x0, None, cache=_cell(sc, 0, sd),
+                window=w_shared, prefill=prefill, n_valid=n_valid)
+            out.append(y)
+        return out, _laid_out(sc, vals)
+
+    xs, cs, states = _cached_pass(cfg, sp, xs, cs, block, shared_fn)
+    if whole:
+        home = run.home(0)
+        cs = {k: v.full(home) for k, v in cs.items()}
+        states = {k: v.full(home) for k, v in states.items()}
+    return _logits_mesh(cfg, sp, xs, run), cs, states
 
 
 # ---------------------------------------------------------------------------
@@ -845,7 +985,16 @@ def lm_cache_rollback(cfg: ArchConfig, old: Params, full: Params,
     (``lm_prefill(..., collect_states=True)`` over ``S`` tokens).
     Attention caches merge old and full per slot (bitwise a prefill with
     ``n_valid=n_keep``); recurrent caches take the state after step
-    ``n_keep``."""
+    ``n_keep``. Sharded caches (a mesh's) roll back cell by cell and
+    keep their layout."""
+    if any(isinstance(v, Sharded) for v in old.values()):
+        vals = {}
+        for c in range(next(iter(old.values())).mesh.size):
+            vals[c] = lm_cache_rollback(
+                cfg, *({k: v.pieces[c] for k, v in t.items()}
+                       for t in (old, full, states)), n_keep, S, window)
+        return _laid_out(old, vals)
+
     def part(prefix, kind, w=window, time_axis=1):
         o, f = subtree(old, prefix), subtree(full, prefix)
         if kind in (C.ATTN_MLP, C.ATTN_MOE):
@@ -886,7 +1035,7 @@ def lm_spec_verify(cfg: ArchConfig, params: Dict[str, Leaf],
     S = tokens.shape[1]
     logits, full, states = lm_prefill(cfg, params, tokens, caches,
                                       window=window, mesh=mesh,
-                                      collect_states=True)
+                                      dp_axes=dp_axes, collect_states=True)
     out = torch.argmax(logits, dim=-1) if sample_fn is None \
         else sample_fn(logits)
     out = out.to(torch.int32)
@@ -908,10 +1057,11 @@ def lm_spec_propose(cfg: ArchConfig, params: Dict[str, Leaf],
     ``cur`` (B, 1). Returns ``(proposals (B, k) int32, caches)``, the
     caches after the commit only."""
     _, caches = lm_prefill(cfg, params, prev_tokens, caches, window=window,
-                           n_valid=prev_keep, mesh=mesh)
+                           n_valid=prev_keep, mesh=mesh, dp_axes=dp_axes)
     tok, cs, props = cur, caches, []
     for _ in range(k):
-        lg, cs = lm_decode(cfg, params, tok, cs, window=window)
+        lg, cs = lm_decode(cfg, params, tok, cs, window=window, mesh=mesh,
+                           dp_axes=dp_axes)
         tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
         props.append(tok)
     return torch.cat(props, dim=1), caches

@@ -50,7 +50,13 @@ gateway's own ``torch.Generator`` (seeded by ``seed``, on the bank's
 device) and passes it in. Top-k streams therefore differ from the
 reference's (threefry against Philox); greedy streams are equal.
 
-The gateway and its pools live on the bank's device.
+The gateway and its pools live on the bank's device. A bank on a
+tensor-parallel mesh (``FedLLMTrainer(mesh=...)``: :class:`Sharded`
+leaves) is served on that mesh: every prefill, decode, draft and verify
+dispatch passes the bank's mesh to the decode path, which cuts each
+cell's share of a lane's cache from the pool and returns it whole. The
+pools and page arenas stay on cell ``(0, 0)``, the bank's first device
+(one card: the cut is views; distinct cards: copies each step).
 """
 from __future__ import annotations
 
@@ -181,11 +187,9 @@ class ServeGateway:
             raise ValueError(
                 "ServeGateway needs a stacked param bank "
                 "(ModelRegistry.create(..., stacked=True))")
-        if any(isinstance(v, Sharded)
-               for v in registry.params.tree.values()):
-            raise NotImplementedError(
-                "serving a tensor-parallel bank: the decode path takes no "
-                "mesh yet (ROADMAP item 15b)")
+        leaf = next(iter(registry.params.tree.values()))
+        # a tensor-parallel bank is served on its mesh (module docstring)
+        self.mesh = leaf.mesh if isinstance(leaf, Sharded) else None
         self.cfg = cfg
         self.registry = registry
         self.device = registry.params.devices[0]
@@ -273,7 +277,8 @@ class ServeGateway:
                                                Params]:
         logits, cache = tf.lm_prefill(cfg, params,
                                       self._upload(part[None]), cache,
-                                      window=self.window, n_valid=nv)
+                                      window=self.window, n_valid=nv,
+                                      mesh=self.mesh)
         if not sample:
             return None, cache
         return self._sample(logits[:, nv - 1], self._noise(1)), cache
@@ -282,7 +287,8 @@ class ServeGateway:
                 ) -> Tuple[Params, torch.Tensor]:
         def one_lane(cache, tok):
             logits, nc = tf.lm_decode(self.cfg, params, tok[None, None],
-                                      cache, window=self.window)
+                                      cache, window=self.window,
+                                      mesh=self.mesh)
             return nc, logits[0, -1]
 
         # params enter by closure (vmap in_dims=None): every lane shares
@@ -309,7 +315,7 @@ class ServeGateway:
         def one_lane(cache, prev, pk, cur):
             props, cache = tf.lm_spec_propose(
                 self.draft.dcfg, dparams, prev[None], pk, cur[None, None],
-                self.spec_k, cache, window=self.window)
+                self.spec_k, cache, window=self.window, mesh=self.mesh)
             return cache, props[0]
 
         return vmap(one_lane)(dstacked, prev_chunks, prev_keeps, cur_toks)
@@ -324,7 +330,7 @@ class ServeGateway:
                 (lambda lg: self._sample(lg, noise[None]))
             out, nk, cache = tf.lm_spec_verify(
                 self.cfg, params, chunk[None], chunk[None, 1:], cache,
-                window=self.window, sample_fn=sf)
+                window=self.window, sample_fn=sf, mesh=self.mesh)
             return cache, out[0], nk
 
         noise = self._noise(chunks.shape[0], self.spec_k + 1)

@@ -1022,6 +1022,60 @@ def test_lm_mesh_on_distinct_cards_matches_one_card(cuda, model):
 
 
 @pytest.mark.cuda
+def test_lm_mesh_decode_on_distinct_cards_matches_one_card(cuda):
+    """The decode path on ``model=2`` with each cell on its own card
+    against the same mesh with both cells on one card, from one sharded
+    bank row of the tiny LM: a prefill of 6 tokens, 8 decode steps, then
+    one gateway step (an admission and a decode token) over the bank.
+    Logits and caches within 1e-7, the streams equal. Needs two cards;
+    skips with fewer."""
+    from repro_torch.config import ArchConfig
+    from repro_torch.core.registry import ModelRegistry
+    from repro_torch.core.scores import init_scores, push_accuracies
+    from repro_torch.launch.mesh import make_launch_mesh
+    from repro_torch.launch.sharding import lm_bank_shardings
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ServeGateway
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    cfg = ArchConfig(**LM_KW)
+    init = tf.init_lm(cfg, torch.Generator().manual_seed(0))
+    tok = torch.randint(0, cfg.vocab_size, (2, 14),
+                        generator=torch.Generator().manual_seed(1))
+    state = push_accuracies(init_scores(2, 4, ell=2), np.full((2, 4), 0.5))
+    runs = []
+    for devices in (["cuda:0"] * 2, ["cuda:0", "cuda:1"]):
+        mesh = make_launch_mesh(2, 1, devices=devices)
+        reg = ModelRegistry.create(init, m_cap=4, stacked=True,
+                                   shardings=lm_bank_shardings(cfg, init,
+                                                               mesh))
+        row = reg.params[0]
+        with torch.no_grad():
+            c = tf.init_lm_caches(cfg, 2, 16, device="cuda:0")
+            lg, c = tf.lm_prefill(cfg, row, tok[:, :6].cuda(), c, mesh=mesh)
+            logits = [lg]
+            for t in range(6, 14):
+                lg, c = tf.lm_decode(cfg, row, tok[:, t:t + 1].cuda(), c,
+                                     mesh=mesh)
+                logits.append(lg)
+        gw = ServeGateway(cfg, reg, lambda: state, max_len=32, lanes=2,
+                          chunk=8)
+        req = gw.submit(0, tok[0, :10].numpy(), max_new=4)
+        gw.step()
+        pool = next(iter(gw.groups.values())).pool.read()
+        runs.append((logits, c, list(req.tokens), pool))
+    (la, ca, ta, pa), (lb, cb, tb, pb) = runs
+    for a, b in zip(la, lb):
+        np.testing.assert_allclose(b.cpu(), a.cpu(), atol=1e-7, rtol=0)
+    for tree_a, tree_b in ((ca, cb), (pa, pb)):
+        for k, v in tree_a.items():
+            np.testing.assert_allclose(tree_b[k].float().cpu(),
+                                       v.float().cpu(), atol=1e-7, rtol=0,
+                                       err_msg=k)
+    assert ta == tb and len(ta) == 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 1), (2, 2)], ids=["2x1", "2x2"])
 def test_lm_mesh_on_card_matches_cpu(cuda, shape):
     """The tensor-parallel LM trainer with every cell on the card against

@@ -326,16 +326,35 @@ def test_run_resumes_after_restore_round_count(ref):
 
 def test_trainer_refuses_what_is_not_ported(ref):
     """A trainer takes a tensor-parallel mesh (ROADMAP item 13b.4; its
-    bars are in ``tests/test_torch_lm_mesh.py``), but serving it does
-    not: the decode-side steps refuse the trainer's mesh, naming item
-    15b. Draft rows are built: one 1-layer draft of the initial model, a
-    copy of its leading layer."""
+    bars are in ``tests/test_torch_lm_mesh.py``) and the decode-side
+    steps serve its rows on that mesh (item 15b.1): a prefill and a
+    decode step of the mesh bank's row equal the one-device steps on the
+    row gathered; a ``decode_2d`` layout is refused, naming item 15b.2.
+    Draft rows are built: one 1-layer draft of the initial model, a copy
+    of its leading layer."""
     from repro_torch.launch import steps as TS
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.launch.tensor_parallel import Sharded
+    from repro_torch.models import transformer as ttf
     tr = _trainer(ref[1], mesh=make_host_mesh(model=2))
-    for make in (TS.make_prefill_step, TS.make_serve_step):
-        with pytest.raises(NotImplementedError, match="15b"):
-            make(CFG, mesh=tr.mesh)
+    tok = torch.arange(8, dtype=torch.long).reshape(2, 4) * 5
+    outs = []
+    for m, p in ((tr.mesh, tr.registry.params[0]),
+                 (None, tr.executor.params_of(0))):
+        c = ttf.init_lm_caches(CFG, 2, 8)
+        last, c = TS.make_prefill_step(CFG, mesh=m)(p, c, tok, 3)
+        lg, _ = TS.make_serve_step(CFG, mesh=m)(p, c, tok[:, 3:])
+        outs.append((last, lg))
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+    whole = tr.executor.params_of(0)
+    d2 = {k: Sharded.place(whole[k], tr.mesh, v.spec)
+          for k, v in param_shardings(CFG, whole, tr.mesh,
+                                      policy="decode_2d").items()}
+    with pytest.raises(NotImplementedError, match="15b.2"):
+        TS.make_serve_step(CFG, mesh=tr.mesh)(
+            d2, ttf.init_lm_caches(CFG, 2, 8), tok[:, :1])
     for spec in ("llm", "legacy"):
         tr = _trainer(ref[1], spec, draft_layers=1)
         assert tr.draft.present == {0} and tr.draft.dcfg.n_layers == 1

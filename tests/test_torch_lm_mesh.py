@@ -12,7 +12,10 @@ the file's first test needs it and read when a test compares against it
 of reduced Phi-3.5-MoE at ``data=1`` / ``data=2`` and reduced DeepSeek-V3
 (MLA + MoE + MTP) at ``data=2``, and the one-device forwards of those
 and of reduced Qwen3-4B, xLSTM and Zamba2 (elsewhere the reference's
-mesh keeps the values of its one-device run).
+mesh keeps the values of its one-device run). The same subprocess runs
+the reference's ``make_prefill_step`` / ``make_serve_step`` with
+``mesh=make_launch_mesh(model=2, data=2)`` on reduced Phi-3.5-MoE and
+DeepSeek-V3 (``DECODE_CASES``), which the port's mesh decode follows.
 
 The port's mesh is ``make_host_mesh``: every cell on the CPU, the pieces
 of a leaf separate tensors; one tier puts the cells on two CPU device
@@ -71,6 +74,14 @@ FWD_DIMS = (4, 24)                   # batch, seq of the forward tiers
 # its tokens overflow an expert of one data shard that the whole batch
 # does not: the reference's mesh run drops other tokens
 CAPACITY_CASE = "phi3.5-moe-42b-a6.6b"
+# the reference's mesh decode steps on (model=2, data=2): rows, chunk,
+# n_valid, decode steps. 8 rows of one token and one row of a 4-token
+# chunk (the gateway's admission, which cuts tokens, not rows) are 4
+# tokens a data shard, under any capacity (at least 8); the forward's 4
+# rows of 24 tokens overflow an expert of one data shard for Phi
+DECODE_ARCHS = ("deepseek-v3-671b", "phi3.5-moe-42b-a6.6b")
+DECODE_CASES = {"b8": (8, 4, 4, 2), "b1": (1, 4, 3, 1),
+                "drop": (4, 24, 24, 0)}
 
 _REF_SCRIPT = textwrap.dedent("""
     import json
@@ -158,13 +169,48 @@ _REF_SCRIPT = textwrap.dedent("""
         return out
 
 
+    def decodes():
+        jax, tf = _jax()
+        import jax.numpy as jnp
+        from repro.configs import get_arch, reduced
+        from repro.launch import steps
+        from repro.launch.mesh import make_launch_mesh
+        mesh = make_launch_mesh(model=2, data=2)
+        out = {{}}
+        for i, name in enumerate({decode_archs!r}):
+            cfg = reduced(get_arch(name))
+            p = tf.init_lm(cfg, jax.random.PRNGKey(0))
+            prefill = jax.jit(steps.make_prefill_step(cfg, mesh=mesh))
+            serve = jax.jit(steps.make_serve_step(cfg, mesh=mesh))
+            rng = np.random.default_rng(10 + i)
+            for case, (b, s, nv, n) in {decode_cases!r}.items():
+                tag = f"dec/{{name}}/{{case}}/"
+                toks = rng.integers(0, cfg.vocab_size,
+                                    (b, s + n)).astype(np.int32)
+                if case == "drop":
+                    toks = np.asarray(np.random.default_rng(
+                        list({forwards!r}).index(name)).integers(
+                            0, cfg.vocab_size, {dims!r}), np.int32)
+                out[tag + "tokens"] = toks
+                c = tf.init_lm_caches(cfg, b, s + n)
+                lg, c = prefill(p, c, toks[:, :s], jnp.asarray(nv, jnp.int32))
+                out[tag + "0/logits"] = np.asarray(lg)
+                flat(out, tag + "0/caches/", c)
+                for j in range(n):
+                    lg, c = serve(p, c, toks[:, s + j:s + j + 1])
+                    out[tag + f"{{j + 1}}/logits"] = np.asarray(lg)
+                    flat(out, tag + f"{{j + 1}}/caches/", c)
+        return out
+
+
     if __name__ == "__main__":
         # the runs are independent: one worker process each
         out = {{}}
         ctx = mp.get_context("spawn")
-        with ProcessPoolExecutor(3, mp_context=ctx) as ex:
+        with ProcessPoolExecutor(4, mp_context=ctx) as ex:
             jobs = [ex.submit(trainer, m, d) for m, d in {trainers!r}]
             jobs.append(ex.submit(forwards))
+            jobs.append(ex.submit(decodes))
             for j in jobs:
                 out.update(j.result())
         np.savez({path!r}, **out)
@@ -179,7 +225,7 @@ class RefJob:
         code = _REF_SCRIPT.format(
             kw=KW, fk=FK, n=N_CLIENTS, per=PER, seq=SEQ, rounds=ROUNDS,
             dims=FWD_DIMS, trainers=TRAINER_MESHES, forwards=FORWARDS,
-            path=path)
+            decode_archs=DECODE_ARCHS, decode_cases=DECODE_CASES, path=path)
         env = dict(os.environ,
                    XLA_FLAGS="--xla_force_host_platform_device_count=4",
                    JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
@@ -542,20 +588,39 @@ def test_hints_keep_the_step_and_drafts_read_gathered_rows(init):
 
 
 def test_decode_side_mesh_raises_name_15b(init):
+    """The decode side takes the trainer's mesh (ROADMAP item 15b.1; the
+    bars are in ``tests/test_torch_lm_mesh_decode.py``): the prefill and
+    serve steps on a mesh row equal the one-device steps on the row
+    gathered, and a gateway serves the sharded bank. What is still
+    refused is a ``decode_2d`` layout (a spec over combined axes), whose
+    raise names item 15b.2."""
     mesh = make_host_mesh(model=2)
-    for make in (TS.make_prefill_step, TS.make_serve_step):
-        with pytest.raises(NotImplementedError, match="15b"):
-            make(CFG, mesh=mesh)
-    caches = ttf.init_lm_caches(CFG, 1, 8)
-    tok = torch.zeros((1, 1), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="15b"):
-        ttf.lm_decode(CFG, init, tok, caches, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="15b"):
-        ttf.lm_prefill(CFG, init, tok, caches, mesh=mesh)
-    from repro_torch.serve import ServeGateway
     tr = _trainer(init, "llm", mesh)
-    with pytest.raises(NotImplementedError, match="15b"):
-        ServeGateway(CFG, tr.registry, lambda: tr.state)
+    row = tr.registry.params[0]
+    tok = torch.arange(12, dtype=torch.long).reshape(2, 6) % CFG.vocab_size
+    outs = []
+    for m, p in ((mesh, row), (None, tr.executor.params_of(0))):
+        c = ttf.init_lm_caches(CFG, 2, 8)
+        last, c = TS.make_prefill_step(CFG, mesh=m, hints=True)(
+            p, c, tok, 5)
+        lg, c = TS.make_serve_step(CFG, mesh=m)(p, c, tok[:, 5:])
+        outs.append((last, lg, c))
+    for a, b in zip(outs[0][:2], outs[1][:2]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+    for k, v in outs[1][2].items():
+        np.testing.assert_allclose(outs[0][2][k].numpy(), v.numpy(),
+                                   atol=1e-6, err_msg=k)
+    from repro_torch.serve import ServeGateway
+    gw = ServeGateway(CFG, tr.registry, lambda: tr.state)
+    req = gw.submit(0, [1, 2, 3], max_new=4)
+    gw.drain()
+    assert req.done and len(req.tokens) == 4
+    d2 = {k: Sharded.place(init[k], mesh, v.spec)
+          for k, v in param_shardings(CFG, init, mesh,
+                                      policy="decode_2d").items()}
+    with pytest.raises(NotImplementedError, match="15b.2"):
+        ttf.lm_decode(CFG, d2, tok[:, :1], ttf.init_lm_caches(CFG, 2, 8),
+                      mesh=mesh)
 
 
 def test_trainer_checks_device_and_mesh(init):
@@ -634,3 +699,53 @@ def test_mesh_forward_matches_the_reference(ref_job, name):
         if d > 1 and name == CAPACITY_CASE:
             assert np.abs(arrays[tag + "logits"]
                           - arrays[one + "logits"]).max() > 1e-3
+
+
+def _ref_caches(arrays, prefix):
+    return {k[len(prefix):]: torch.from_numpy(v) for k, v in arrays.items()
+            if k.startswith(prefix)}
+
+
+@pytest.mark.parametrize("name", DECODE_ARCHS)
+def test_mesh_decode_steps_match_the_reference_mesh_run(ref_job, name):
+    """``make_prefill_step`` / ``make_serve_step`` on ``(model=2,
+    data=2)`` against the reference's own mesh run (``DECODE_CASES``):
+    logits 1e-5, caches 1e-6 of each leaf's scale, ``index`` / ``pos``
+    exact. 8 rows split over the data shards; the batch-1 admission chunk
+    does not, and ``apply_moe_mesh`` cuts its 4 tokens per shard as the
+    reference does; in the ``drop`` case the per-shard capacity drops
+    tokens (for Phi the reference's mesh prefill differs from the port's
+    one-device prefill by more than 1e-3), so a capacity taken over the
+    whole batch would fail."""
+    arrays = ref_job.result()
+    tc, tp, _ = _forward_case(arrays, name)
+    mesh = make_host_mesh(model=2, data=2)
+    prefill = TS.make_prefill_step(tc, mesh=mesh)
+    serve = TS.make_serve_step(tc, mesh=mesh)
+    for case, (b, s, nv, n) in DECODE_CASES.items():
+        tag = f"dec/{name}/{case}/"
+        toks = torch.from_numpy(arrays[tag + "tokens"].astype(np.int64))
+        c = ttf.init_lm_caches(tc, b, s + n)
+        outs = [prefill(tp, c, toks[:, :s], nv)]
+        for j in range(n):
+            outs.append(serve(tp, outs[-1][1], toks[:, s + j:s + j + 1]))
+        for j, (lg, c) in enumerate(outs):
+            np.testing.assert_allclose(lg.numpy(),
+                                       arrays[tag + f"{j}/logits"],
+                                       atol=1e-5, rtol=1e-5,
+                                       err_msg=tag + str(j))
+            want = _ref_caches(arrays, tag + f"{j}/caches/")
+            assert list(c) == list(want)
+            for k, w in want.items():
+                if w.dtype.is_floating_point:
+                    scale = max(1.0, float(w.abs().max()))
+                    np.testing.assert_allclose(c[k].numpy(), w.numpy(),
+                                               atol=1e-6 * scale, rtol=0,
+                                               err_msg=tag + k)
+                else:
+                    assert torch.equal(c[k], w), tag + k
+        if case == "drop" and name == CAPACITY_CASE:
+            one = TS.make_prefill_step(tc)(
+                tp, ttf.init_lm_caches(tc, b, s), toks, nv)[0]
+            assert np.abs(arrays[tag + "0/logits"]
+                          - one.numpy()).max() > 1e-3

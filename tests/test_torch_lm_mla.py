@@ -129,22 +129,39 @@ def test_lm_forward_and_mtp_logits_match(ref):
 
 
 def test_lm_and_mtp_refuse_a_mesh():
-    """The forward and the MTP head take a tensor-parallel mesh (ROADMAP
-    item 13b.4; bars in ``tests/test_torch_lm_mesh.py``): at ``data=1``
-    they keep the one-device values. The decode path refuses one, naming
-    item 15b."""
+    """The forward and the MTP head (ROADMAP item 13b.4) and the decode
+    path (item 15b.1) take a tensor-parallel mesh: at ``data=1`` they
+    keep the one-device values, the MLA latent caches too (bars in
+    ``tests/test_torch_lm_mesh.py`` and ``test_torch_lm_mesh_decode.py``).
+    A ``decode_2d`` layout is refused, naming item 15b.2."""
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.launch.tensor_parallel import Sharded
     mesh = make_host_mesh(model=2)
     p = ttf.init_lm(TCFG, torch.Generator().manual_seed(0))
-    tok = torch.zeros((1, 4), dtype=torch.long)
+    tok = torch.arange(4, dtype=torch.long)[None] * 5
     lg, h, _ = ttf.lm_forward(TCFG, p, tok, mesh=mesh)
     lg0, h0, _ = ttf.lm_forward(TCFG, p, tok)
     np.testing.assert_allclose(lg.numpy(), lg0.numpy(), atol=1e-5)
     np.testing.assert_allclose(
         ttf.mtp_logits(TCFG, p, h, tok, mesh=mesh).numpy(),
         ttf.mtp_logits(TCFG, p, h0, tok).numpy(), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="15b"):
-        ttf.lm_decode(TCFG, p, tok[:, :1], ttf.init_lm_caches(TCFG, 1, 8),
+    outs = []
+    for m in (mesh, None):
+        c = ttf.init_lm_caches(TCFG, 1, 8)
+        _, c = ttf.lm_prefill(TCFG, p, tok, c, mesh=m)
+        ld, c = ttf.lm_decode(TCFG, p, tok[:, :1], c, mesh=m)
+        outs.append((ld, c))
+    np.testing.assert_allclose(outs[0][0].numpy(), outs[1][0].numpy(),
+                               atol=1e-5)
+    for k, v in outs[1][1].items():
+        np.testing.assert_allclose(outs[0][1][k].numpy(), v.numpy(),
+                                   atol=1e-5, err_msg=k)
+    d2 = {k: Sharded.place(p[k], mesh, v.spec)
+          for k, v in param_shardings(TCFG, p, mesh,
+                                      policy="decode_2d").items()}
+    with pytest.raises(NotImplementedError, match="15b.2"):
+        ttf.lm_decode(TCFG, d2, tok[:, :1], ttf.init_lm_caches(TCFG, 1, 8),
                       mesh=mesh)
 
 

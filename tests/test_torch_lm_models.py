@@ -269,20 +269,39 @@ def test_other_families_raise_not_implemented(name):
 
 
 def test_mesh_raises_not_implemented():
-    """The forward takes a mesh (ROADMAP item 13b.4, held in
-    ``tests/test_torch_lm_mesh.py``); the decode path does not yet, and
-    its raises name item 15b."""
+    """The forward (ROADMAP item 13b.4) and the decode path (item 15b.1)
+    take a mesh: on ``model=2`` the forward, a prefill and a decode step
+    keep the one-device values (the bars of every family are in
+    ``tests/test_torch_lm_mesh.py`` and ``test_torch_lm_mesh_decode.py``).
+    A ``decode_2d`` layout is still refused, naming item 15b.2."""
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.launch.tensor_parallel import Sharded
     _, tc = _arch_pair("qwen3-4b")
     params = ttf.init_lm(tc, torch.Generator().manual_seed(0))
-    tok = torch.zeros((1, 4), dtype=torch.long)
+    tok = torch.arange(4, dtype=torch.long)[None] * 7
     mesh = make_host_mesh(model=2)
     lg, _, _ = ttf.lm_forward(tc, params, tok, mesh=mesh)
     np.testing.assert_allclose(lg.numpy(),
                                ttf.lm_forward(tc, params, tok)[0].numpy(),
                                atol=1e-5)
-    caches = ttf.init_lm_caches(tc, 1, 8)
-    with pytest.raises(NotImplementedError, match="15b"):
-        ttf.lm_decode(tc, params, tok[:, :1], caches, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="15b"):
-        ttf.lm_prefill(tc, params, tok, caches, mesh=mesh)
+    outs = []
+    for m in (mesh, None):
+        lp, c = ttf.lm_prefill(tc, params, tok, ttf.init_lm_caches(tc, 1, 8),
+                               mesh=m)
+        ld, c = ttf.lm_decode(tc, params, tok[:, :1], c, mesh=m)
+        outs.append((lp, ld, c))
+    for a, b in zip(outs[0][:2], outs[1][:2]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+    for k, v in outs[1][2].items():
+        np.testing.assert_allclose(outs[0][2][k].numpy(), v.numpy(),
+                                   atol=1e-5, err_msg=k)
+    d2 = {k: Sharded.place(params[k], mesh, v.spec)
+          for k, v in param_shardings(tc, params, mesh,
+                                      policy="decode_2d").items()}
+    with pytest.raises(NotImplementedError, match="15b.2"):
+        ttf.lm_decode(tc, d2, tok[:, :1], ttf.init_lm_caches(tc, 1, 8),
+                      mesh=mesh)
+    with pytest.raises(NotImplementedError, match="15b.2"):
+        ttf.lm_prefill(tc, d2, tok, ttf.init_lm_caches(tc, 1, 8),
+                       mesh=mesh)

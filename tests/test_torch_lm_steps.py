@@ -297,16 +297,39 @@ def test_quantize_grads_is_one_group_call(monkeypatch):
 
 
 def test_steps_refuse_what_is_not_ported():
-    """A mesh on the decode-side step builders raises, naming ROADMAP
-    item 15b (the train and eval steps take one since item 13b.4: their
-    bars are in ``tests/test_torch_lm_mesh.py``). The audio step is
-    ported: its train step on reduced whisper-small moves the reference's
-    way (the parity bars are in ``tests/test_torch_encdec.py``)."""
-    for make in (TS.make_prefill_step, TS.make_serve_step):
-        with pytest.raises(NotImplementedError, match="15b"):
-            make(TCFG, mesh=object())
+    """Every step builder takes a mesh: the train and eval steps since
+    ROADMAP item 13b.4, the prefill and serve steps since item 15b.1
+    (their bars are in ``tests/test_torch_lm_mesh.py`` and
+    ``test_torch_lm_mesh_decode.py``). Here: the prefill and serve steps
+    on ``model=2`` equal the one-device steps; a ``decode_2d`` layout is
+    refused, naming item 15b.2; the audio serve step on a mesh runs on
+    the params gathered whole. The audio train step on reduced
+    whisper-small moves the reference's way (the parity bars are in
+    ``tests/test_torch_encdec.py``)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.launch.tensor_parallel import Sharded
+    from repro_torch.models import encdec as ted
+    mesh = make_host_mesh(model=2)
     TS.make_train_step(TCFG, mesh=object())
     TS.make_eval_step(TCFG, N_CLIENTS, mesh=object())
+    p = ttf.init_lm(TCFG, torch.Generator().manual_seed(0))
+    tok = torch.arange(10, dtype=torch.long).reshape(2, 5) * 3
+    outs = []
+    for m in (mesh, None):
+        c = ttf.init_lm_caches(TCFG, 2, 8)
+        last, c = TS.make_prefill_step(TCFG, mesh=m)(p, c, tok, 4)
+        lg, c = TS.make_serve_step(TCFG, mesh=m)(p, c, tok[:, 4:])
+        outs.append((last, lg))
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+    d2 = {k: Sharded.place(p[k], mesh, v.spec)
+          for k, v in param_shardings(TCFG, p, mesh,
+                                      policy="decode_2d").items()}
+    for make, args in ((TS.make_prefill_step, (tok, 4)),
+                       (TS.make_serve_step, (tok[:, :1],))):
+        with pytest.raises(NotImplementedError, match="15b.2"):
+            make(TCFG, mesh=mesh)(d2, ttf.init_lm_caches(TCFG, 2, 8), *args)
     from repro import configs as jconfigs
     from repro_torch import configs as tconfigs
     from repro.models import encdec as jed
@@ -325,3 +348,10 @@ def test_steps_refuse_what_is_not_ported():
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                atol=1e-5, rtol=1e-5)
     _close(tq, jq, atol=1e-6)
+    sp = {k: Sharded.place(v, mesh, s.spec)
+          for (k, v), s in zip(tq.items(),
+                               param_shardings(tc, tq, mesh).values())}
+    caches = ted.init_encdec_caches(tc, tq, _t(frames), 8)
+    got = TS.make_serve_step(tc, mesh=mesh)(sp, caches, _t(toks[:, :1]).long())
+    want = TS.make_serve_step(tc)(tq, caches, _t(toks[:, :1]).long())
+    assert torch.equal(got[0], want[0])
