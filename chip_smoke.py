@@ -94,8 +94,17 @@ the bank gathered; 20.2, Qwen3-4B at phase 14's tier from the bank phase
 and from the bank gathered (prefill tokens/s, decode ms and aten
 operators a token, peak memory, the share of greedy tokens equal, each
 differing token classified by its top-2 logit gap against the bf16
-noise). Each phase ends in an ``[elapsed]`` line with the script's wall
-clock.
+noise). Phase 21 holds the dry run (``repro_torch.launch.dryrun``)
+against the card: 21.1, float32, params laid out by the ``decode_2d``
+policy on ``model=2, data=2`` and the ``pod`` meshes (``dp_axes=("pod",
+"data")``) for reduced Qwen3-4B and Phi-3.5-MoE against the one-device
+run; 21.2, Qwen3-4B at phase 14's tier, one train step (the default
+remat) on one device and on ``model=2`` beside the dry run's trace of the
+same step on ``meta`` cells: the FLOPs the port's counter reads on the
+card must equal the prediction, as must the collectives by cell; the
+peak against ``max_memory_allocated``, the step's device ms and its
+share of the bf16 peak are printed. Each phase ends in an
+``[elapsed]`` line with the script's wall clock.
 
     python3 chip_smoke.py
 
@@ -324,6 +333,17 @@ MESH_SERVE_MODES = (("vanilla", {}), ("spec", dict(spec_k=3)),
 MESH_QWEN = (8, 512, 32)            # batch, prompt, greedy decode steps
 MESH_QWEN_GW = dict(max_len=256, lanes=8, chunk=64)
 MESH_QWEN_SERVE = (8, 128, 32)      # requests, prompt, new tokens
+# the dry run against the card (phase 21): 21.1 the decode_2d and pod
+# layouts of tests/test_torch_dryrun.py on reduced Qwen3-4B and
+# Phi-3.5-MoE (float32; Phi with a capacity no batch here fills) against
+# the one-device run, every cell on the card; 21.2 Qwen3-4B at phase 14's
+# tier, one train step (default remat) on one device and on model=2 of
+# the card beside the dry run's trace of that step on meta cells
+DRY_ARCHS = ("qwen3-4b", "phi3.5-moe-42b-a6.6b")
+DRY_DECODE = (4, 4, 4)                   # batch, prompt, decode steps
+DRY_POD_MESHES = ((2, 2, 1), (2, 1, 2))  # pod, data, model
+DRY_MODEL = 2
+DRY_PEAK_TOL = 0.10                      # predicted peak against the card
 
 
 def fail(msg: str) -> None:
@@ -1726,9 +1746,10 @@ def lm_trainer(arch, fed, dims, spec, device, init, seed=0, mesh=None):
                          mesh=mesh)
 
 
-def lm_snapshot(tr):
+def lm_snapshot(tr, on_card=False):
     """A trainer's discrete state, score history, losses and live params
-    (on the host)."""
+    (on the host; ``on_card``: the params where they lie, for a
+    comparison on the card)."""
     return {
         "active": tr.state.active.copy(), "alive": tr.state.alive.copy(),
         "live": tr.registry.live_ids(),
@@ -1738,7 +1759,7 @@ def lm_snapshot(tr):
         "live_per_round": [m.live_models for m in tr.metrics],
         "history": tr.state.history.copy(),
         "losses": [m.mean_loss for m in tr.metrics],
-        "params": {m: {k: v.detach().cpu()
+        "params": {m: {k: v.detach() if on_card else v.detach().cpu()
                        for k, v in tr.executor.params_of(m).items()}
                    for m in tr.registry.live_ids()},
     }
@@ -1757,9 +1778,12 @@ def lm_compare(a, b, tag):
     if not np.array_equal(np.isnan(ha), np.isnan(hb)):
         fail(f"{tag}: score histories differ in their empty slots")
     hist = float(np.nanmax(np.abs(ha - hb), initial=0.0))
-    perr = max(float((a["params"][m][k].float()
-                      - b["params"][m][k].float()).abs().max())
-               for m in a["params"] for k in a["params"][m])
+    perr = 0.0
+    for m in a["params"]:
+        for k, x in a["params"][m].items():
+            y = b["params"][m][k]
+            perr = max(perr, float((x.to(y.device).float()
+                                    - y.float()).abs().max()))
     return hist, perr
 
 
@@ -2051,7 +2075,9 @@ def lm_full_width(device, card_line, name=LM_ARCH, cut=None,
         if not any(r[2] for r in rows):
             fail(f"LM full width {arch.name} {spec}: no model trained")
         if len(specs) > 1:
-            snaps[spec] = lm_snapshot(tr)
+            # the last engine's params stay on the card: the comparison
+            # runs there, each leaf of the first copied back
+            snaps[spec] = lm_snapshot(tr, on_card=spec == specs[-1])
         del tr, timer
         gc.collect()
         torch.cuda.empty_cache()
@@ -3448,6 +3474,232 @@ def mesh_decode_phase(device, card_line, counters, tr):
     return counts
 
 
+# -- phase 21: the dry run's prediction against the card ---------------------
+
+def dry_decode(cfg, params, toks, mesh=None, dp=("data",)):
+    """Phase 21.1, one run: a prefill of DRY_DECODE's prompt and its
+    decode steps; each call's logits and caches, on the host (caches
+    whole)."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    B, P, N = DRY_DECODE
+    prefill = steps.make_prefill_step(cfg, mesh=mesh, dp_axes=dp)
+    serve = steps.make_serve_step(cfg, mesh=mesh, dp_axes=dp)
+    with torch.no_grad():
+        c = tf.init_lm_caches(cfg, B, P + N, device=toks.device)
+        outs = [prefill(params, c, toks[:, :P], P)]
+        for j in range(N):
+            outs.append(serve(params, outs[-1][1], toks[:, P + j:P + j + 1]))
+    return [(lg.cpu(), {k: v.cpu() for k, v in c.items()})
+            for lg, c in outs]
+
+
+def dry_gaps(a, b, tag):
+    """Logits max_abs_err and cache max_err/scale of two dry_decode
+    runs (integer cache leaves must be equal)."""
+    lgap = max(float((x[0] - y[0]).abs().max()) for x, y in zip(a, b))
+    cgap = max(cache_gaps(x[1], y[1], tag) for x, y in zip(a, b))
+    return lgap, cgap
+
+
+def dry_train(cfg, params, toks, mesh=None, dp=("data",)):
+    """Phase 21.1: one train step (float32, no remat) from a copy of
+    ``params``; the updated params and the loss, on the host."""
+    import torch
+
+    from repro_torch.launch import steps
+    p = {k: v.clone() for k, v in params.items()}
+    scores = torch.tensor([0.25, 0.75], device=toks.device)
+    q, m = steps.make_train_step(cfg, mesh, dp, lr=0.05, remat=False)(
+        p, toks[:, :-1], toks[:, 1:], scores)
+    return {k: v.cpu() for k, v in q.items()}, float(m["loss"])
+
+
+def dry_layouts(device, drive):
+    """Phase 21.1 (module docstring): on cells of the card, params laid
+    out by the decode_2d policy on (model=2, data=2), and the pod meshes
+    of DRY_POD_MESHES (dp_axes=("pod", "data")), against the one-device
+    run on the card at phase 17's bars; the pod meshes' train step
+    against one device's (params MESH_PARAM_TOL; Phi's against the flat
+    mesh of as many data cells, whose load-balance loss is the same mean
+    over the data shards)."""
+    import torch
+
+    from repro_torch.config import override
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.mesh import make_launch_mesh
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.launch.tensor_parallel import Sharded
+    from repro_torch.models import transformer as tf
+    B, P, N = DRY_DECODE
+    for name in DRY_ARCHS:
+        cfg = reduced(get_arch(name))
+        if cfg.moe.n_experts:
+            cfg = override(cfg, **{"moe.capacity_factor": 4.0})
+        params = {k: v.to(device) for k, v in
+                  tf.init_lm(cfg, torch.Generator().manual_seed(0)).items()}
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (B, P + N))).to(device)
+        one = drive(f"dry {name} one-device",
+                    lambda: dry_decode(cfg, params, toks))
+        mesh = card_mesh(device, 2, 2)
+        d2 = {k: Sharded.place(params[k], mesh, v.spec) for k, v in
+              param_shardings(cfg, params, mesh, "decode_2d").items()}
+        got = drive(f"dry {name} decode_2d 2x2",
+                    lambda: dry_decode(cfg, d2, toks, mesh))
+        runs = {"decode_2d model=2,data=2": dry_gaps(got, one, name)}
+        train_one = dry_train(cfg, params, toks)
+        for pod, data, model in DRY_POD_MESHES:
+            tag = f"pod={pod},data={data},model={model}"
+            mesh = make_launch_mesh(model, data, pod=pod,
+                                    devices=[device] * (pod * data * model))
+            dp = ("pod", "data")
+            got = drive(f"dry {name} {tag}",
+                        lambda: dry_decode(cfg, params, toks, mesh, dp))
+            ref = (dry_train(cfg, params, toks,
+                             card_mesh(device, model, pod * data))
+                   if cfg.moe.n_experts else train_one)
+            q, loss = drive(f"dry {name} {tag} train",
+                            lambda: dry_train(cfg, params, toks, mesh, dp))
+            perr = max(float((q[k] - ref[0][k]).abs().max()) for k in q)
+            runs[tag] = (*dry_gaps(got, one, name), perr,
+                         abs(loss - ref[1]))
+        print(f"[dry layouts {name}] {cfg.name} (float32, {cfg.n_layers} "
+              f"layers), B={B}, prefill {P} + {N} decode steps against one "
+              f"device (logits max_abs_err, cache max_err/scale[, train "
+              f"params max_abs_err, loss diff; Phi against the flat mesh]): "
+              f"{runs}", flush=True)
+        for tag, gaps in runs.items():
+            if not (gaps[0] <= DECODE_LOGIT_TOL and gaps[1] <= DECODE_CACHE_TOL
+                    and all(g <= MESH_PARAM_TOL for g in gaps[2:])):
+                fail(f"dry {name} {tag}: {gaps} beyond the bars")
+
+
+def dry_step(device, arch, params, mesh, n_clients, predicted, card_line):
+    """Phase 21.2, one layout: a warm step, one under CUDA events (peak
+    memory from a reset), one under the port's counter; each beside the
+    dry run's ``predicted`` trace of the same step. Returns the record."""
+    import torch
+
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.launch.tensor_parallel import Sharded
+    from repro_torch.roofline.analysis import HW
+    from repro_torch.roofline.trace_analyzer import TraceCounter
+    B, S = FULL_LM_CLIENTS * FULL_LM_PER, FULL_LM_SEQ
+    g = torch.Generator(device=device).manual_seed(7)
+    toks = torch.randint(0, arch.vocab_size, (B, S + 1), generator=g,
+                         device=device, dtype=torch.int32)
+    scores = torch.rand((n_clients,), generator=g, device=device)
+    if mesh is not None:
+        params = {k: Sharded.place(params[k], mesh, v.spec) for k, v in
+                  param_shardings(arch, params, mesh).items()}
+    step = steps.make_train_step(arch, mesh)
+    args = (params, toks[:, :-1], toks[:, 1:], scores)
+    step(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _, ms = timed(lambda: step(*args))
+    peak = torch.cuda.max_memory_allocated()
+    counter = TraceCounter()
+    counter.add_inputs(dryrun.held(args[:1], mesh))
+    counter.add_inputs(dryrun.held(args[1:], mesh), batch=True)
+    with counter:
+        step(*args)
+    torch.cuda.synchronize()
+    card = counter.result(lambda t: t["flops"])
+    flops = sum(c["flops"] for c in card["cells"].values())
+    want = predicted["counts"]
+    want_flops = sum(c["flops"] for c in want["cells"].values())
+    coll = {cell: {k: v for k, v in c["collective_counts"].items() if v}
+            for cell, c in card["cells"].items()}
+    want_coll = {cell: {k: v for k, v in c["collective_counts"].items() if v}
+                 for cell, c in want["cells"].items()}
+    target = (predicted["peak_bytes_all_cells"] if mesh is not None
+              else predicted["peak_bytes"])
+    share = flops / (ms / 1e3) / HW().peak_flops
+    rec = {"ms": ms, "flops": flops, "predicted_flops": want_flops,
+           "peak": peak, "predicted_peak": target, "base": base,
+           "counter_peak": (card["peak_bytes_all_cells"] if mesh is not None
+                            else card["peak_bytes"]),
+           "tflops": flops / (ms / 1e3) / 1e12, "share": share,
+           "collectives": coll, "predicted_collectives": want_coll,
+           "trace_s": predicted["trace_s"]}
+    tag = "one device" if mesh is None else f"model={DRY_MODEL}"
+    print(f"[dry qwen {tag}] {arch.name} at {arch.n_layers} layers "
+          f"({arch.param_dtype}), B={B} S={S}, remat default: step device "
+          f"ms={ms:.3f}, FLOPs card={flops:.6e} predicted={want_flops:.6e} "
+          f"(equal={flops == want_flops}), {rec['tflops']:.1f} TFLOP/s = "
+          f"{share:.4f} of the bf16 peak {HW().peak_flops:.3e}; "
+          f"max_memory_allocated={peak} ({peak / 2**30:.2f} GiB) predicted "
+          f"peak={target} ({target / 2**30:.2f} GiB, "
+          f"{(target - peak) / peak:+.4f}), the counter's peak on the card="
+          f"{rec['counter_peak']}, allocated when the step began={base}; "
+          f"collectives by cell card={coll} "
+          f"predicted={want_coll}; dry-run trace_s={predicted['trace_s']} "
+          f"({card_line})", flush=True)
+    if flops != want_flops or coll != want_coll:
+        fail(f"dry qwen {tag}: FLOPs {flops} / collectives {coll} against "
+             f"the prediction {want_flops} / {want_coll}")
+    return rec
+
+
+def dry_phase(device, card_line, counters):
+    """Phase 21 (module docstring); returns each path's launch counts, by
+    path name (none of them launches a kernel)."""
+    import gc
+
+    import torch
+
+    from repro_torch.config import ShapeConfig, override
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tf
+    counts = {}
+
+    def drive(tag, fn):
+        for f in counters:
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts[tag] = {f.__name__: f.launches for f in counters}
+        if any(counts[tag].values()):
+            fail(f"{tag}: kernel launches {counts[tag]}, predicted none")
+        return out
+
+    dry_layouts(device, drive)
+    arch = override(get_arch(LM_ARCH), **FULL_LM_CUT)
+    shape = ShapeConfig("phase14", FULL_LM_SEQ, FULL_LM_CLIENTS * FULL_LM_PER,
+                        "train")
+    predicted = {
+        "one": dryrun.trace_case(arch, shape, None, remat=True,
+                                 n_clients=FULL_LM_CLIENTS),
+        "mesh": dryrun.trace_case(arch, shape,
+                                  dryrun.mesh_of(f"model={DRY_MODEL}"),
+                                  remat=True, n_clients=FULL_LM_CLIENTS)}
+    params = tf.init_lm(arch, torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    records = {}
+    for key, mesh in (("one", None),
+                      ("mesh", card_mesh(device, DRY_MODEL, 1))):
+        records[key] = drive(f"dry qwen {key}", lambda: dry_step(
+            device, arch, params, mesh, FULL_LM_CLIENTS, predicted[key],
+            card_line))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, r in records.items():
+        miss = abs(r["predicted_peak"] - r["peak"]) / r["peak"]
+        print(f"[dry qwen peak {key}] predicted {r['predicted_peak']} "
+              f"against max_memory_allocated {r['peak']}: off by "
+              f"{miss:.4f} (bar {DRY_PEAK_TOL}; PERF.md names the gap)",
+              flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3761,6 +4013,10 @@ def main() -> int:
     later.update(mesh_decode_phase(device, card_line, counters, mesh_tr))
     del mesh_tr
     elapsed(20)
+    # phase 21: the dry run against the card (the decode_2d and pod
+    # layouts against one device; Qwen3-4B's step beside its meta trace)
+    later.update(dry_phase(device, card_line, counters))
+    elapsed(21)
 
     # launches: kernels 1-3 on the fused main path, weighted_agg on the
     # legacy path; dequant_agg is on no path, so its count stays 0. Each

@@ -1,11 +1,15 @@
-"""Architecture registry + reduced (smoke) variants (port of
-``repro/configs/base.py``; ``input_specs``, the dry run's abstract
-inputs, has no counterpart here)."""
+"""Architecture registry + reduced (smoke) variants + input specs (port
+of ``repro/configs/base.py``, whole)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
 
 from repro_torch.config import ArchConfig, ShapeConfig, override
+from repro_torch.models.common import dtype_of
+
+Spec = Tuple[Tuple[int, ...], torch.dtype]
 
 ARCH_REGISTRY: Dict[str, ArchConfig] = {}
 
@@ -59,6 +63,37 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
     if cfg.ssm.state_dim and cfg.family not in ("hybrid",):
         kw.update({"ssm.head_dim": 32, "ssm.state_dim": 16, "ssm.chunk": 16})
     return override(cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# (shape, dtype) stand-ins for every model input (dry-run contract)
+# ---------------------------------------------------------------------------
+def input_specs(cfg: ArchConfig, shape: ShapeConfig,
+                n_clients: int = 16) -> Dict[str, Spec]:
+    """Abstract inputs for the step the shape lowers (no allocation), as
+    ``(shape, dtype)`` pairs (the reference's ``ShapeDtypeStruct``s; the
+    dry run makes ``meta`` tensors of them).
+
+    train   -> tokens/labels (B, S) + FedCD per-client scores (n_clients,)
+    prefill -> tokens (B, S)
+    decode  -> tokens (B, 1)  (caches are built by the launcher)
+    Audio adds stub frames (B, source_len, d_model); see frontends.py.
+    """
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    specs: Dict[str, Spec] = {}
+    if shape.kind == "train":
+        specs["tokens"] = ((B, S), i32)
+        specs["labels"] = ((B, S), i32)
+        specs["client_scores"] = ((n_clients,), torch.float32)
+    elif shape.kind == "prefill":
+        specs["tokens"] = ((B, S), i32)
+    else:  # decode
+        specs["tokens"] = ((B, 1), i32)
+    if cfg.family == "audio":
+        specs["frames"] = ((B, cfg.encdec.source_len, cfg.d_model),
+                           dtype_of(cfg.compute_dtype))
+    return specs
 
 
 def shape_supported(cfg: ArchConfig, shape: ShapeConfig) -> bool:

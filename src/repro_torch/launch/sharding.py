@@ -39,10 +39,15 @@ puts ``data`` on the layer axis where ``L`` divides and ``model`` on
 ``hd``, cutting every head in half. The port's cells compute whole heads
 (``attention.heads_per_cell``), so that layout would gather every cache
 at every token. :func:`cache_shardings` puts ``Kv`` on ``model`` where
-the attention heads split, the batch on ``data`` where the rows split,
-and replicates everything else. Both are placements only: the values are
-the same. :func:`auto_shardings` stays, unchanged, for the dry run
-(ROADMAP item 15b.2).
+the attention heads split, the batch on the data-parallel axes where the
+rows split, and replicates everything else. Both are placements only:
+the values are the same. :func:`auto_shardings` stays as ported and
+spec-equal to the reference's; the port's dry run (``launch/dryrun.py``)
+lays caches out by :func:`cache_shardings`, the layout the port runs.
+
+On a multi-pod mesh ``dp = ("pod", "data")``: every data-parallel entry
+is that combined entry, which the runtime reads as one data axis over
+the flat data-parallel index (``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -301,11 +306,14 @@ def cache_shardings(cfg: ArchConfig, caches: Dict[str, Any],
     (module docstring): ``k`` / ``v`` of a GQA segment keep their KV
     heads on ``model`` where the heads split (the hybrid's shared block
     runs gathered, MLA's latents have no head axis); every leaf but
-    ``index`` / ``pos`` keeps its batch on ``data`` where the rows split
-    over the data-parallel axes ``dp_axes`` (the batch divides)."""
+    ``index`` / ``pos`` keeps its batch on the data-parallel axes
+    (``("data",)``, or ``("pod", "data")`` on a multi-pod mesh) where the
+    rows split over them (the batch divides; ``dp_axes`` names them, as
+    the mesh runtime's ``MeshRun``)."""
     kinds = [k for k, _ in groupby(cfg.layout())]
     tpn = mesh.shape["model"]
-    dpn = mesh.shape["data"] if "data" in dp_axes else 1
+    dp = tuple(a for a in dp_axes if a in mesh.axis_names)
+    dpn = dp_size(mesh) if dp else 1
 
     def spec_for(name, leaf):
         shape = _shape_of(leaf)
@@ -315,7 +323,7 @@ def cache_shardings(cfg: ArchConfig, caches: Dict[str, Any],
         if leaf_name in ("index", "pos") or len(shape) <= nstack:
             return NamedSharding(mesh, P(*spec))
         if dpn > 1 and shape[nstack] % dpn == 0:
-            spec[nstack] = "data"
+            spec[nstack] = dp
         if (cfg.family != "hybrid" and leaf_name in ("k", "v")
                 and kinds[int(prefix)] in (C.ATTN_MLP, C.ATTN_MOE)
                 and heads_split(cfg, tpn)):

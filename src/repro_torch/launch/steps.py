@@ -53,7 +53,7 @@ import torch
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.launch.tensor_parallel import (Block, Sharded, narrow_block,
-                                                reduce_replicas)
+                                                on_cell, reduce_replicas)
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import Params
@@ -262,6 +262,14 @@ def _flat(tree: GradTree) -> List[torch.Tensor]:
             for t in _tensors(p)]
 
 
+def _cells(tree: GradTree) -> List[Tuple[int, int]]:
+    """The cell of each tensor of ``_flat(tree)``: a piece's first
+    holder, a whole tensor's ``(0, 0)``."""
+    return [cell for g in tree.values() for p in _parts(g)
+            for cell in ([(0, 0)] if isinstance(p, torch.Tensor) else
+                         [c for c, _ in p.holders()])]
+
+
 def _unflat(tree: GradTree, flat: Sequence[torch.Tensor]) -> GradTree:
     """``flat`` (aligned with ``_flat(tree)``) in ``tree``'s structure; a
     sharded part's copies of one block take their group's summed
@@ -292,7 +300,7 @@ def _grads(total: torch.Tensor, flat: Sequence[torch.Tensor]
 
 def make_train_step(cfg: ArchConfig, mesh=None,
                     dp_axes: Tuple[str, ...] = ("data",),
-                    lr: float = 1e-2, remat: bool = True,
+                    lr: float = 1e-2, remat: Union[bool, str] = True,
                     microbatches: int = 1, hints: bool = False,
                     grad_transport_bits: int = 0) -> Callable:
     """FedCD mode-B round step.
@@ -301,7 +309,8 @@ def make_train_step(cfg: ArchConfig, mesh=None,
          [, frames]) -> (params, metrics)
 
     ``params`` is updated in place (module docstring). ``remat``
-    recomputes each layer in the backward pass; ``microbatches`` splits
+    recomputes each layer in the backward pass (``True`` / ``"full"``, or
+    ``"dots"``: ``models.common.remat_call``); ``microbatches`` splits
     the batch and sums the float32 gradients, as the reference's scan;
     ``grad_transport_bits=8`` compresses the aggregated update before the
     parameter update (transport-compressed FedCD round, paper §3.4).
@@ -338,7 +347,11 @@ def make_train_step(cfg: ArchConfig, mesh=None,
         gtree = _unflat(leaves, grads)
         if grad_transport_bits:
             gtree = quantize_grads(gtree, grad_transport_bits)
-        sgd_update_(zip(_flat(_targets(params)), _flat(gtree)), lr)
+        targets = _targets(params)
+        for cell, pair in zip(_cells(targets),
+                              zip(_flat(targets), _flat(gtree))):
+            with on_cell(*cell):
+                sgd_update_([pair], lr)
         return params, {"loss": loss.detach(), "aux": aux.detach()}
 
     return step

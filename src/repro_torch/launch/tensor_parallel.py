@@ -26,21 +26,88 @@ which needs a process per device, does not fit. Instead:
   computation (norms, residuals) on its home cell ``(0, sd)``, and each
   cell's share of a split op (heads, experts, vocabulary) on its own
   device, with the data pieces of its weights gathered first (FSDP).
+
+Spec entries over combined axes run too. An entry of data axes only,
+``("pod", "data")`` on a multi-pod mesh, reads as one data axis over the
+flat data-parallel index (``launch/mesh.py``), and is gathered as FSDP.
+An entry that combines ``model`` with data axes (the ``decode_2d``
+policy's ``("data", "model")``) is not cut on the model axis by the cell
+math (:func:`splits_on` answers false for it): the op that uses it
+gathers the leaf whole, as it does a leaf of a gathered family, with the
+same values and the same count as an all-gather.
+
+Accounting (for the dry run, ``roofline/trace_analyzer.py``): one host
+process runs every cell, so counts taken over the process are split by
+cell. :func:`on_cell` names the cell whose share runs now; the runtime
+sets it where it runs a cell's share (``MeshRun.cell``, ``MeshRun.whole``
+and the per-cell loops of the models), and work outside any cell counts
+to cell ``(0, 0)``. Collectives are recorded where they are called
+(:func:`all_gather`, :func:`all_reduce_sum`, :func:`split`,
+``Sharded.full`` / ``local``, :func:`reduce_replicas`), under the
+reference's names, with the bytes each receiving cell receives, since on
+a mesh whose cells share one device a copy between cells moves nothing.
+Both are no-ops unless a listener is set (:func:`set_listener`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.launch.mesh import LaunchMesh
+from repro_torch.launch.mesh import LaunchMesh, dp_axes_of, dp_size
 from repro_torch.launch.sharding import PartitionSpec, batch_spec
 
 Block = Tuple[Tuple[int, int], ...]      # (index, count) per dim
-COMBINED_AXES = ("a spec over combined axes ({}) is a decode_2d layout, "
-                 "not ported yet (ROADMAP item 15b.2); the tensor-parallel "
-                 "runtime runs 'train' specs")
+Cell = Tuple[int, int]                   # (sm, sd)
+
+# -- accounting (module docstring) --------------------------------------------
+
+_LISTENER: List[Any] = [None]
+_NO_CELL = contextlib.nullcontext()
+
+
+def set_listener(listener: Any) -> Any:
+    """Make ``listener`` receive the accounting (``None``: none); returns
+    the previous one. A listener has a ``cell`` attribute, the cell whose
+    share runs now, and ``collective(kind, nbytes, cells, out,
+    sources)``."""
+    prev, _LISTENER[0] = _LISTENER[0], listener
+    return prev
+
+
+@contextlib.contextmanager
+def _at(listener: Any, cell: Cell):
+    prev, listener.cell = listener.cell, cell
+    try:
+        yield
+    finally:
+        listener.cell = prev
+
+
+def on_cell(sm: int, sd: int):
+    """A context in which work counts to cell ``(sm, sd)`` (a no-op
+    unless a listener is set)."""
+    listener = _LISTENER[0]
+    return _NO_CELL if listener is None else _at(listener, (sm, sd))
+
+
+def _record(kind: str, nbytes: int, cells: Optional[Sequence[Cell]] = None,
+            out: Optional[torch.Tensor] = None,
+            sources: Sequence[torch.Tensor] = ()) -> None:
+    """One collective of ``kind``: ``nbytes`` received by each of
+    ``cells`` (default the current cell); ``out`` its result, ``sources``
+    the tensors it reads."""
+    listener = _LISTENER[0]
+    if listener is not None and nbytes:
+        listener.collective(kind, nbytes,
+                            [listener.cell] if cells is None else cells,
+                            out, sources)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def axes_of(entry: Any) -> Tuple[str, ...]:
@@ -53,17 +120,30 @@ def axes_of(entry: Any) -> Tuple[str, ...]:
 
 
 def _coord(mesh: LaunchMesh, axis: str, sm: int, sd: int) -> int:
+    """Cell ``(sm, sd)``'s index along ``axis`` (``sd`` the flat
+    data-parallel index ``pod * data + data``)."""
     if axis == "model":
         return sm
     if axis == "data":
-        return sd
+        return sd % mesh.shape["data"]
+    if axis == "pod" and axis in mesh.axis_names:
+        return sd // mesh.shape["data"]
     raise ValueError(f"a launch mesh has no axis {axis!r}")
 
 
 def cell_blocks(mesh: LaunchMesh, spec: Sequence[Any]) -> List[Block]:
     """Each cell's block (model-major): ``(index, count)`` per dim, the
-    first named axis of an entry the major one (JAX's order)."""
-    D = mesh.shape["data"]
+    first named axis of an entry the major one (JAX's order). Memoized
+    per mesh and spec (do not mutate the list)."""
+    key = tuple(spec)
+    cache = mesh.__dict__.setdefault("_cell_blocks", {})
+    if key not in cache:
+        cache[key] = _cell_blocks(mesh, key)
+    return cache[key]
+
+
+def _cell_blocks(mesh: LaunchMesh, spec: Sequence[Any]) -> List[Block]:
+    D = dp_size(mesh)
     out = []
     for cell in range(mesh.size):
         sm, sd = divmod(cell, D)
@@ -117,11 +197,14 @@ class Sharded:
                 ) -> "Sharded":
         made: Dict[Tuple[Block, torch.device], torch.Tensor] = {}
         pieces = []
-        for blk, dev in zip(cell_blocks(mesh, spec), mesh.devices):
+        D = dp_size(mesh)
+        for cell, (blk, dev) in enumerate(zip(cell_blocks(mesh, spec),
+                                              mesh.devices)):
             key = (blk, dev)
             if key not in made:
                 _check(shape, blk, spec)
-                made[key] = make(blk, dev)
+                with on_cell(*divmod(cell, D)):
+                    made[key] = make(blk, dev)
             pieces.append(made[key])
         return cls(mesh, spec, shape, pieces)
 
@@ -155,6 +238,7 @@ class Sharded:
             by_block.setdefault(blocks[cell], []).append(t)
         made: Dict[Tuple[Block, torch.device], torch.Tensor] = {}
         pieces = []
+        D = dp_size(mesh)
         for cell, (blk, dev) in enumerate(zip(blocks, mesh.devices)):
             if (blk, dev) not in made:
                 _check(shape, blk, spec)
@@ -162,7 +246,8 @@ class Sharded:
                 if t is None:
                     ts = by_block[blk]
                     t = next((u for u in ts if u.device == dev), ts[0])
-                made[(blk, dev)] = t.to(dev)
+                with on_cell(*divmod(cell, D)):
+                    made[(blk, dev)] = t.to(dev)
             pieces.append(made[(blk, dev)])
         return cls(mesh, spec, shape, pieces)
 
@@ -173,12 +258,14 @@ class Sharded:
         first = layers[0]
         shape = shape or (len(layers),)
         values, seen = {}, set()
+        D = dp_size(first.mesh)
         for cell, p in enumerate(first.pieces):
             if id(p) not in seen:
                 seen.add(id(p))
-                values[cell] = torch.stack(
-                    [lay.pieces[cell] for lay in layers]).reshape(
-                        *shape, *p.shape)
+                with on_cell(*divmod(cell, D)):
+                    values[cell] = torch.stack(
+                        [lay.pieces[cell] for lay in layers]).reshape(
+                            *shape, *p.shape)
         return cls.from_cells(first.mesh,
                               (None,) * len(shape) + tuple(first.spec),
                               (*shape, *first.shape), values)
@@ -191,7 +278,24 @@ class Sharded:
                        [new[id(p)] for p in self.pieces])
 
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "Sharded":
-        return self.with_pieces([fn(p) for p in self.distinct()])
+        """``fn`` of each distinct piece, under the first cell holding
+        it."""
+        out = []
+        for cell, p in self.holders():
+            with on_cell(*cell):
+                out.append(fn(p))
+        return self.with_pieces(out)
+
+    def holders(self) -> List[Tuple[Cell, torch.Tensor]]:
+        """The distinct piece tensors, each with the first cell holding
+        it, in cell order."""
+        D = dp_size(self.mesh)
+        seen, out = set(), []
+        for cell, p in enumerate(self.pieces):
+            if id(p) not in seen:
+                seen.add(id(p))
+                out.append((divmod(cell, D), p))
+        return out
 
     # -- inspection -----------------------------------------------------------
     @property
@@ -210,19 +314,14 @@ class Sharded:
         return math.prod(self.shape)
 
     def piece(self, sm: int, sd: int = 0) -> torch.Tensor:
-        return self.pieces[sm * self.mesh.shape["data"] + sd]
+        return self.pieces[sm * dp_size(self.mesh) + sd]
 
     def blocks(self) -> List[Block]:
         return cell_blocks(self.mesh, self.spec)
 
     def distinct(self) -> List[torch.Tensor]:
         """The distinct piece tensors, in cell order."""
-        seen, out = set(), []
-        for p in self.pieces:
-            if id(p) not in seen:
-                seen.add(id(p))
-                out.append(p)
-        return out
+        return [p for _, p in self.holders()]
 
     def groups(self) -> List[Tuple[Block, List[torch.Tensor]]]:
         """The distinct tensors grouped by the block they hold (copies of
@@ -269,12 +368,19 @@ class Sharded:
     def _assemble(self, pick: Dict[Tuple[int, ...], torch.Tensor],
                   dims: List[int], counts: List[int],
                   device: torch.device) -> torch.Tensor:
+        # the dim of most blocks innermost: the fewest concatenations
+        order = sorted(range(len(dims)), key=lambda j: counts[j])
+
         def rec(prefix):
             if len(prefix) == len(dims):
-                return pick[prefix].to(device)
-            parts = [rec(prefix + (i,)) for i in range(counts[len(prefix)])]
-            return parts[0] if len(parts) == 1 else torch.cat(
-                parts, dim=dims[len(prefix)])
+                key = [0] * len(dims)
+                for j, i in zip(order, prefix):
+                    key[j] = i
+                return pick[tuple(key)].to(device)
+            j = order[len(prefix)]
+            parts = [rec(prefix + (i,)) for i in range(counts[j])]
+            return parts[0] if len(parts) == 1 else torch.cat(parts,
+                                                              dim=dims[j])
         return rec(())
 
     def full(self, device: torch.device, prefer_sd: int = 0
@@ -285,7 +391,7 @@ class Sharded:
         dims = self.split_dims()
         blocks = self.blocks()
         counts = [blocks[0][d][1] for d in dims]
-        D = self.mesh.shape["data"]
+        D = dp_size(self.mesh)
         pick: Dict[Tuple[int, ...], torch.Tensor] = {}
         local = set()
         for cell, (blk, p) in enumerate(zip(blocks, self.pieces)):
@@ -295,28 +401,40 @@ class Sharded:
                 pick[key] = p
                 if here:
                     local.add(key)
-        return self._assemble(pick, dims, counts, torch.device(device))
+        out = self._assemble(pick, dims, counts, torch.device(device))
+        if dims:
+            _record("all-gather", _nbytes(out), out=out,
+                    sources=self.distinct())
+        return out
 
     def local(self, sm: int, sd: int) -> torch.Tensor:
-        """Cell ``(sm, sd)``'s block with its data pieces gathered (FSDP:
-        the cell's share along the model axis, whole along the data
-        axes), on the cell's device. Differentiable."""
+        """Cell ``(sm, sd)``'s block with every split dim but the
+        model-only ones gathered (FSDP: the cell's share along the model
+        axis, whole along the data axes and along combined axes), on the
+        cell's device. Differentiable."""
         dev = self.mesh.device(sm, sd)
-        data_dims = [d for d in self.split_dims()
-                     if "model" not in axes_of(self.spec[d])]
-        refuse_combined(self)
-        if not data_dims:
+        split = self.split_dims()
+        gather = [d for d in split if axes_of(self.spec[d]) != ("model",)]
+        if not gather:
             return self.piece(sm, sd).to(dev)
-        D = self.mesh.shape["data"]
+        D = dp_size(self.mesh)
+        own = sm * D + sd
         blocks = self.blocks()
+        keep = [d for d in split if d not in gather]
         pick: Dict[Tuple[int, ...], torch.Tensor] = {}
-        for sd2 in range(D):
-            cell = sm * D + sd2
-            key = tuple(blocks[cell][d][0] for d in data_dims)
-            if key not in pick or sd2 == sd:
-                pick[key] = self.pieces[cell]
-        counts = [blocks[0][d][1] for d in data_dims]
-        return self._assemble(pick, data_dims, counts, dev)
+        counts = [blocks[0][d][1] for d in gather]
+        # this cell's piece first, then its model shard's, then any
+        shard = range(sm * D, (sm + 1) * D)
+        for cell in (own, *shard, *range(self.mesh.size)):
+            if len(pick) == math.prod(counts):
+                break
+            blk = blocks[cell]
+            if all(blk[d] == blocks[own][d] for d in keep):
+                pick.setdefault(tuple(blk[d][0] for d in gather),
+                                self.pieces[cell])
+        out = self._assemble(pick, gather, counts, dev)
+        _record("all-gather", _nbytes(out), out=out, sources=self.distinct())
+        return out
 
     def relayout(self, spec) -> "Sharded":
         """The same values laid out by ``spec``."""
@@ -347,20 +465,17 @@ class Sharded:
                 f"dtype={self.dtype}, pieces={len(self.distinct())})")
 
 
-def refuse_combined(leaf: Sharded) -> None:
-    """Raise for a leaf whose spec splits a dim over combined axes (the
-    ``decode_2d`` policy's), which the runtime does not run."""
-    if any(len(axes_of(leaf.spec[d])) > 1 for d in leaf.split_dims()):
-        raise NotImplementedError(COMBINED_AXES.format(leaf.spec))
-
-
 # -- collectives --------------------------------------------------------------
 
 def all_gather(pieces: Sequence[torch.Tensor], dim: int,
                device: torch.device) -> torch.Tensor:
     """The pieces concatenated along ``dim`` on ``device``, in order."""
     parts = [p.to(device) for p in pieces]
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+    if len(parts) == 1:
+        return parts[0]
+    out = torch.cat(parts, dim=dim)
+    _record("all-gather", _nbytes(out), out=out, sources=pieces)
+    return out
 
 
 def all_reduce_sum(parts: Sequence[torch.Tensor], device: torch.device
@@ -370,23 +485,41 @@ def all_reduce_sum(parts: Sequence[torch.Tensor], device: torch.device
     out = parts[0].to(device)
     for p in parts[1:]:
         out = out + p.to(device)
+    if len(parts) > 1:
+        _record("all-reduce", _nbytes(out), out=out, sources=parts)
     return out
 
 
-def split(x: torch.Tensor, dim: int, devices: Sequence[torch.device]
-          ) -> List[torch.Tensor]:
+def split(x: torch.Tensor, dim: int, devices: Sequence[torch.device],
+          cells: Optional[Sequence[Cell]] = None) -> List[torch.Tensor]:
     """``x`` cut into ``len(devices)`` equal blocks along ``dim``, block
-    ``i`` on ``devices[i]`` (a view where it already lives there)."""
+    ``i`` on ``devices[i]`` (a view where it already lives there). Block
+    ``i >= 1`` is received by ``cells[i]`` (default the current cell),
+    block 0 stays where ``x`` is."""
     n = x.shape[dim] // len(devices)
-    return [x.narrow(dim, i * n, n).to(dev)
-            for i, dev in enumerate(devices)]
+    out = [x.narrow(dim, i * n, n).to(dev)
+           for i, dev in enumerate(devices)]
+    for i, t in enumerate(out[1:], 1):
+        _record("collective-permute", _nbytes(t),
+                None if cells is None else [cells[i]], t, (x,))
+    return out
 
 
 def reduce_replicas(grad: Sharded) -> Sharded:
     """Gradients of a leaf whose blocks have copies on several devices
     (a block replicated over the data axis, a replicated leaf): each
     copy's gradient is its consumers' share, so every copy takes the sum
-    of its group's, added in cell order. One tensor per group: as is."""
+    of its group's, added in cell order. One tensor per group: as is.
+    Every block held by several cells is recorded as an all-reduce to
+    each of them, whether or not they share a device."""
+    D = dp_size(grad.mesh)
+    holders: Dict[Block, List[int]] = {}
+    for cell, blk in enumerate(grad.blocks()):
+        holders.setdefault(blk, []).append(cell)
+    for cells in holders.values():
+        if len(cells) > 1:
+            _record("all-reduce", _nbytes(grad.pieces[cells[0]]),
+                    [divmod(c, D) for c in cells])
     new: Dict[int, torch.Tensor] = {}
     for _, ts in grad.groups():
         if len(ts) == 1:
@@ -410,11 +543,12 @@ class MeshRun:
                  dp_axes: Sequence[str] = ("data",)):
         self.mesh = mesh
         self.dp_axes = tuple(a for a in dp_axes if a in mesh.axis_names)
-        if self.dp_axes not in ((), ("data",)):
-            raise ValueError(f"data-parallel axes {self.dp_axes} on a "
-                             "launch mesh")
+        if self.dp_axes not in ((), dp_axes_of(mesh)):
+            raise ValueError(f"data-parallel axes {self.dp_axes} on a mesh "
+                             f"whose data-parallel axes are "
+                             f"{dp_axes_of(mesh)}")
         self.tp = mesh.shape["model"]
-        self.dp = mesh.shape["data"] if self.dp_axes else 1
+        self.dp = dp_size(mesh) if self.dp_axes else 1
 
     def device(self, sm: int, sd: int = 0) -> torch.device:
         return self.mesh.device(sm, sd)
@@ -427,7 +561,8 @@ class MeshRun:
         them (the batch divides over dp), else one shard of every row."""
         spec = batch_spec(self.mesh, x.shape[0], x.dim()).spec
         if self.dp > 1 and axes_of(spec[0]):
-            return split(x, 0, [self.home(sd) for sd in range(self.dp)])
+            return split(x, 0, [self.home(sd) for sd in range(self.dp)],
+                         [(0, sd) for sd in range(self.dp)])
         return [x.to(self.home(0))]
 
     def join(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -439,8 +574,9 @@ class MeshRun:
         """``params`` whole on data shard ``sd``'s home cell (the op is
         computed whole there)."""
         dev = self.home(sd)
-        return {k: v.full(dev, prefer_sd=sd) if isinstance(v, Sharded)
-                else v.to(dev) for k, v in params.items()}
+        with on_cell(0, sd):
+            return {k: v.full(dev, prefer_sd=sd) if isinstance(v, Sharded)
+                    else v.to(dev) for k, v in params.items()}
 
     def cell(self, params: Dict[str, Any], sm: int, sd: int,
              split_keys: Sequence[str]) -> Dict[str, torch.Tensor]:
@@ -449,18 +585,22 @@ class MeshRun:
         other leaf whole, on the cell's device."""
         dev = self.device(sm, sd)
         out = {}
-        for k, v in params.items():
-            if not isinstance(v, Sharded):
-                out[k] = v.to(dev)
-            elif k in split_keys:
-                out[k] = v.local(sm, sd)
-            else:
-                out[k] = v.full(dev, prefer_sd=sd)
+        with on_cell(sm, sd):
+            for k, v in params.items():
+                if not isinstance(v, Sharded):
+                    out[k] = v.to(dev)
+                elif k in split_keys:
+                    out[k] = v.local(sm, sd)
+                else:
+                    out[k] = v.full(dev, prefer_sd=sd)
         return out
 
     def reduce(self, parts: Sequence[torch.Tensor], sd: int
                ) -> torch.Tensor:
-        return all_reduce_sum(parts, self.home(sd))
+        """The sum of the model cells' ``parts`` on data shard ``sd``'s
+        home cell."""
+        with on_cell(0, sd):
+            return all_reduce_sum(parts, self.home(sd))
 
 
 def splits_on(leaf: Any, dim: int, axis: str = "model") -> bool:

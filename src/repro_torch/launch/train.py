@@ -7,8 +7,9 @@
 Runs FedCD (mode B) over a population of global models of the selected
 architecture, with archetype-conditioned synthetic token streams, score
 bookkeeping, clone/delete milestones, and checkpointing. ``--reduced``
-shrinks the architecture for single-host runs (full configs are exercised
-on the production mesh via dryrun.py).
+shrinks the architecture for single-host runs (full configs are traced
+on the production meshes by ``repro_torch.launch.dryrun``, on meta
+cells).
 
 Elastic resume (DESIGN.md §13): ``--save-every N`` snapshots the
 complete trainer state (params, registry, scores, RNG stream position,

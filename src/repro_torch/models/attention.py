@@ -44,7 +44,8 @@ import torch
 
 from repro_torch.config import ArchConfig
 from repro_torch.launch.sharding import heads_split
-from repro_torch.launch.tensor_parallel import MeshRun, splits_on
+from repro_torch.launch.tensor_parallel import (MeshRun, on_cell,
+                                                splits_on)
 from repro_torch.models.common import (Params, apply_rope, init_rmsnorm,
                                        normal_init, prefixed, rmsnorm,
                                        subtree)
@@ -226,9 +227,10 @@ def attention_forward_mesh(params, cfg: ArchConfig, x: torch.Tensor,
     parts = []
     for sm in range(tp):
         dev = run.device(sm, sd)
-        pos = None if positions is None else positions.to(dev)
-        parts.append(attention_forward(
-            run.cell(params, sm, sd, HEAD_SPLIT), sub, x.to(dev), pos))
+        with on_cell(sm, sd):
+            pos = None if positions is None else positions.to(dev)
+            parts.append(attention_forward(
+                run.cell(params, sm, sd, HEAD_SPLIT), sub, x.to(dev), pos))
     return run.reduce(parts, sd)
 
 

@@ -20,15 +20,21 @@ model cells (``embed_mesh``, ``unembed_mesh``, ``lm_head_mesh``,
 ``apply_mlp_mesh``): each cell computes its vocabulary block or its
 columns of ``d_ff`` with the same math, where the leaf's spec splits it
 that way; otherwise the op runs whole on the data shard's home cell.
+
+``remat_call`` is the per-layer recompute policy the LM and the
+encoder-decoder model share.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
+from torch.utils import checkpoint as ckpt
 
-from repro_torch.launch.tensor_parallel import MeshRun, splits_on
+from repro_torch.launch.tensor_parallel import (MeshRun, all_gather, on_cell,
+                                                splits_on)
 
 Params = Dict[str, torch.Tensor]
 
@@ -38,6 +44,35 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
+
+
+# products without batch dims: the outputs ``"dots"`` keeps
+SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in SAVED_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(fn: Callable, remat: Union[bool, str], *args):
+    """``fn(*args)``, recomputed in the backward pass by ``remat``:
+    ``False`` not at all; ``True`` / ``"full"`` everything (one
+    ``torch.utils.checkpoint``); ``"dots"`` everything but the outputs of
+    products without batch dims (``aten.mm`` / ``addmm``, not the
+    attention's ``bmm``), the reference's
+    ``dots_with_no_batch_dims_saveable``."""
+    if not remat:
+        return fn(*args)
+    if remat is True or remat == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat {remat!r}: expected False, True, 'full' or "
+                     "'dots'")
 
 
 def prefixed(prefix: str, params: Params) -> Params:
@@ -67,7 +102,10 @@ def normal_init(generator: torch.Generator, shape, dtype=torch.float32,
     """N(0, stddev²) draws from ``generator``, on the generator's device
     (a CPU generator gives the same params on every device). Not the
     reference's ``jax.random`` bits: parity tests load the reference's
-    params."""
+    params. On ``meta`` (the dry run's abstract params) nothing is drawn:
+    the tensor has the shape and dtype and no values."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device) * stddev
     return x.to(device=device, dtype=dtype)
@@ -202,20 +240,32 @@ def embed_mesh(table, tokens: torch.Tensor, run: MeshRun, sd: int
     parts = []
     for sm in range(run.tp):
         dev = run.device(sm, sd)
-        ids = tokens.to(dev).long() - sm * n
-        ok = (ids >= 0) & (ids < n)
-        e = torch.nn.functional.embedding(
-            torch.where(ok, ids, torch.zeros((), dtype=ids.dtype,
-                                             device=dev)),
-            table.local(sm, sd))
-        parts.append(torch.where(ok[..., None], e,
-                                 torch.zeros((), dtype=e.dtype,
-                                             device=dev)))
+        with on_cell(sm, sd):
+            ids = tokens.to(dev).long() - sm * n
+            ok = (ids >= 0) & (ids < n)
+            e = torch.nn.functional.embedding(
+                torch.where(ok, ids, torch.zeros((), dtype=ids.dtype,
+                                                 device=dev)),
+                table.local(sm, sd))
+            parts.append(torch.where(ok[..., None], e,
+                                     torch.zeros((), dtype=e.dtype,
+                                                 device=dev)))
     return run.reduce(parts, sd)
 
 
 def _vocab_blocks(parts, run: MeshRun, sd: int) -> torch.Tensor:
-    return torch.cat([p.to(run.home(sd)) for p in parts], dim=-1)
+    with on_cell(0, sd):
+        return all_gather(parts, -1, run.home(sd))
+
+
+def _per_cell(fn: Callable, run: MeshRun, sd: int) -> list:
+    """``fn(sm)`` for each model cell of data shard ``sd``, each under
+    its cell."""
+    out = []
+    for sm in range(run.tp):
+        with on_cell(sm, sd):
+            out.append(fn(sm))
+    return out
 
 
 def unembed_mesh(table, x: torch.Tensor, run: MeshRun, sd: int
@@ -224,9 +274,9 @@ def unembed_mesh(table, x: torch.Tensor, run: MeshRun, sd: int
     block, concatenated into the full logits on the home cell."""
     if not splits_on(table, 0):
         return unembed(run.whole({"table": table}, sd), x)
-    return _vocab_blocks(
-        [unembed({"table": table.local(sm, sd)}, x.to(run.device(sm, sd)))
-         for sm in range(run.tp)], run, sd)
+    return _vocab_blocks(_per_cell(
+        lambda sm: unembed({"table": table.local(sm, sd)},
+                           x.to(run.device(sm, sd))), run, sd), run, sd)
 
 
 def lm_head_mesh(head, x: torch.Tensor, run: MeshRun, sd: int
@@ -236,9 +286,9 @@ def lm_head_mesh(head, x: torch.Tensor, run: MeshRun, sd: int
     if not splits_on(head, 1):
         w = run.whole({"w": head}, sd)["w"]
         return torch.matmul(x.float(), w.float())
-    return _vocab_blocks(
-        [torch.matmul(x.to(run.device(sm, sd)).float(),
-                      head.local(sm, sd).float()) for sm in range(run.tp)],
+    return _vocab_blocks(_per_cell(
+        lambda sm: torch.matmul(x.to(run.device(sm, sd)).float(),
+                                head.local(sm, sd).float()), run, sd),
         run, sd)
 
 
@@ -251,9 +301,9 @@ def apply_mlp_mesh(params, x: torch.Tensor, run: MeshRun, sd: int
             and splits_on(params["w_down"], 0)):
         return apply_mlp(run.whole(params, sd), x)
     keys = ("w_down", "w_gate", "w_up")
-    return run.reduce(
-        [apply_mlp(run.cell(params, sm, sd, keys), x.to(run.device(sm, sd)))
-         for sm in range(run.tp)], sd)
+    return run.reduce(_per_cell(
+        lambda sm: apply_mlp(run.cell(params, sm, sd, keys),
+                             x.to(run.device(sm, sd))), run, sd), sd)
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,9 @@ and ``dec_blocks.*`` (n_layers, ...) stacked, ``embed``, ``enc_norm``,
 ``final_norm`` and an untied ``lm_head``, every leaf in ``param_dtype``.
 A stacked leaf may also be given as a sequence of per-layer tensors
 (``launch.steps`` takes one gradient per layer). ``remat`` recomputes
-each layer in the backward pass (``torch.utils.checkpoint``), which the
-reference's ``encdec_forward`` does not take: it changes no value.
+each layer in the backward pass (``common.remat_call``: ``True`` /
+``"full"`` or ``"dots"``), which the reference's ``encdec_forward``
+does not take: it changes no value.
 
 Decode: a self-attention KV cache (``self.*``, stacked per layer, the
 layout of ``attention.init_kv_cache``) and the cross-attention K/V
@@ -24,7 +25,6 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
 from repro_torch.models import attention as attn
@@ -32,7 +32,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.common import (Params, apply_mlp, canonical,
                                        dtype_of, embed, init_embedding,
                                        init_mlp, init_rmsnorm, normal_init,
-                                       prefixed, rmsnorm, subtree)
+                                       prefixed, remat_call, rmsnorm,
+                                       subtree)
 
 
 def _cross_attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -118,12 +119,9 @@ def _bidir_attention(params: Params, cfg: ArchConfig, x: torch.Tensor
     return torch.matmul(out.reshape(B, S, H * hd), params["wo"])
 
 
-def _run(layers, body, x: torch.Tensor, remat: bool) -> torch.Tensor:
+def _run(layers, body, x: torch.Tensor, remat) -> torch.Tensor:
     for layer in layers:
-        if remat:
-            x = checkpoint(body, layer, x, use_reentrant=False)
-        else:
-            x = body(layer, x)
+        x = remat_call(body, remat, layer, x)
     return x
 
 

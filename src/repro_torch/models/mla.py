@@ -34,7 +34,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.config import ArchConfig
-from repro_torch.launch.tensor_parallel import MeshRun, splits_on
+from repro_torch.launch.tensor_parallel import (MeshRun, on_cell,
+                                                splits_on)
 from repro_torch.models.attention import (CHUNKED_THRESHOLD, NEG_INF,
                                           _chunked_attention,
                                           _naive_attention, rollback_keep,
@@ -145,9 +146,11 @@ def mla_forward_mesh(params, cfg: ArchConfig, x: torch.Tensor,
     parts = []
     for sm in range(tp):
         dev = run.device(sm, sd)
-        pos = None if positions is None else positions.to(dev)
-        parts.append(mla_forward(run.cell(params, sm, sd, MLA_HEAD_SPLIT),
-                                 sub, x.to(dev), pos))
+        with on_cell(sm, sd):
+            pos = None if positions is None else positions.to(dev)
+            parts.append(mla_forward(
+                run.cell(params, sm, sd, MLA_HEAD_SPLIT), sub, x.to(dev),
+                pos))
     return run.reduce(parts, sd)
 
 

@@ -43,7 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig
-from repro_torch.launch.tensor_parallel import MeshRun, splits_on
+from repro_torch.launch.tensor_parallel import (MeshRun, on_cell,
+                                                splits_on)
 from repro_torch.models.common import (Params, apply_mlp, apply_mlp_mesh,
                                        init_mlp, normal_init, prefixed,
                                        subtree)
@@ -211,16 +212,18 @@ def apply_moe_mesh(params, cfg: ArchConfig, xs: Sequence[torch.Tensor],
         parts = []
         for sm in range(ep):
             dev = run.device(sm, sd)
-            xc = xf.to(dev)
-            p = run.cell({k: params[k] for k in keys}, sm, sd,
-                         ("w_down", "w_gate", "w_up"))
-            # routing recomputed per cell, on its data shard's tokens
-            ids, wts, aux = _route(p, cfg, xc)
-            if sm == 0:
-                auxs.append(aux)
-            parts.append(_expert_shard(
-                xc, ids, wts, p["w_gate"], p["w_up"], p["w_down"],
-                e0=sm * (m.n_experts // ep), cap=cap, compute_dtype=xc.dtype))
+            with on_cell(sm, sd):
+                xc = xf.to(dev)
+                p = run.cell({k: params[k] for k in keys}, sm, sd,
+                             ("w_down", "w_gate", "w_up"))
+                # routing recomputed per cell, on its data shard's tokens
+                ids, wts, aux = _route(p, cfg, xc)
+                if sm == 0:
+                    auxs.append(aux)
+                parts.append(_expert_shard(
+                    xc, ids, wts, p["w_gate"], p["w_up"], p["w_down"],
+                    e0=sm * (m.n_experts // ep), cap=cap,
+                    compute_dtype=xc.dtype))
         outs.append(run.reduce(parts, sd))
     home = run.home(0)
     aux = auxs[0].to(home)

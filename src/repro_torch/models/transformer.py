@@ -14,8 +14,11 @@ reference's: ``segments.0.attn.wq`` has shape ``(n_layers, d, H*hd)``,
 reference's pytree paths with ``.`` for ``/``, so the converter, the
 param bank and the checkpoints map leaf to leaf. The reference scans a
 segment with ``lax.scan``; here it is a Python loop over the layer axis,
-each layer optionally recomputed in the backward pass (``remat``:
-``torch.utils.checkpoint`` per layer). DeepSeek's MTP head (``mtp.*``)
+each layer optionally recomputed in the backward pass (``remat``, one
+``torch.utils.checkpoint`` a layer: ``True`` / ``"full"`` recomputes
+everything, ``"dots"`` everything but the outputs of products without
+batch dims, the reference's ``dots_with_no_batch_dims_saveable``;
+``common.remat_call``). DeepSeek's MTP head (``mtp.*``)
 is one block of the layout's last kind, not stacked. An audio config
 builds and runs the decoder-only stack, ignoring ``encdec``, as the
 reference's ``init_lm`` / ``lm_forward`` do (the encoder-decoder model
@@ -58,8 +61,13 @@ shared block run whole on each data shard's home cell. The caches are
 laid out by ``launch.sharding.cache_shardings``: a :class:`Sharded`
 cache is used as it lies and returned sharded; whole caches (a serving
 pool's) are cut per cell on entry and returned whole on cell ``(0, 0)``.
-A spec over combined axes (the ``decode_2d`` policy) is refused, naming
-ROADMAP item 15b.2.
+Params laid out by the ``decode_2d`` policy run as they lie: a leaf split
+over ``model`` combined with the data axes is gathered whole where it is
+used (``launch/tensor_parallel.py``), the attention weights keep their
+``train`` specs and split the heads. A mesh with a ``pod`` axis runs the
+same cells over its flat data-parallel index (``dp_axes=("pod",
+"data")``). Every per-cell share runs under
+``tensor_parallel.on_cell``, which the dry run's accounting reads.
 
 Caches are flat dicts of the reference's cache tree, stacked per
 segment like the params: ``0.k`` ``(n_layers, B, C, Kv, hd)``, ``0.pos``
@@ -86,13 +94,11 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
 import torch
-from torch.utils.checkpoint import checkpoint
-
 from repro_torch import config as C
 from repro_torch.config import ArchConfig
+from repro_torch.launch.mesh import dp_size
 from repro_torch.launch.sharding import cache_shardings, leaf_sharding
-from repro_torch.launch.tensor_parallel import (MeshRun, Sharded,
-                                                refuse_combined)
+from repro_torch.launch.tensor_parallel import MeshRun, Sharded, on_cell
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as mb
 from repro_torch.models import mla as mla_mod
@@ -102,8 +108,9 @@ from repro_torch.models.common import (Params, apply_mlp, apply_mlp_mesh,
                                        canonical, dtype_of, embed,
                                        embed_mesh, init_embedding, init_mlp,
                                        init_rmsnorm, lm_head_mesh,
-                                       normal_init, prefixed, rmsnorm,
-                                       subtree, unembed, unembed_mesh)
+                                       normal_init, prefixed, remat_call,
+                                       rmsnorm, subtree, unembed,
+                                       unembed_mesh)
 from repro_torch.sharding_hints import constrain
 
 Leaf = Union[torch.Tensor, Sharded, Sequence[torch.Tensor],
@@ -240,27 +247,42 @@ def _apply_block_mesh(params: Dict[str, Sharded], cfg: ArchConfig,
     home cell), split over the model cells (module docstring)."""
     aux = torch.zeros((), device=run.home(0))
     if kind in RECURRENT_KINDS:
-        return [_apply_block(run.whole(params, sd), cfg, kind, x,
-                             _at(positions, x))[0]
-                for sd, x in enumerate(xs)], aux
+        out = []
+        for sd, x in enumerate(xs):
+            with on_cell(0, sd):
+                out.append(_apply_block(run.whole(params, sd), cfg, kind, x,
+                                        _at(positions, x))[0])
+        return out, aux
     if kind not in ATTENTION_KINDS:
         raise ValueError(kind)
     mla = kind in (C.MLA_MLP, C.MLA_MOE)
     forward = mla_mod.mla_forward_mesh if mla else attn.attention_forward_mesh
     xs, hs = list(xs), []
     for sd, x in enumerate(xs):
-        h = rmsnorm(run.whole(subtree(params, "norm1"), sd), x, cfg.norm_eps)
-        xs[sd] = x + forward(subtree(params, "attn"), cfg, h,
-                             _at(positions, x), run, sd)
-        hs.append(rmsnorm(run.whole(subtree(params, "norm2"), sd), xs[sd],
-                          cfg.norm_eps))
+        with on_cell(0, sd):
+            h = rmsnorm(run.whole(subtree(params, "norm1"), sd), x,
+                        cfg.norm_eps)
+            xs[sd] = x + forward(subtree(params, "attn"), cfg, h,
+                                 _at(positions, x), run, sd)
+            hs.append(rmsnorm(run.whole(subtree(params, "norm2"), sd),
+                              xs[sd], cfg.norm_eps))
     if kind in (C.ATTN_MOE, C.MLA_MOE):
         fs, aux = moe_mod.apply_moe_mesh(subtree(params, "moe"), cfg, hs,
                                          run)
     else:
         fs = [apply_mlp_mesh(subtree(params, "mlp"), h, run, sd)
               for sd, h in enumerate(hs)]
-    return [x + f for x, f in zip(xs, fs)], aux
+    return _residual(xs, fs), aux
+
+
+def _residual(xs: List[torch.Tensor], fs: List[torch.Tensor]
+              ) -> List[torch.Tensor]:
+    """Each data shard's ``x + f`` on its home cell."""
+    out = []
+    for sd, (x, f) in enumerate(zip(xs, fs)):
+        with on_cell(0, sd):
+            out.append(x + f)
+    return out
 
 
 def _at(positions: Optional[torch.Tensor], x: torch.Tensor):
@@ -418,10 +440,7 @@ def _scan_segment(stacked: Dict[str, Leaf], cfg: ArchConfig, kind: str,
             y, a = _apply_block(layer, cfg, kind, h, positions)
             return constrain(y, ("dp", None, None)), a
 
-        if remat:
-            x, a = checkpoint(body, x, use_reentrant=False)
-        else:
-            x, a = body(x)
+        x, a = remat_call(body, remat, x)
         aux = aux + a
     return x, aux
 
@@ -457,7 +476,7 @@ def lm_forward(cfg: ArchConfig, params: Dict[str, Leaf],
                embeds: Optional[torch.Tensor] = None,
                positions: Optional[torch.Tensor] = None,
                mesh=None, dp_axes: Tuple[str, ...] = ("data",),
-               remat: bool = False
+               remat: Union[bool, str] = False
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (logits float32, final_hidden, aux_loss). With a ``mesh``
     (module docstring) the logits, hidden and aux come back whole on cell
@@ -506,14 +525,12 @@ def shard_params(cfg: ArchConfig, params: Dict[str, Leaf], mesh
     """Every leaf laid out on ``mesh`` by its LM spec: a whole tensor
     (stacked leaves included) split into pieces (views where a piece
     stays on its device; differentiable), per-layer tensors one by one;
-    sharded leaves as they are (a spec over combined axes raises)."""
+    sharded leaves as they are, whatever their policy."""
     out: Dict[str, Leaf] = {}
     for k, v in params.items():
         if isinstance(v, Sharded) or (
                 not isinstance(v, torch.Tensor) and isinstance(v[0],
                                                                Sharded)):
-            for leaf in ([v] if isinstance(v, Sharded) else v):
-                refuse_combined(leaf)
             out[k] = v
         elif isinstance(v, torch.Tensor):
             spec = leaf_sharding(cfg, k, tuple(v.shape), mesh).spec
@@ -533,18 +550,23 @@ def _embed_mesh(cfg: ArchConfig, sp, tokens, embeds, run: MeshRun
     else:
         xs = [embed_mesh(sp["embed.table"], t, run, sd)
               for sd, t in enumerate(run.split_batch(tokens))]
-    return [x.to(dtype_of(cfg.compute_dtype)) for x in xs]
+    out = []
+    for sd, x in enumerate(xs):
+        with on_cell(0, sd):
+            out.append(x.to(dtype_of(cfg.compute_dtype)))
+    return out
 
 
 def _logits_mesh(cfg: ArchConfig, sp, xs: List[torch.Tensor], run: MeshRun
                  ) -> torch.Tensor:
     out = []
     for sd, x in enumerate(xs):
-        h = rmsnorm(run.whole(subtree(sp, "final_norm"), sd), x,
-                    cfg.norm_eps)
-        out.append(unembed_mesh(sp["embed.table"], h, run, sd)
-                   if cfg.tie_embeddings else
-                   lm_head_mesh(sp["lm_head"], h, run, sd))
+        with on_cell(0, sd):
+            h = rmsnorm(run.whole(subtree(sp, "final_norm"), sd), x,
+                        cfg.norm_eps)
+            out.append(unembed_mesh(sp["embed.table"], h, run, sd)
+                       if cfg.tie_embeddings else
+                       lm_head_mesh(sp["lm_head"], h, run, sd))
     return run.join(out)
 
 
@@ -565,11 +587,12 @@ def _hybrid_forward_mesh(cfg: ArchConfig, sp, xs: List[torch.Tensor],
                                       run)
         out = []
         for sd, (x, x0) in enumerate(zip(xs, x0s)):
-            p = run.whole(shared, sd)
-            if loras is not None:
-                p = _shared_block_params(p, run.whole(loras[s], sd))
-            out.append(_apply_shared_block(p, cfg, x, x0,
-                                           _at(positions, x))[0])
+            with on_cell(0, sd):
+                p = run.whole(shared, sd)
+                if loras is not None:
+                    p = _shared_block_params(p, run.whole(loras[s], sd))
+                out.append(_apply_shared_block(p, cfg, x, x0,
+                                               _at(positions, x))[0])
         xs = out
     for layer in layer_params(subtree(sp, "mamba_tail")) \
             if subtree(sp, "mamba_tail") else []:
@@ -596,10 +619,7 @@ def _mesh_forward(cfg: ArchConfig, params, tokens, embeds, positions,
                                               positions, run)
                     return (*ys, a)
 
-                if remat:
-                    *xs, a = checkpoint(body, *xs, use_reentrant=False)
-                else:
-                    *xs, a = body(*xs)
+                *xs, a = remat_call(body, remat, *xs)
                 aux = aux + a
     return _logits_mesh(cfg, sp, xs, run), run.join(xs), aux
 
@@ -613,10 +633,11 @@ def _mesh_mtp_logits(cfg: ArchConfig, params, hidden, next_tokens,
                                     run.split_batch(next_tokens))):
         w = run.whole({k: v for k, v in m.items()
                        if k.startswith("norm.") or k == "proj"}, sd)
-        e = embed_mesh(sp["embed.table"], t, run, sd).to(h.dtype)
-        hc = torch.cat([rmsnorm(subtree(w, "norm"), h, cfg.norm_eps), e],
-                       dim=-1)
-        hs.append(torch.matmul(hc, w["proj"]))
+        e = embed_mesh(sp["embed.table"], t, run, sd)
+        with on_cell(0, sd):
+            hc = torch.cat([rmsnorm(subtree(w, "norm"), h, cfg.norm_eps),
+                            e.to(h.dtype)], dim=-1)
+            hs.append(torch.matmul(hc, w["proj"]))
     hs, _ = _apply_block_mesh(subtree(m, "block"), cfg, cfg.layout()[-1],
                               hs, None, run)
     return _logits_mesh(cfg, sp, hs, run)
@@ -889,16 +910,18 @@ def _mesh_block(lp: Dict[str, Sharded], cfg: ArchConfig, kind: str,
     """One layer of a cached pass over the data shards' rows ``xs``
     against its caches ``lc``, split as ``_apply_block_mesh``. Returns
     (xs, caches, states) as ``_prefill_block``."""
-    D = run.mesh.shape["data"]
+    D = dp_size(run.mesh)
     xs, vals, sts = list(xs), {}, {}
     if kind in RECURRENT_KINDS:
         for sd, x in enumerate(xs):
-            p, c = run.whole(lp, sd), _cell(lc, 0, sd)
-            if prefill:
-                xs[sd], vals[sd], sts[sd] = _prefill_block(
-                    p, cfg, kind, x, c, window, n_valid, collect)
-            else:
-                xs[sd], vals[sd] = _decode_block(p, cfg, kind, x, c, window)
+            with on_cell(0, sd):
+                p, c = run.whole(lp, sd), _cell(lc, 0, sd)
+                if prefill:
+                    xs[sd], vals[sd], sts[sd] = _prefill_block(
+                        p, cfg, kind, x, c, window, n_valid, collect)
+                else:
+                    xs[sd], vals[sd] = _decode_block(p, cfg, kind, x, c,
+                                                     window)
         states = _laid_out(lc, sts, (xs[0].shape[1],)) if collect else {}
         return xs, _laid_out(lc, vals), states
     if kind not in ATTENTION_KINDS:
@@ -915,27 +938,31 @@ def _mesh_block(lp: Dict[str, Sharded], cfg: ArchConfig, kind: str,
     extra = (window, n_valid) if prefill else (window,)
     hs = []
     for sd, x in enumerate(xs):
-        h = rmsnorm(run.whole(subtree(lp, "norm1"), sd), x, cfg.norm_eps)
-        if split:
-            parts = []
-            for sm in range(run.tp):
-                a, vals[sm * D + sd] = step(
-                    run.cell(ap, sm, sd, keys), sub,
-                    h.to(run.device(sm, sd)), _cell(lc, sm, sd), *extra)
-                parts.append(a)
-            a = run.reduce(parts, sd)
-        else:
-            a, vals[sd] = step(run.whole(ap, sd), cfg, h, _cell(lc, 0, sd),
-                               *extra)
-        xs[sd] = x + a
-        hs.append(rmsnorm(run.whole(subtree(lp, "norm2"), sd), xs[sd],
-                          cfg.norm_eps))
+        with on_cell(0, sd):
+            h = rmsnorm(run.whole(subtree(lp, "norm1"), sd), x,
+                        cfg.norm_eps)
+            if split:
+                parts = []
+                for sm in range(run.tp):
+                    with on_cell(sm, sd):
+                        a, vals[sm * D + sd] = step(
+                            run.cell(ap, sm, sd, keys), sub,
+                            h.to(run.device(sm, sd)), _cell(lc, sm, sd),
+                            *extra)
+                    parts.append(a)
+                a = run.reduce(parts, sd)
+            else:
+                a, vals[sd] = step(run.whole(ap, sd), cfg, h,
+                                   _cell(lc, 0, sd), *extra)
+            xs[sd] = x + a
+            hs.append(rmsnorm(run.whole(subtree(lp, "norm2"), sd), xs[sd],
+                              cfg.norm_eps))
     if kind in (C.ATTN_MOE, C.MLA_MOE):
         fs = moe_mod.apply_moe_mesh(subtree(lp, "moe"), cfg, hs, run)[0]
     else:
         fs = [apply_mlp_mesh(subtree(lp, "mlp"), h, run, sd)
               for sd, h in enumerate(hs)]
-    return [x + f for x, f in zip(xs, fs)], _laid_out(lc, vals), {}
+    return _residual(xs, fs), _laid_out(lc, vals), {}
 
 
 def _cached_mesh(cfg: ArchConfig, params, tokens, embeds, caches: Params,
@@ -956,12 +983,13 @@ def _cached_mesh(cfg: ArchConfig, params, tokens, embeds, caches: Params,
     def shared_fn(s, hs, x0s, sc):
         vals, out = {}, []
         for sd, (x, x0) in enumerate(zip(hs, x0s)):
-            p = run.whole(subtree(sp, "shared"), sd)
-            if loras is not None:
-                p = _shared_block_params(p, run.whole(loras[s], sd))
-            y, vals[sd] = _apply_shared_block(
-                p, cfg, x, x0, None, cache=_cell(sc, 0, sd),
-                window=w_shared, prefill=prefill, n_valid=n_valid)
+            with on_cell(0, sd):
+                p = run.whole(subtree(sp, "shared"), sd)
+                if loras is not None:
+                    p = _shared_block_params(p, run.whole(loras[s], sd))
+                y, vals[sd] = _apply_shared_block(
+                    p, cfg, x, x0, None, cache=_cell(sc, 0, sd),
+                    window=w_shared, prefill=prefill, n_valid=n_valid)
             out.append(y)
         return out, _laid_out(sc, vals)
 

@@ -329,7 +329,8 @@ def test_trainer_refuses_what_is_not_ported(ref):
     bars are in ``tests/test_torch_lm_mesh.py``) and the decode-side
     steps serve its rows on that mesh (item 15b.1): a prefill and a
     decode step of the mesh bank's row equal the one-device steps on the
-    row gathered; a ``decode_2d`` layout is refused, naming item 15b.2.
+    row gathered, and so does the row laid out by the ``decode_2d``
+    policy (specs over combined axes, gathered where used).
     Draft rows are built: one 1-layer draft of the initial model, a copy
     of its leading layer."""
     from repro_torch.launch import steps as TS
@@ -352,9 +353,11 @@ def test_trainer_refuses_what_is_not_ported(ref):
     d2 = {k: Sharded.place(whole[k], tr.mesh, v.spec)
           for k, v in param_shardings(CFG, whole, tr.mesh,
                                       policy="decode_2d").items()}
-    with pytest.raises(NotImplementedError, match="15b.2"):
-        TS.make_serve_step(CFG, mesh=tr.mesh)(
-            d2, ttf.init_lm_caches(CFG, 2, 8), tok[:, :1])
+    c = ttf.init_lm_caches(CFG, 2, 8)
+    last, c = TS.make_prefill_step(CFG, mesh=tr.mesh)(d2, c, tok, 3)
+    lg, _ = TS.make_serve_step(CFG, mesh=tr.mesh)(d2, c, tok[:, 3:])
+    for a, b in zip((last, lg), outs[1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
     for spec in ("llm", "legacy"):
         tr = _trainer(ref[1], spec, draft_layers=1)
         assert tr.draft.present == {0} and tr.draft.dcfg.n_layers == 1

@@ -15,7 +15,12 @@ and of reduced Qwen3-4B, xLSTM and Zamba2 (elsewhere the reference's
 mesh keeps the values of its one-device run). The same subprocess runs
 the reference's ``make_prefill_step`` / ``make_serve_step`` with
 ``mesh=make_launch_mesh(model=2, data=2)`` on reduced Phi-3.5-MoE and
-DeepSeek-V3 (``DECODE_CASES``), which the port's mesh decode follows.
+DeepSeek-V3 (``DECODE_CASES``), which the port's mesh decode follows,
+and, for the capacity case (reduced Phi-3.5-MoE on its forward tokens,
+which overflow an expert of one data shard), a train step on a
+``(pod=2, data=2, model=1)`` mesh (``dp_axes=("pod", "data")``) and a
+prefill and a serve step with params laid out by the ``decode_2d``
+policy on ``(model=2, data=2)`` (``POD_CASE``).
 
 The port's mesh is ``make_host_mesh``: every cell on the CPU, the pieces
 of a leaf separate tensors; one tier puts the cells on two CPU device
@@ -82,6 +87,8 @@ CAPACITY_CASE = "phi3.5-moe-42b-a6.6b"
 DECODE_ARCHS = ("deepseek-v3-671b", "phi3.5-moe-42b-a6.6b")
 DECODE_CASES = {"b8": (8, 4, 4, 2), "b1": (1, 4, 3, 1),
                 "drop": (4, 24, 24, 0)}
+# the pod-mesh train step and the decode_2d steps: lr, client scores
+POD_CASE = (0.05, (0.25, 0.75))
 
 _REF_SCRIPT = textwrap.dedent("""
     import json
@@ -200,7 +207,48 @@ _REF_SCRIPT = textwrap.dedent("""
                     lg, c = serve(p, c, toks[:, s + j:s + j + 1])
                     out[tag + f"{{j + 1}}/logits"] = np.asarray(lg)
                     flat(out, tag + f"{{j + 1}}/caches/", c)
+            if name == {capacity!r}:
+                pods(out, cfg, p)
         return out
+
+
+    def pods(out, cfg, p):
+        # the capacity case on a pod mesh and under decode_2d
+        import jax
+        import jax.numpy as jnp
+        from repro.launch import steps
+        from repro.launch.mesh import _make_mesh, make_launch_mesh
+        from repro.launch.sharding import param_shardings
+        lr, scores = {pod_case!r}
+        toks = np.asarray(np.random.default_rng(
+            list({forwards!r}).index({capacity!r})).integers(
+                0, cfg.vocab_size, {dims!r}), np.int32)
+        mesh = _make_mesh((2, 2, 1), ("pod", "data", "model"))
+        step = jax.jit(steps.make_train_step(cfg, mesh, ("pod", "data"),
+                                             lr=lr, remat=False))
+        q, m = step(p, toks[:, :-1], toks[:, 1:],
+                    np.asarray(scores, np.float32))
+        flat(out, "pod/params/", q)
+        out["pod/loss"] = np.asarray(m["loss"])
+        out["pod/aux"] = np.asarray(m["aux"])
+        mesh = make_launch_mesh(model=2, data=2)
+        pd = jax.device_put(p, param_shardings(cfg, p, mesh,
+                                               policy="decode_2d"))
+        prefill = jax.jit(steps.make_prefill_step(cfg, mesh=mesh))
+        serve = jax.jit(steps.make_serve_step(cfg, mesh=mesh))
+        b, s = toks.shape
+        c = tf_caches(cfg, b, s + 1)
+        lg, c = prefill(pd, c, toks, jnp.asarray(s, jnp.int32))
+        out["d2/0/logits"] = np.asarray(lg)
+        flat(out, "d2/0/caches/", c)
+        lg, c = serve(pd, c, toks[:, :1])
+        out["d2/1/logits"] = np.asarray(lg)
+        flat(out, "d2/1/caches/", c)
+
+
+    def tf_caches(cfg, b, n):
+        from repro.models import transformer as tf
+        return tf.init_lm_caches(cfg, b, n)
 
 
     if __name__ == "__main__":
@@ -225,7 +273,8 @@ class RefJob:
         code = _REF_SCRIPT.format(
             kw=KW, fk=FK, n=N_CLIENTS, per=PER, seq=SEQ, rounds=ROUNDS,
             dims=FWD_DIMS, trainers=TRAINER_MESHES, forwards=FORWARDS,
-            decode_archs=DECODE_ARCHS, decode_cases=DECODE_CASES, path=path)
+            decode_archs=DECODE_ARCHS, decode_cases=DECODE_CASES,
+            capacity=CAPACITY_CASE, pod_case=POD_CASE, path=path)
         env = dict(os.environ,
                    XLA_FLAGS="--xla_force_host_platform_device_count=4",
                    JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
@@ -591,9 +640,9 @@ def test_decode_side_mesh_raises_name_15b(init):
     """The decode side takes the trainer's mesh (ROADMAP item 15b.1; the
     bars are in ``tests/test_torch_lm_mesh_decode.py``): the prefill and
     serve steps on a mesh row equal the one-device steps on the row
-    gathered, and a gateway serves the sharded bank. What is still
-    refused is a ``decode_2d`` layout (a spec over combined axes), whose
-    raise names item 15b.2."""
+    gathered, and a gateway serves the sharded bank. The initial params
+    laid out by the ``decode_2d`` policy (specs over combined axes,
+    gathered where used) decode as they do on one device."""
     mesh = make_host_mesh(model=2)
     tr = _trainer(init, "llm", mesh)
     row = tr.registry.params[0]
@@ -618,9 +667,16 @@ def test_decode_side_mesh_raises_name_15b(init):
     d2 = {k: Sharded.place(init[k], mesh, v.spec)
           for k, v in param_shardings(CFG, init, mesh,
                                       policy="decode_2d").items()}
-    with pytest.raises(NotImplementedError, match="15b.2"):
-        ttf.lm_decode(CFG, d2, tok[:, :1], ttf.init_lm_caches(CFG, 2, 8),
-                      mesh=mesh)
+    ref = []
+    for m, p in ((mesh, d2), (None, init)):
+        c = ttf.init_lm_caches(CFG, 2, 8)
+        _, c = ttf.lm_prefill(CFG, p, tok, c, mesh=m)
+        ref.append(ttf.lm_decode(CFG, p, tok[:, :1], c, mesh=m))
+    np.testing.assert_allclose(ref[0][0].numpy(), ref[1][0].numpy(),
+                               atol=1e-5)
+    for k, v in ref[1][1].items():
+        np.testing.assert_allclose(ref[0][1][k].numpy(), v.numpy(),
+                                   atol=1e-6, err_msg=k)
 
 
 def test_trainer_checks_device_and_mesh(init):
@@ -749,3 +805,60 @@ def test_mesh_decode_steps_match_the_reference_mesh_run(ref_job, name):
                 tp, ttf.init_lm_caches(tc, b, s), toks, nv)[0]
             assert np.abs(arrays[tag + "0/logits"]
                           - one.numpy()).max() > 1e-3
+
+
+def test_pod_mesh_and_decode_2d_match_the_reference_mesh_run(ref_job):
+    """The capacity case against the reference's own mesh runs
+    (``POD_CASE``): reduced Phi-3.5-MoE's train step on ``make_host_mesh(
+    pod=2, data=2)`` with ``dp_axes=("pod", "data")`` (per-shard routing,
+    capacity and load-balance loss over the flat data-parallel index:
+    params 1e-5, loss and aux 1e-6), and a prefill and a serve step with
+    params laid out by ``decode_2d`` on ``(model=2, data=2)`` (logits
+    1e-5, caches 1e-6 of each leaf's scale, ``index`` / ``pos`` exact).
+    Both differ from the port's one-device run: the tokens overflow an
+    expert of one data shard."""
+    arrays = ref_job.result()
+    tc, tp, t = _forward_case(arrays, CAPACITY_CASE)
+    lr, scores = POD_CASE
+    scores = torch.tensor(scores)
+    runs = []
+    for mesh in (make_host_mesh(pod=2, data=2), None):
+        p = {k: v.clone() for k, v in tp.items()}
+        runs.append(TS.make_train_step(
+            tc, mesh=mesh, dp_axes=("pod", "data"), lr=lr, remat=False)(
+                p, t[:, :-1], t[:, 1:], scores))
+    (q, m), (_, m1) = runs
+    want = {k[len("pod/params/"):]: v for k, v in arrays.items()
+            if k.startswith("pod/params/")}
+    assert set(want) == set(q)
+    for k, v in want.items():
+        np.testing.assert_allclose(q[k].numpy(), v, atol=1e-5, rtol=0,
+                                   err_msg=k)
+    for key in ("loss", "aux"):
+        np.testing.assert_allclose(float(m[key]),
+                                   float(arrays["pod/" + key]), atol=1e-6)
+    assert abs(float(arrays["pod/loss"]) - float(m1["loss"])) > 1e-4
+    mesh = make_host_mesh(model=2, data=2)
+    d2 = {k: Sharded.place(tp[k], mesh, v.spec)
+          for k, v in param_shardings(tc, tp, mesh,
+                                      policy="decode_2d").items()}
+    b, s = t.shape
+    c = ttf.init_lm_caches(tc, b, s + 1)
+    outs = [TS.make_prefill_step(tc, mesh=mesh)(d2, c, t, s)]
+    outs.append(TS.make_serve_step(tc, mesh=mesh)(d2, outs[0][1], t[:, :1]))
+    for j, (lg, c) in enumerate(outs):
+        np.testing.assert_allclose(lg.numpy(), arrays[f"d2/{j}/logits"],
+                                   atol=1e-5, rtol=1e-5, err_msg=str(j))
+        want = _ref_caches(arrays, f"d2/{j}/caches/")
+        assert list(c) == list(want)
+        for k, w in want.items():
+            if w.dtype.is_floating_point:
+                scale = max(1.0, float(w.abs().max()))
+                np.testing.assert_allclose(c[k].numpy(), w.numpy(),
+                                           atol=1e-6 * scale, rtol=0,
+                                           err_msg=f"{j} {k}")
+            else:
+                assert torch.equal(c[k], w), (j, k)
+    one = TS.make_prefill_step(tc)(tp, ttf.init_lm_caches(tc, b, s + 1), t,
+                                   s)[0]
+    assert np.abs(arrays["d2/0/logits"] - one.numpy()).max() > 1e-3

@@ -133,7 +133,8 @@ def test_lm_and_mtp_refuse_a_mesh():
     path (item 15b.1) take a tensor-parallel mesh: at ``data=1`` they
     keep the one-device values, the MLA latent caches too (bars in
     ``tests/test_torch_lm_mesh.py`` and ``test_torch_lm_mesh_decode.py``).
-    A ``decode_2d`` layout is refused, naming item 15b.2."""
+    A ``decode_2d`` layout (specs over combined axes, gathered where
+    used) keeps them too."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.sharding import param_shardings
     from repro_torch.launch.tensor_parallel import Sharded
@@ -160,9 +161,13 @@ def test_lm_and_mtp_refuse_a_mesh():
     d2 = {k: Sharded.place(p[k], mesh, v.spec)
           for k, v in param_shardings(TCFG, p, mesh,
                                       policy="decode_2d").items()}
-    with pytest.raises(NotImplementedError, match="15b.2"):
-        ttf.lm_decode(TCFG, d2, tok[:, :1], ttf.init_lm_caches(TCFG, 1, 8),
-                      mesh=mesh)
+    c = ttf.init_lm_caches(TCFG, 1, 8)
+    _, c = ttf.lm_prefill(TCFG, d2, tok, c, mesh=mesh)
+    ld, c = ttf.lm_decode(TCFG, d2, tok[:, :1], c, mesh=mesh)
+    np.testing.assert_allclose(ld.numpy(), outs[1][0].numpy(), atol=1e-5)
+    for k, v in outs[1][1].items():
+        np.testing.assert_allclose(c[k].numpy(), v.numpy(), atol=1e-5,
+                                   err_msg=k)
 
 
 def test_train_step_matches_reference(ref):

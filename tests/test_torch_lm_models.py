@@ -273,7 +273,8 @@ def test_mesh_raises_not_implemented():
     take a mesh: on ``model=2`` the forward, a prefill and a decode step
     keep the one-device values (the bars of every family are in
     ``tests/test_torch_lm_mesh.py`` and ``test_torch_lm_mesh_decode.py``).
-    A ``decode_2d`` layout is still refused, naming item 15b.2."""
+    A ``decode_2d`` layout (combined axes, gathered where used) keeps
+    them too."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.sharding import param_shardings
     from repro_torch.launch.tensor_parallel import Sharded
@@ -299,9 +300,11 @@ def test_mesh_raises_not_implemented():
     d2 = {k: Sharded.place(params[k], mesh, v.spec)
           for k, v in param_shardings(tc, params, mesh,
                                       policy="decode_2d").items()}
-    with pytest.raises(NotImplementedError, match="15b.2"):
-        ttf.lm_decode(tc, d2, tok[:, :1], ttf.init_lm_caches(tc, 1, 8),
-                      mesh=mesh)
-    with pytest.raises(NotImplementedError, match="15b.2"):
-        ttf.lm_prefill(tc, d2, tok, ttf.init_lm_caches(tc, 1, 8),
-                       mesh=mesh)
+    lp, c = ttf.lm_prefill(tc, d2, tok, ttf.init_lm_caches(tc, 1, 8),
+                           mesh=mesh)
+    ld, c = ttf.lm_decode(tc, d2, tok[:, :1], c, mesh=mesh)
+    for a, b in zip((lp, ld), outs[1][:2]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+    for k, v in outs[1][2].items():
+        np.testing.assert_allclose(c[k].numpy(), v.numpy(), atol=1e-5,
+                                   err_msg=k)

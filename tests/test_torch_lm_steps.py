@@ -301,8 +301,8 @@ def test_steps_refuse_what_is_not_ported():
     ROADMAP item 13b.4, the prefill and serve steps since item 15b.1
     (their bars are in ``tests/test_torch_lm_mesh.py`` and
     ``test_torch_lm_mesh_decode.py``). Here: the prefill and serve steps
-    on ``model=2`` equal the one-device steps; a ``decode_2d`` layout is
-    refused, naming item 15b.2; the audio serve step on a mesh runs on
+    on ``model=2`` equal the one-device steps, on the ``train`` and the
+    ``decode_2d`` layouts; the audio serve step on a mesh runs on
     the params gathered whole. The audio train step on reduced
     whisper-small moves the reference's way (the parity bars are in
     ``tests/test_torch_encdec.py``)."""
@@ -326,10 +326,11 @@ def test_steps_refuse_what_is_not_ported():
     d2 = {k: Sharded.place(p[k], mesh, v.spec)
           for k, v in param_shardings(TCFG, p, mesh,
                                       policy="decode_2d").items()}
-    for make, args in ((TS.make_prefill_step, (tok, 4)),
-                       (TS.make_serve_step, (tok[:, :1],))):
-        with pytest.raises(NotImplementedError, match="15b.2"):
-            make(TCFG, mesh=mesh)(d2, ttf.init_lm_caches(TCFG, 2, 8), *args)
+    c = ttf.init_lm_caches(TCFG, 2, 8)
+    last, c = TS.make_prefill_step(TCFG, mesh=mesh)(d2, c, tok, 4)
+    lg, c = TS.make_serve_step(TCFG, mesh=mesh)(d2, c, tok[:, 4:])
+    for a, b in zip((last, lg), outs[1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
     from repro import configs as jconfigs
     from repro_torch import configs as tconfigs
     from repro.models import encdec as jed
