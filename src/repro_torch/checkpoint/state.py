@@ -60,6 +60,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.checkpoint.io import (CheckpointError, _crc,
                                        _flatten_with_paths, _host_array,
                                        atomic_savez, atomic_write_bytes,
@@ -718,8 +719,9 @@ class CheckpointManager:
     def save(self, server: Any, t: int) -> str:
         crash = (self.faults is not None
                  and self.faults.fires(t, "mid-save"))
-        path = save_server_state(server, self.step_dir(t),
-                                 crash_mid_save=crash)
-        atomic_write_bytes(os.path.join(self.root, LATEST),
-                           os.path.basename(path).encode())
+        with telemetry.span("save"):
+            path = save_server_state(server, self.step_dir(t),
+                                     crash_mid_save=crash)
+            atomic_write_bytes(os.path.join(self.root, LATEST),
+                               os.path.basename(path).encode())
         return path

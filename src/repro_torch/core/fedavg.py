@@ -19,13 +19,13 @@ Checkpoints, resume and scripted crashes work as in FedCDServer.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.checkpoint.io import CheckpointError
 from repro_torch.checkpoint.state import (CheckpointManager,
                                           latest_checkpoint,
@@ -50,7 +50,7 @@ class FedAvgRound:
     test_acc: np.ndarray
     val_acc: np.ndarray
     comm_bytes: int
-    wall_s: float
+    wall_s: float                        # host s, round start to metrics
 
 
 class FedAvgServer:
@@ -119,6 +119,7 @@ class FedAvgServer:
                                              self.n_devices)
                          if spec.straggler is not None else None)
         self.metrics: List[FedAvgRound] = []
+        self._telemetry_id = telemetry.new_id()
         self._model_bytes = sum(v.numel() * v.element_size()
                                 for v in params.values())
         self._prefetch: Optional[Tuple[int, Tuple[np.ndarray,
@@ -194,28 +195,38 @@ class FedAvgServer:
         return restore_server_state(self, resolved)
 
     def run_round(self, t: int) -> FedAvgRound:
-        t0 = time.time()
-        if self._prefetch is not None and self._prefetch[0] == t:
-            participating, perms = self._prefetch[1]
-            self._prefetch = None
-        else:
-            participating, perms = self._draw_sample()
-        plan = self._plan(t, participating, perms)
-        if self.semisync is not None:
-            self.semisync.resolve(plan, live=[0])
+        with telemetry.Round("fedavg", self._telemetry_id, t,
+                             self.executor.stats) as rnd:
+            return self._round(t, rnd)
+
+    def _round(self, t: int, rnd: telemetry.Round) -> FedAvgRound:
+        with telemetry.span("plan"):
+            if self._prefetch is not None and self._prefetch[0] == t:
+                participating, perms = self._prefetch[1]
+                self._prefetch = None
+            else:
+                participating, perms = self._draw_sample()
+            plan = self._plan(t, participating, perms)
+            if self.semisync is not None:
+                self.semisync.resolve(plan, live=[0])
         self._fault(t, "post-plan")
-        self.executor.launch(plan)
+        with telemetry.span("launch"):
+            self.executor.launch(plan)
         if self.pipeline:
             # FedAvg's next round depends on nothing this round computes:
             # prefetch the sample and enqueue its training now
-            self._prefetch = (t + 1, self._draw_sample())
-            self.executor.speculate(self._plan(t + 1, *self._prefetch[1]))
+            with telemetry.span("speculate"):
+                self._prefetch = (t + 1, self._draw_sample())
+                self.executor.speculate(
+                    self._plan(t + 1, *self._prefetch[1]))
         self._fault(t, "mid-dispatch")
-        result = self.executor.readback()
+        with telemetry.span("readback"):
+            result = self.executor.readback()
         m = FedAvgRound(
             round=t, test_acc=result.test_acc, val_acc=result.val_acc,
             comm_bytes=2 * int(participating.sum()) * self._model_bytes,
-            wall_s=time.time() - t0)
+            wall_s=rnd.elapsed_s())
+        telemetry.count("comm_bytes", m.comm_bytes)
         self.metrics.append(m)
         self._fault(t, "post-readback")
         if self._ckpt is not None:

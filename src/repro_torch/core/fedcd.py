@@ -48,13 +48,13 @@ stream the data of joining and drifting devices.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.checkpoint.io import CheckpointError
 from repro_torch.checkpoint.state import (CheckpointManager,
                                           latest_checkpoint,
@@ -115,7 +115,7 @@ class RoundMetrics:
     live_models: int                # models alive on the server
     score_std: float                # mean over devices of σ(c_i) (Fig 9)
     comm_bytes: int                 # up+down transport this round (§3.6)
-    wall_s: float
+    wall_s: float                   # host s, round start to metrics
     preferred: np.ndarray           # (N,) argmax-score model id (Fig 7)
 
 
@@ -215,6 +215,7 @@ class FedCDServer:
                                     n_devices=self.n_devices)
         self.executor = self._make_executor(loss_fn, acc_fn)
         self.metrics: List[RoundMetrics] = []
+        self._telemetry_id = telemetry.new_id()
         self._model_bytes = sum(v.numel() * v.element_size()
                                 for v in params.values())
         # depends only on leaf shapes, which all models share
@@ -367,44 +368,58 @@ class FedCDServer:
 
     # -- Algorithm 1 -------------------------------------------------------
     def run_round(self, t: int) -> RoundMetrics:
-        t0 = time.time()
+        with telemetry.Round("fedcd", self._telemetry_id, t,
+                             self.executor.stats) as rnd:
+            return self._round(t, rnd)
+
+    def _round(self, t: int, rnd: telemetry.Round) -> RoundMetrics:
         cfg = self.cfg
         joined, left = self._apply_churn(t)
-        sample = self._round_sample(t)
-        c = normalized_scores(self.state)
-        churn_next = (self.scenario is not None
-                      and self.scenario.has_events(t + 1))
-        plan = self.planner.build(t, sample, c, self.state, self.registry,
-                                  self.executor.plan_hints(),
-                                  churn=(joined, left),
-                                  churn_next=churn_next)
+        with telemetry.span("plan"):
+            sample = self._round_sample(t)
+            c = normalized_scores(self.state)
+            churn_next = (self.scenario is not None
+                          and self.scenario.has_events(t + 1))
+            plan = self.planner.build(t, sample, c, self.state,
+                                      self.registry,
+                                      self.executor.plan_hints(),
+                                      churn=(joined, left),
+                                      churn_next=churn_next)
         self._fault(t, "post-plan")
-        self.executor.launch(plan)
+        with telemetry.span("launch"):
+            self.executor.launch(plan)
         # overlap: draw round t+1's sample while the device works
         self._prefetch = (t + 1,
                           self._draw_sample(self._present_after(t + 1)))
         if self.pipeline:
             # cross-round speculation: enqueue round t+1's training from
             # the prefetched sample + pre-lifecycle state
-            spec = self.planner.build_speculative(
-                t + 1, self._prefetch[1], self.state, self.registry)
-            self.executor.speculate(spec)
+            with telemetry.span("speculate"):
+                spec = self.planner.build_speculative(
+                    t + 1, self._prefetch[1], self.state, self.registry)
+                self.executor.speculate(spec)
         self._fault(t, "mid-dispatch")
-        result = self.executor.readback()
+        with telemetry.span("readback"):
+            result = self.executor.readback()
 
         transfers = plan.transfers
-        self.state = push_accuracies(self.state, result.accs)
-        self.state, _ = apply_deletions(self.state, self.registry, t, cfg)
-        if t in cfg.milestones:
-            self.state, cloned = clone_at_milestone(
-                self.state, self.registry, t, cfg, self.life_rng,
-                clone_params_fn=self._maybe_compress)
-            transfers += sum(int(self.state.active[:, m2].sum())
-                             for m2 in self.registry.live_ids())
-            self.executor.on_clones(cloned)
-            self.planner.on_clones(cloned)   # clones inherit fold mass
+        with telemetry.span("lifecycle"):
+            self.state = push_accuracies(self.state, result.accs)
+            self.state, _ = apply_deletions(self.state, self.registry, t,
+                                            cfg)
+            if t in cfg.milestones:
+                self.state, cloned = clone_at_milestone(
+                    self.state, self.registry, t, cfg, self.life_rng,
+                    clone_params_fn=self._maybe_compress)
+                transfers += sum(int(self.state.active[:, m2].sum())
+                                 for m2 in self.registry.live_ids())
+                self.executor.on_clones(cloned)
+                self.planner.on_clones(cloned)   # clones inherit fold mass
 
-        metrics = self._collect(t, transfers, time.time() - t0)
+        with telemetry.span("collect"):
+            metrics = self._collect(t, transfers)
+        metrics.wall_s = rnd.elapsed_s()
+        telemetry.count("comm_bytes", metrics.comm_bytes)
         self.metrics.append(metrics)
         self._fault(t, "post-readback")
         if self._ckpt is not None:
@@ -412,7 +427,8 @@ class FedCDServer:
         return metrics
 
     # -- metrics -----------------------------------------------------------
-    def _collect(self, t: int, transfers: int, wall: float) -> RoundMetrics:
+    def _collect(self, t: int, transfers: int) -> RoundMetrics:
+        """The round's metrics; ``_round`` sets ``wall_s``."""
         c = normalized_scores(self.state)
         preferred = np.argmax(np.where(self.state.active, c, -1.0), axis=1)
         test_acc, val_acc = self.executor.collect(preferred)
@@ -426,7 +442,7 @@ class FedCDServer:
             live_models=len(self.registry.live_ids()),
             score_std=float(np.mean(stds)) if stds else 0.0,
             comm_bytes=self._transport_bytes(transfers),
-            wall_s=wall, preferred=preferred)
+            wall_s=0.0, preferred=preferred)
 
     def run(self, rounds: int, log_every: int = 0) -> List[RoundMetrics]:
         # a resumed server continues from the round after its checkpoint

@@ -65,6 +65,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.config import FedCDConfig
 from repro_torch.core import quantize as qz
 from repro_torch.core.aggregate import (multi_weighted_average,
@@ -142,27 +143,42 @@ def _group_positions(groups: List[List[int]], width: int,
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """A blocking read of ``t`` (a ``wait`` span)."""
+    with telemetry.wait():
+        return t.detach().cpu().numpy()
 
 
 def _host_async(t: torch.Tensor) -> Callable[[], np.ndarray]:
     """Start copying ``t`` to the host and return the reader that waits
-    for that copy alone. On the card: a non-blocking copy into pinned
-    memory and an event recorded after it, which the reader waits on
-    (not the stream, so later work does not delay it). On the CPU a
-    plain copy."""
+    for that copy alone (a ``wait`` span). On the card: a non-blocking
+    copy into pinned memory and an event recorded after it, which the
+    reader waits on (not the stream, so later work does not delay it).
+    On the CPU a plain copy, made now."""
     if t.device.type != "cuda":
-        host = _host(t)
-        return lambda: host
+        host = t.detach().cpu().numpy()
+
+        def read_now() -> np.ndarray:
+            with telemetry.wait():
+                return host
+        return read_now
     out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     out.copy_(t.detach(), non_blocking=True)
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(t.device))
 
     def read() -> np.ndarray:
-        done.synchronize()
+        with telemetry.wait():
+            done.synchronize()
         return out.numpy()
     return read
+
+
+def _note_train(pairs: int, rows: int, width: int) -> None:
+    """Count one train dispatch: ``pairs`` useful pairs in ``rows``
+    trained rows (buckets of ``width``)."""
+    telemetry.count("pairs", pairs)
+    telemetry.count("pairs_padded", rows - pairs)
+    telemetry.new_train_width(width)
 
 
 def _stack(trees: List[Params]) -> Params:
@@ -551,6 +567,7 @@ class FusedExecutor(RoundExecutor):
         m_idx, d_idx, pperms = pad_work_batch(
             self._rows(pair_model), self._drows(pair_device),
             [perms[d] for d in pair_device])
+        _note_train(len(pair_model), len(m_idx), len(m_idx))
         trained = self._train(self.registry.params.tree, m_idx,
                               *self._dev["train"], d_idx, pperms)
         return trained, TrainMeta(list(pair_model), list(pair_device),
@@ -564,6 +581,7 @@ class FusedExecutor(RoundExecutor):
     # -- eval dispatch / readers ------------------------------------------
     def _val_reader_dense(self, mat: torch.Tensor, models: List[int]
                           ) -> Callable:
+        telemetry.count("eval_rows_read", len(models))
         read_mat = _host_async(mat)
 
         def read() -> Dict[int, np.ndarray]:
@@ -649,10 +667,15 @@ class FusedExecutor(RoundExecutor):
         pre-fold params. Runs at launch, BEFORE dispatch: this round's
         training and eval see post-fold params. The quantize roundtrip
         follows the round's aggregate → quantize → scatter order."""
-        for m, mass, updates in _matured(self._stale_updates, plan):
-            if m in self.registry.params:
-                new = _blend_stale(self.registry.params[m], mass, updates)
-                self.registry.params[m] = self._maybe_compress(new)
+        matured = _matured(self._stale_updates, plan)
+        if not matured:
+            return
+        with telemetry.span("launch/fold"):
+            for m, mass, updates in matured:
+                if m in self.registry.params:
+                    new = _blend_stale(self.registry.params[m], mass,
+                                       updates)
+                    self.registry.params[m] = self._maybe_compress(new)
 
     def launch(self, plan: RoundPlan) -> None:
         """Fold, then train (or take the speculation), then finish: dense
@@ -665,23 +688,26 @@ class FusedExecutor(RoundExecutor):
         self._fold_stale(plan)
         self._note_load(plan)
         if plan.pair_model and (plan.agg_models or plan.straggler_pairs):
-            spec = self._take_speculation(plan)
-            if spec is None:
-                trained, meta = self._dispatch_train(
-                    plan.pair_model, plan.pair_device, plan.perms)
-            else:
-                trained, meta = spec
+            with telemetry.span("launch/train"):
+                spec = self._take_speculation(plan)
+                if spec is None:
+                    trained, meta = self._dispatch_train(
+                        plan.pair_model, plan.pair_device, plan.perms)
+                else:
+                    trained, meta = spec
             if plan.straggler_pairs:
                 _harvest_rows(self._stale_updates, plan, trained, meta)
-            if plan.sparse_val or not plan.agg_models:
-                if plan.agg_models:
-                    self._dispatch_apply(trained, meta, plan)
-                pend = self._dispatch_evals(plan)
-            else:
-                pend = self._finish_round(trained, meta, plan)
+            with telemetry.span("launch/finish"):
+                if plan.sparse_val or not plan.agg_models:
+                    if plan.agg_models:
+                        self._dispatch_apply(trained, meta, plan)
+                    pend = self._dispatch_evals(plan)
+                else:
+                    pend = self._finish_round(trained, meta, plan)
         else:
             self._drop_speculation()
-            pend = self._dispatch_evals(plan)
+            with telemetry.span("launch/finish"):
+                pend = self._dispatch_evals(plan)
         self._pending = (plan, pend)
 
     def _note_load(self, plan: RoundPlan) -> None:
@@ -780,6 +806,7 @@ class FusedExecutor(RoundExecutor):
 
     def eval_rows(self, rows: List[int], split: str) -> np.ndarray:
         """(len(rows), N) accuracy of the given models on one split."""
+        telemetry.count("eval_rows_read", len(rows))
         mat = self._eval(self.registry.params.tree,
                          pad_live_rows(self._rows(rows)), *self._dev[split])
         return np.stack([self._to_id_row(r)
@@ -792,6 +819,7 @@ class FusedExecutor(RoundExecutor):
         if not live:
             self._val_cache, self._test_cache = {}, {}
             return
+        telemetry.count("refresh_rows", len(live))
         val = self.eval_rows(live, "val")
         test = self.eval_rows(live, "test")
         self._val_cache = {m: val[j] for j, m in enumerate(live)}
@@ -814,6 +842,7 @@ class FusedExecutor(RoundExecutor):
         if missing:
             # test-row prediction missed (a preference shifted to a model
             # that didn't train): one small dense eval
+            telemetry.count("test_row_misses", len(missing))
             extra = self.eval_rows(missing, "test")
             for j, m in enumerate(missing):
                 self._test_cache[m] = extra[j]
@@ -900,6 +929,8 @@ class ShardedExecutor(FusedExecutor):
                         ) -> Tuple[List[Optional[Params]], TrainMeta]:
         m_idx, d_idx, pperms, groups, width = self._bucket(
             pair_model, pair_device, perms)
+        _note_train(len(pair_model), width * sum(1 for g in groups if g),
+                    width)
         trained = self._train(self.registry.params, self.databank, m_idx,
                               d_idx, pperms, [len(g) for g in groups])
         return trained, TrainMeta(
@@ -944,6 +975,7 @@ class ShardedExecutor(FusedExecutor):
 
     def _sharded_reader(self, mat: torch.Tensor, slots: Dict[int, int]
                         ) -> Callable:
+        telemetry.count("eval_rows_read", len(slots))
         read_mat = _host_async(mat)
 
         def read() -> Dict[int, np.ndarray]:
@@ -990,6 +1022,7 @@ class ShardedExecutor(FusedExecutor):
 
     def eval_rows(self, rows: List[int], split: str) -> np.ndarray:
         idx, slots, run = self._shard_row_slots(rows)
+        telemetry.count("eval_rows_read", len(rows))
         mat = _host(self._eval(self.registry.params, self.databank, idx,
                                split, run))
         return np.stack([self._to_id_row(mat[slots[m]]) for m in rows])
@@ -1230,14 +1263,20 @@ class FedAvgFusedExecutor:
         """Blend buffered straggler updates into the global model (id 0)
         on the card, BEFORE this round's dispatch; ``set_params`` drops a
         pending speculation, which read pre-fold params."""
-        for _, mass, updates in _matured(self._stale_updates, plan):
-            self.set_params(_blend_stale(self.get_params(), mass, updates))
+        matured = _matured(self._stale_updates, plan)
+        if not matured:
+            return
+        with telemetry.span("launch/fold"):
+            for _, mass, updates in matured:
+                self.set_params(_blend_stale(self.get_params(), mass,
+                                             updates))
 
     # -- split-phase pieces -------------------------------------------------
     def _dispatch_train(self, plan: RoundPlan) -> Tuple[Params, TrainMeta]:
         d_ids = plan.pair_device
         m_idx, d_idx, pp = pad_work_batch(
             [0] * len(d_ids), list(d_ids), [plan.perms[d] for d in d_ids])
+        _note_train(len(d_ids), len(m_idx), len(m_idx))
         trained = self._train(self._stacked, m_idx, *self._dev["train"],
                               d_idx, pp)
         return trained, TrainMeta([0] * len(d_ids), list(d_ids), len(m_idx))
@@ -1265,20 +1304,24 @@ class FedAvgFusedExecutor:
         self._fold_stale(plan)           # drops any (pre-fold) speculation
         trained = meta = None
         if plan.agg_models or plan.straggler_pairs:
-            if self._spec is not None and self._spec[0] == plan.round:
-                _, trained, meta = self._spec
-                self._spec = None
-                self.stats.hit += 1
-            else:
-                self._park_spec()
-                trained, meta = self._dispatch_train(plan)
+            with telemetry.span("launch/train"):
+                if self._spec is not None and self._spec[0] == plan.round:
+                    _, trained, meta = self._spec
+                    self._spec = None
+                    self.stats.hit += 1
+                else:
+                    self._park_spec()
+                    trained, meta = self._dispatch_train(plan)
         if plan.straggler_pairs:
             _harvest_rows(self._stale_updates, plan, trained, meta)
-        if plan.agg_models:
-            val_mat, test_mat = self._dispatch_finish(trained, meta, plan)
-        else:
-            val_mat, test_mat = self._dispatch_eval_only()
-        self._pending = (_host_async(val_mat), _host_async(test_mat))
+        with telemetry.span("launch/finish"):
+            if plan.agg_models:
+                val_mat, test_mat = self._dispatch_finish(trained, meta,
+                                                          plan)
+            else:
+                val_mat, test_mat = self._dispatch_eval_only()
+            telemetry.count("eval_rows_read", 2)
+            self._pending = (_host_async(val_mat), _host_async(test_mat))
 
     def speculate(self, plan: RoundPlan) -> None:
         if not self.pipeline:
@@ -1348,6 +1391,8 @@ class FedAvgShardedExecutor(FedAvgFusedExecutor):
     def _dispatch_train(self, plan: RoundPlan
                         ) -> Tuple[List[Optional[Params]], TrainMeta]:
         m_idx, d_idx, pp, _, groups, width = self._shard_batch(plan)
+        _note_train(len(plan.pair_device),
+                    width * sum(1 for g in groups if g), width)
         trained = self._train(self._model, self.databank, m_idx, d_idx, pp,
                               [len(g) for g in groups])
         b = len(plan.pair_device)

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch.func import grad, vmap
 
+from repro_torch import telemetry
 from repro_torch.core import quantize as qz
 from repro_torch.core.aggregate import multi_weighted_average
 from repro_torch.launch.mesh import (LaunchMesh, data_axis_size,
@@ -143,7 +144,8 @@ def _scatter_rows(stacked: Params, agg: Params, agg_rows: np.ndarray) -> None:
 def _eval_gathered(eval_model: Callable, stacked: Params, idx: np.ndarray,
                    xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
     """Step 5: score each scheduled bank row on every device's split —
-    the (rows, N) accuracy matrix, one row at a time."""
+    the (rows, N) accuracy matrix, one row at a time (``eval_rows``)."""
+    telemetry.count("eval_rows", len(idx))
     return torch.stack([
         eval_model({k: v[int(m)] for k, v in stacked.items()}, xs, ys)
         for m in idx])
@@ -782,6 +784,7 @@ def make_sharded_fedavg_eval(acc_fn: Callable, mesh: LaunchMesh
     out_dev = mesh.device(0, 0)
 
     def evaluate(params_at, databank, split):
+        telemetry.count("eval_rows")
         cols = []
         with torch.no_grad():
             if _shared_device(mesh) is not None:

@@ -18,6 +18,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+from repro_torch import telemetry
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
@@ -54,7 +56,15 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[Path, str]]:
     """Compile every named source whose library is missing, all ``nvcc``
     processes started together. Returns ``{name: (library, compiler
     output)}``; a library built earlier returns the output kept beside
-    it. Raises with the compiler's output if any build fails."""
+    it. Raises with the compiler's output if any build fails. Recorded
+    in the telemetry's process record: a ``kernels.build`` span, and
+    the counters ``nvcc_builds`` and ``library_hits``, one each per
+    source, also under ``<counter>.<name>``."""
+    with telemetry.process_span("kernels.build"):
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, Tuple[Path, str]]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     compiler = None
     procs = {}
@@ -64,10 +74,14 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[Path, str]]:
             raise ValueError(f"unknown kernel source {name!r}")
         path = library_path(name)
         if path.exists():
+            telemetry.process_count("library_hits")
+            telemetry.process_count(f"library_hits.{name}")
             log = path.with_suffix(".log")
             out[name] = (path, log.read_text() if log.exists() else "")
             continue
         compiler = compiler or nvcc()
+        telemetry.process_count("nvcc_builds")
+        telemetry.process_count(f"nvcc_builds.{name}")
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         cmd = [compiler, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
