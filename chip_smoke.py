@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version on the card, checks one MLP round
+each against its plain PyTorch version on the card (phase 3b: the CNN's
+3x3 convolution kernels at each layer of the pair step, G=64 pairs of 32
+images, against float64 and timed beside their bound, the plain version
+and cuDNN's call; FedAvg's 16 pairs and the eval's fold of 30 x 128
+images against float64), checks one MLP round
 on the card against the same round on the CPU, then drives the main path
 — FedCD (paper Algorithm 1, mode A) and the FedAvg baseline on the
 paper's 10-layer CNN at full width, 30 devices, fused engine — checks
@@ -10,7 +14,9 @@ the legacy and batched engines at the same full width, then the
 pipelined fused path (``fused+pipeline``: round t+1's training enqueued
 before round t's readback) for FedCD and FedAvg and FedCD with holder-
 only validation scoring (``fused+pipeline+sparse:1.1``) at the same full
-width. Each path reports which kernels it launched; the pipelined path
+width. Each path reports which kernels it launched (on every CNN path
+the three convolution kernels must launch, or the run fails); the
+pipelined path
 also reports in how many rounds the readback returned while the next
 round's speculative training was still running on the card. Last, the
 overlap check runs 3 pipelined rounds of FedCD and of FedAvg with a
@@ -726,6 +732,156 @@ def check_single_kernels(device, leaf_sizes):
                      f"D={q.shape[1]}: {e}")
     torch.cuda.synchronize()
     return rows
+
+
+# the CNN's eight 3x3 convolutions (Cin, Cout, H) at the pair step's
+# shapes (phase 3b): 64 pairs of 32 images
+CONV_LAYERS = ((3, 32, 32), (32, 32, 32), (32, 64, 16), (64, 64, 16),
+               (64, 128, 8), (128, 128, 8), (128, 256, 4), (256, 256, 4))
+CONV_G, CONV_N = 64, 32
+# the other calls the main path makes, held to float64 but not timed:
+# (G, N, backward) of FedAvg's 16-pair step (other wgrad slice counts)
+# and the eval's fold (30 devices' 128 images, one model: forward only)
+CONV_CHECKS = ((16, 32, True), (1, 30 * 128, False))
+CONV_TOL = 3e-5     # of the product summed in absolute values (float64)
+
+
+def conv_error(out, exact, scale):
+    """Worst error of ``out`` against the float64 ``exact``, as a share of
+    the same product summed in absolute values (``scale``)."""
+    return float(((out.double() - exact).abs() / (scale + 1e-30)).max())
+
+
+def conv_case(gen, G, N, cin, cout, h, device, tag, backward=True):
+    """Random operands of one layer (post-ReLU x, He-scaled w, G groups of
+    N images) and the kernels' worst errors against float64, each held to
+    CONV_TOL: forward (bias and ReLU) and, with ``backward``, dgrad and
+    wgrad (with the bias gradient). Returns ((x, w, b, dy, y), errors by
+    kind)."""
+    import torch
+
+    from repro_torch.kernels.conv3x3 import ops as cops
+    from repro_torch.kernels.conv3x3 import ref as cref
+
+    x = torch.randn(G, N, h, h, cin, generator=gen, device=device).relu()
+    w = torch.randn(G, 3, 3, cin, cout, generator=gen, device=device) \
+        * (2.0 / (9 * cin)) ** 0.5
+    b = 0.05 * torch.randn(G, cout, generator=gen, device=device)
+    dy = torch.randn(G, N, h, h, cout, generator=gen, device=device)
+    y = cops.conv3x3_fwd(x, w, b)
+    x64, w64, b64, y64 = (t.double() for t in (x, w, b, y))
+    errs = {"fwd": conv_error(
+        y, cref.conv3x3_fwd_ref(x64, w64, b64),
+        cref.conv3x3_fwd_ref(x64.abs(), w64.abs(), b64.abs()))}
+    if backward:
+        dy64 = dy.double()
+        dx = cops.conv3x3_dgrad(dy, y, w)
+        dw, db = cops.conv3x3_wgrad(x, dy, y)
+        exact_w = cref.conv3x3_wgrad_ref(x64, dy64, y64)
+        scale_w = cref.conv3x3_wgrad_ref(x64.abs(), dy64.abs(), y64)
+        errs["dgrad"] = conv_error(
+            dx, cref.conv3x3_dgrad_ref(dy64, y64, w64),
+            cref.conv3x3_dgrad_ref(dy64.abs(), y64, w64.abs()))
+        errs["wgrad"] = max(conv_error(dw, exact_w[0], scale_w[0]),
+                            conv_error(db, exact_w[1], scale_w[1]))
+    for kind, err in errs.items():
+        if not err <= CONV_TOL:
+            fail(f"{tag} {kind}: error {err} of the absolute scale > "
+                 f"{CONV_TOL}")
+    return (x, w, b, dy, y), errs
+
+
+def check_conv(device):
+    """Phase 3b: the convolution kernels (``kernels/conv3x3``) against
+    their plain versions at each layer: at the pair step's shapes (G=64
+    pairs of N=32 images) forward (bias and ReLU), dgrad and wgrad (with
+    the bias gradient), each held to float64 and timed beside its bound
+    (FLOPs at the float32 peak, or bytes), the plain version (the CNN's
+    former F.conv2d formulation: permutes and cuDNN's grouped
+    convolution) and cuDNN's own call on operands already in its layout
+    (``library_ms``: the grouped F.conv2d, or its convolution_backward
+    for one gradient, given the masked dy; the port never calls it);
+    then the CONV_CHECKS shapes, held to float64 alone. Returns the timed
+    rows and the checks' errors."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv3x3 import ops as cops
+    from repro_torch.kernels.conv3x3 import ref as cref
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    G, N = CONV_G, CONV_N
+    conv = dict(stride=[1, 1], padding=[1, 1], dilation=[1, 1],
+                transposed=False, output_padding=[0, 0], groups=G)
+    rows, checks = [], []
+    for layer, (cin, cout, h) in enumerate(CONV_LAYERS):
+        for g_, n_, backward in CONV_CHECKS:
+            _, errs = conv_case(gen, g_, n_, cin, cout, h, device,
+                                f"conv layer {layer} G={g_} N={n_}",
+                                backward)
+            checks.append(dict(layer=layer, G=g_, N=n_, **errs))
+        (x, w, b, dy, y), errs = conv_case(gen, G, N, cin, cout, h, device,
+                                           f"conv layer {layer}")
+        # cuDNN's operands in its own layout, made once, outside the timing
+        xc = cref._nchw(x)
+        gc = cref._nchw(torch.where(y > 0, dy, 0))
+        wc = cref._oihw(w)
+        dummy_x = torch.empty_like(xc)
+        pixels = N * h * h
+        flops = 2 * pixels * cout * 9 * cin * G
+        act_in, act_out = pixels * cin * G * 4, pixels * cout * G * 4
+        wbytes = (9 * cin * cout + cout) * G * 4
+        calls = {
+            "fwd": (lambda: cops.conv3x3_fwd(x, w, b),
+                    lambda: cref.conv3x3_fwd_ref(x, w, b),
+                    lambda: F.conv2d(xc, wc, b.reshape(-1), padding=1,
+                                     groups=G),
+                    flops, act_in + wbytes + act_out),
+            "dgrad": (lambda: cops.conv3x3_dgrad(dy, y, w),
+                      lambda: cref.conv3x3_dgrad_ref(dy, y, w),
+                      lambda: torch.ops.aten.convolution_backward(
+                          gc, dummy_x, wc, None,
+                          output_mask=[True, False, False], **conv),
+                      flops, 2 * act_out + wbytes + act_in),
+            "wgrad": (lambda: cops.conv3x3_wgrad(x, dy, y),
+                      lambda: cref.conv3x3_wgrad_ref(x, dy, y),
+                      lambda: torch.ops.aten.convolution_backward(
+                          gc, xc, wc, [G * cout],
+                          output_mask=[False, True, True], **conv),
+                      flops + pixels * cout * G,
+                      act_in + 2 * act_out + wbytes),
+        }
+        for kind, (kernel, plain, library, nflops, nbytes) in calls.items():
+            b_ms, b_by = bound(nbytes, nflops)
+            t = timings(kernel, plain, library)
+            rows.append(dict(layer=layer, kind=kind, cin=cin, cout=cout,
+                             h=h, err=errs[kind], bound_ms=b_ms,
+                             bound_by=b_by, roofline=b_ms / t["ms"], **t))
+        del x, w, b, dy, y, xc, gc, wc, dummy_x
+    torch.cuda.empty_cache()
+    return rows, checks
+
+
+def print_conv(rows, checks):
+    for r in rows:
+        print(f"[conv L{r['layer']} {r['kind']} G={CONV_G} N={CONV_N} "
+              f"Cin={r['cin']} Cout={r['cout']} H=W={r['h']}] "
+              f"err={r['err']:.3g} ms={r['ms']:.5f} "
+              f"eager_ms={r['eager_ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+              f"library_ms={r['library_ms']:.5f} bound_ms="
+              f"{r['bound_ms']:.5f} ({r['bound_by']}) "
+              f"of_bound={100 * r['roofline']:.1f}%", flush=True)
+    for kind in ("fwd", "dgrad", "wgrad"):
+        sel = [r for r in rows if r["kind"] == kind]
+        print(f"[conv {kind} total] ms={sum(r['ms'] for r in sel):.4f} "
+              f"plain_ms={sum(r['plain_ms'] for r in sel):.4f} "
+              f"library_ms={sum(r['library_ms'] for r in sel):.4f} "
+              f"bound_ms={sum(r['bound_ms'] for r in sel):.4f}", flush=True)
+    for c in checks:
+        errs = " ".join(f"{k}_err={c[k]:.3g}" for k in ("fwd", "dgrad",
+                                                        "wgrad") if k in c)
+        print(f"[conv check L{c['layer']} G={c['G']} N={c['N']}] {errs}",
+              flush=True)
 
 
 def mlp_card_vs_cpu(device):
@@ -3707,6 +3863,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels.conv3x3 import ops as cops
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.kernels.weighted_agg import ops as wops
     from repro_torch.models.cnn import init_cnn
@@ -3768,6 +3925,10 @@ def main() -> int:
                 f"{k}={v}" for k, v in r["diag"].items()))
 
     elapsed("1-3")
+    # phase 3b: the convolution kernels at each layer of the pair step
+    print_conv(*check_conv(device))
+
+    elapsed("3b")
     # phase 4: one MLP round on the card against the CPU
     err = mlp_card_vs_cpu(device)
     print(f"[mlp card-vs-cpu] bank max_abs_err={err} val matrices equal")
@@ -3776,17 +3937,28 @@ def main() -> int:
     # phase 5: the main path, with every launch counter from zero
     counters = (wops.multi_weighted_agg, wops.weighted_agg, wops.dequant_agg,
                 qops.quantize, qops.dequantize)
+    convs = (cops.conv3x3_fwd, cops.conv3x3_dgrad, cops.conv3x3_wgrad)
+    conv_counts = {}                 # CNN path -> convolution launches
     roundtrips = count_roundtrips()
 
-    def drive(path):
-        """Run ``path`` with every launch counter from zero; return its
-        result and the counts it left."""
-        for fn in counters:
+    def drive(path, tag):
+        """Run the CNN path ``path`` with every launch counter from zero;
+        return its result and the counts it left. The path must launch
+        each convolution kernel (training and scoring both run them)."""
+        for fn in counters + convs:
             fn.launches = 0
         roundtrips.calls = roundtrips.launches = 0
         out = path()
         torch.cuda.synchronize()
-        return out, {fn.__name__: fn.launches for fn in counters}
+        counts = {fn.__name__: fn.launches for fn in counters + convs}
+        conv_counts[tag] = {fn.__name__: counts[fn.__name__]
+                            for fn in convs}
+        print(f"[{tag} convolutions] launches={conv_counts[tag]}",
+              flush=True)
+        if not all(conv_counts[tag].values()):
+            fail(f"{tag}: a convolution kernel was not launched "
+                 f"({conv_counts[tag]})")
+        return out, counts
 
     def report(tag, walls, launches):
         print(f"[{tag}] fedcd mean wall_s rounds 2-{SMOKE_ROUNDS}="
@@ -3805,7 +3977,7 @@ def main() -> int:
                  f"{roundtrips.calls} roundtrip calls that make "
                  f"{roundtrips.launches} launches of each")
 
-    walls_main, launches = drive(lambda: main_path(device))
+    walls_main, launches = drive(lambda: main_path(device), "main path")
     report("main path", walls_main, launches)
     for name in ("multi_weighted_agg", "quantize", "dequantize"):
         if launches[name] <= 0:
@@ -3826,7 +3998,8 @@ def main() -> int:
 
     elapsed(6)
     # phase 7: the legacy engine at full width; then the batched engine
-    walls, legacy = drive(lambda: engine_path(device, "legacy"))
+    walls, legacy = drive(lambda: engine_path(device, "legacy"),
+                          "legacy path")
     report("legacy path", walls, legacy)
     if legacy["weighted_agg"] <= 0:
         fail("kernel weighted_agg was not launched on the legacy path")
@@ -3834,7 +4007,8 @@ def main() -> int:
         if legacy[name] <= 0:
             fail(f"kernel {name} was not launched on the legacy path")
     check_transport_launches("legacy path", legacy)
-    walls, batched = drive(lambda: engine_path(device, "batched"))
+    walls, batched = drive(lambda: engine_path(device, "batched"),
+                           "batched path")
     report("batched path", walls, batched)
     for name in ("multi_weighted_agg", "quantize", "dequantize"):
         if batched[name] <= 0:
@@ -3856,7 +4030,8 @@ def main() -> int:
     try:
         for name, server, spec in PIPELINED_PATHS:
             (pwalls, drain, st), counts = drive(
-                lambda: pipelined_path(device, probe, name, server, spec))
+                lambda: pipelined_path(device, probe, name, server, spec),
+                name)
             consumed += st["hit"] + st["repaired"]
             print(f"[{name}] mean wall_s rounds 2-{SMOKE_ROUNDS}="
                   f"{np.mean(pwalls[1:]):.4f} (phase 5 sync {server} "
@@ -3920,7 +4095,8 @@ def main() -> int:
         """One counted path. ``expect``: the exact launch counts the path
         must make (phase 13), in place of 'kernel 1 launched'."""
         (srv, walls, drain), counts = drive(
-            lambda: run_cell(device, name, server, spec, rounds, watch))
+            lambda: run_cell(device, name, server, spec, rounds, watch),
+            name)
         later[name] = counts
         transport = (f" roundtrip calls={roundtrips.calls}"
                      if server == "fedcd" else "")
@@ -3953,7 +4129,7 @@ def main() -> int:
             except SimulatedCrash as crash:
                 return crash
             return None
-        crash, counts = drive(path)
+        crash, counts = drive(path, name)
         later[name] = counts
         print(f"[{name}] {crash} launches={counts}", flush=True)
         if crash is None:
@@ -4054,6 +4230,7 @@ def main() -> int:
     kernels[-1]["note"] = ("no path calls it, in either package; launched "
                            "only by the kernel check above")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"conv_launches_by_path": conv_counts}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -496,12 +496,11 @@ def make_sharded_train(loss_fn: Callable, lr: float, mesh: LaunchMesh
     pairs at global rows, padded as the fused engine pads its batch
     (``pad_work_batch``); each cell's block is then gathered out of it,
     with zero rows for its padding (zero weight in every reduction).
-    cuDNN's result for a pair depends on the width of the batch it
-    trains in (on the CNN, 4 pairs trained in 4-wide and in 16-wide
-    calls differ by up to 3.6e-3 after one round's 32 steps), so one
-    call keeps a one-device mesh's training bit-equal to the fused
-    engine's, whose per-pair results do not depend on the pairs'
-    order."""
+    A pair's result depends on the width of the batch it trains in (on
+    the CNN the wgrad kernel cuts its pixel sums into more slices the
+    fewer pairs a call has), so one call keeps a one-device mesh's
+    training bit-equal to the fused engine's, whose per-pair results do
+    not depend on the pairs' order."""
     train = _pair_train(loss_fn, lr)
     cells = _cells(mesh)
     shared = _shared_device(mesh)

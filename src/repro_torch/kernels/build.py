@@ -23,7 +23,7 @@ from repro_torch import telemetry
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = ("weighted_agg", "quantize")
+SOURCES = ("weighted_agg", "quantize", "conv3x3")
 # no --use_fast_math: the kernels rely on IEEE division and rintf
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

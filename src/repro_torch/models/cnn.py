@@ -5,9 +5,12 @@
 2) + 2 dense layers. Params stay in the reference's layout — HWIO conv
 kernels, ``(in, out)`` dense weights — because transport quantization
 blocks each leaf in memory order (``core/quantize.py``): an OIHW bank
-would put other values into each 128-value block. The model permutes at
-use: inputs arrive NHWC, are convolved as NCHW, and go back to NHWC
-before the flatten so ``fc1`` rows keep their HWC meaning.
+would put other values into each 128-value block. The activations stay
+NHWC from input to flatten: the convolutions (each with its bias and
+ReLU) and the max-pools are one call of ``kernels/conv3x3``, whose
+kernels take NHWC and HWIO as they are, and which pools on
+channels-last views; the flatten is a plain reshape, so ``fc1`` rows
+keep their HWC meaning.
 """
 from __future__ import annotations
 
@@ -15,12 +18,13 @@ import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.kernels.conv3x3.ops import conv3x3_stack
 from repro_torch.models.common import (Params, accuracy, normal_init,
                                        softmax_cross_entropy)
 
 CHANNELS = (32, 32, 64, 64, 128, 128, 256, 256)
+POOLS = tuple(i % 2 == 1 for i in range(len(CHANNELS)))  # maxpool every 2
 DENSE = 256
 
 
@@ -48,13 +52,10 @@ def init_cnn(generator: torch.Generator, n_classes: int = 10,
 
 def apply_cnn(params: Params, x: torch.Tensor) -> torch.Tensor:
     """x (B, H, W, C) -> logits (B, n_classes)."""
-    x = x.permute(0, 3, 1, 2)                               # NHWC -> NCHW
-    for i in range(len(CHANNELS)):
-        w = params[f"conv.{i}"].permute(3, 2, 0, 1)         # HWIO -> OIHW
-        x = torch.relu(F.conv2d(x, w, params[f"conv_b.{i}"], padding=1))
-        if i % 2 == 1:
-            x = F.max_pool2d(x, 2)
-    x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)       # HWC flatten
+    n = len(CHANNELS)
+    x = conv3x3_stack(x, [params[f"conv.{i}"] for i in range(n)],
+                      [params[f"conv_b.{i}"] for i in range(n)], POOLS)
+    x = x.reshape(x.shape[0], -1)                           # HWC flatten
     x = torch.relu(x @ params["fc1"] + params["fc1_b"])
     return x @ params["fc2"] + params["fc2_b"]
 

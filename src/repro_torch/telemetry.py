@@ -189,8 +189,7 @@ def count(name: str, n: int = 1) -> None:
 
 def new_train_width(width: int) -> None:
     """Count ``new_shapes`` the first time this process (since the last
-    :func:`reset`, while recording) launches a train bucket ``width``:
-    each new width costs cuDNN an algorithm pick."""
+    :func:`reset`, while recording) launches a train bucket ``width``."""
     if _rec.current is not None and width not in _rec.shapes:
         _rec.shapes.add(width)
         count("new_shapes")
